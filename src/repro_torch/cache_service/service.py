@@ -1,0 +1,517 @@
+"""CacheService — the serving-path facade over the tiered store.
+
+The port of `repro/cache_service/service.py` for one device and one
+embedder.  The host half owns response strings (a dict keyed by value
+id, garbage-collected from the eviction reports every device op
+returns) and the per-tenant policy table; the device half is `tiers`:
+a hot exact store, a warm IVF ring and one cascaded lookup, on the
+service's ``device`` (the card unless the caller asks for the CPU).
+
+Lifecycle of an entry:
+
+  insert (admitted miss) -> hot tier -> demotion flush -> warm ring ->
+  [ring wraps, tenant evicted or TTL reaped] -> value id reported back
+  -> host frees the response string.
+
+The hot tier flushes its ``flush_size`` coldest rows to the warm ring
+whenever occupancy crosses ``flush_watermark``; every
+``rebuild_every``-th flush re-clusters the warm IVF inline.  Between
+rebuilds the warm lookup scans a fixed tail window sized to cover
+everything appended since the last rebuild.
+
+Serving surface (DESIGN.md §7): ``plan(CacheRequest) -> CachePlan``
+(cascade verdicts, hit responses, admission pre-decision, miss
+coalescing), then ``commit(plan, responses) -> CommitReceipt``
+(admissions, demotion flush, GC), ``maintenance()`` on the idle tick
+(TTL reap, gauges, health drain).  The double-buffered rebuild, the
+learning loops, the cold tier, embedder refresh, the ensemble and the
+sharded warm tier are refused by the port's ``CacheConfig`` until the
+slices that bring them land (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import time
+import warnings
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.cache_service import tiers
+from repro_torch.cache_service.config import CacheConfig
+from repro_torch.cache_service.policy import PolicyTable, TenantPolicy
+from repro_torch.cache_service.protocol import (
+    CacheCapabilities, CachePlan, CacheRequest, CommitReceipt,
+    MaintenanceReport, coalesce_misses, ungrouped_misses,
+)
+from repro_torch.device import resolve_device
+from repro_torch.obs import Telemetry
+from repro_torch.obs.registry import SCHEMA, tenant_label
+
+
+@dataclass(frozen=True)
+class ServiceStats:
+    """Typed, schema-stable ``CacheService`` snapshot (DESIGN.md §10.1);
+    every count is read from the telemetry registry."""
+    schema: str
+    traffic: Dict[str, int]
+    admission: Dict[str, int]
+    tiers: Dict[str, object]
+    rebuild: Dict[str, object]
+    learning: Optional[Dict[str, object]]
+    health: Optional[Dict[str, object]]
+    refresh: Optional[Dict[str, object]] = None
+
+    def to_dict(self) -> Dict[str, object]:
+        return {
+            "schema": self.schema, "traffic": dict(self.traffic),
+            "admission": dict(self.admission), "tiers": dict(self.tiers),
+            "rebuild": dict(self.rebuild),
+            "learning": dict(self.learning) if self.learning else None,
+            "health": dict(self.health) if self.health else None,
+            "refresh": dict(self.refresh) if self.refresh else None,
+        }
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+class CacheService:
+    def __init__(self, config: CacheConfig, *, device="cuda"):
+        """Build the tiered service from a ``CacheConfig`` on ``device``
+        (default the card; raises when CUDA is absent).
+
+        Tail invariant: rows demoted into the warm ring stay unindexed
+        until the next IVF rebuild and are reachable only through the
+        brute-force tail window over the last ``tail`` ring writes, so
+        ``tail = flush_size * rebuild_every`` must not exceed
+        ``warm_capacity``.  When it does, the window is clamped, flushes
+        force rebuilds earlier than ``rebuild_every`` says, and
+        construction warns.
+
+        ``fused=True`` routes the cascade through the fused lookup
+        kernel (`kernels/cascade_lookup`): the CUDA kernel on a card,
+        its plain torch version on the CPU — same results either way.
+        ``warm_dtype="int8"`` scans the warm panel from its per-row int8
+        quantization and re-scores the selected rows exactly.
+        ``warm_block`` is accepted and has no effect: it is a TPU
+        VMEM-residency knob, and the CUDA kernel tiles internally.
+
+        ``StalenessConfig`` turns on TTL eviction: admitted rows are
+        stamped ``now + ttl``, expired rows are masked out of every
+        plan's view of the tiers and reaped on ``maintenance()``.  All
+        times are relative to the clock's value at construction,
+        because float32 deadlines on absolute epoch seconds would round
+        to ~256 s steps.
+        """
+        if not isinstance(config, CacheConfig):
+            raise TypeError("CacheService takes a CacheConfig")
+        self.device = resolve_device(device)
+        cfg = self.config = config
+        tc, stc = cfg.tiering, cfg.staleness
+        dim = cfg.dim
+        hot_capacity, warm_capacity = tc.hot_capacity, tc.warm_capacity
+        flush_size = tc.flush_size
+        if flush_size is None:
+            flush_size = max(hot_capacity // 4, 1)
+        flush_size = min(flush_size, hot_capacity, warm_capacity)
+        rebuild_every = max(tc.rebuild_every, 1)
+        if flush_size * rebuild_every > warm_capacity:
+            warnings.warn(
+                f"tail window flush_size*rebuild_every ({flush_size}*"
+                f"{rebuild_every}={flush_size * rebuild_every} per shard) "
+                f"exceeds the per-shard warm capacity {warm_capacity}; "
+                "clamping and forcing IVF rebuilds before the unindexed "
+                "backlog outgrows the window (the configured rebuild "
+                "cadence will not be honored)", stacklevel=2)
+        self.dim = dim
+        self.hot_capacity = hot_capacity
+        self.warm_capacity = warm_capacity
+        self.flush_size = flush_size
+        self.flush_watermark = tc.flush_watermark
+        self.rebuild_every = rebuild_every
+        self.topk = cfg.topk
+        self.warm_shards = 1
+        self.warm_dtype = tc.warm_dtype
+        self.warm_block = tc.warm_block
+        self._kmeans_iters = tc.kmeans_iters
+        self._seed = cfg.seed
+        self._tail = min(flush_size * rebuild_every, warm_capacity)
+        self._n_probe = tc.n_probe
+        self.hot = tiers.init_hot(hot_capacity, dim, self.device)
+        self.warm = tiers.init_warm(warm_capacity, dim, tc.n_clusters,
+                                    tc.bucket, self.device)
+        self.policies = PolicyTable(TenantPolicy(cfg.threshold,
+                                                 cfg.admission_margin))
+        self.responses: Dict[int, str] = {}
+        self._next_vid = 0
+        self._epoch = 0              # bumped by evict_tenant (plan staleness)
+        self._embed_version = 0
+        self._last_rebuild_s = 0.0
+        self._rebuild_total_s = 0.0
+        self._n_plans = 0
+        self._n_evictions = 0
+        self.default_ttl = stc.default_ttl
+        raw_clock = stc.clock if stc.clock is not None else time.time
+        t0 = float(raw_clock())
+        self._clock = lambda: float(raw_clock()) - t0
+        self._ttl_active = stc.default_ttl is not None
+        self.telemetry = cfg.telemetry if cfg.telemetry is not None \
+            else Telemetry()
+        reg = self.telemetry.registry
+        self._stage_h = self.telemetry.stage_histogram()
+        self._c_plans = reg.counter(
+            "cache_plans_total", "plan() calls").labels()
+        self._c_commits = reg.counter(
+            "cache_commits_total", "commit() calls").labels()
+        self._c_stale = reg.counter(
+            "cache_stale_commits_total",
+            "commits whose plan predates an epoch bump").labels()
+        self._c_rows = reg.counter(
+            "cache_lookup_rows_total", "rows planned").labels()
+        c_hits = reg.counter("cache_hits_total", "plan-time hits by tier",
+                             labels=("tier",))
+        self._c_hot_hits = c_hits.labels(tier="hot")
+        self._c_warm_hits = c_hits.labels(tier="warm")
+        self._c_cold_hits = c_hits.labels(tier="cold")
+        self._m_admissions = reg.counter(
+            "cache_admissions_total", "commit-time admission decisions",
+            labels=("tenant", "decision"))
+        self._c_demotions = reg.counter(
+            "cache_demotions_total", "rows demoted hot -> warm").labels()
+        self._c_evictions = reg.counter(
+            "cache_evictions_total", "host response strings freed").labels()
+        self._c_ev_demoted = reg.counter(
+            "cache_evictions_demoted_total",
+            "warm-ring overwrites captured into the cold tier").labels()
+        self._c_ev_dropped = reg.counter(
+            "cache_evictions_dropped_total",
+            "warm-ring overwrites freed with no cold tier to catch "
+            "them").labels()
+        self._c_rebuilds = reg.counter(
+            "cache_rebuilds_total",
+            "IVF re-clusters completed (published or inline)").labels()
+        self._c_shadow = reg.counter(
+            "cache_shadow_rebuilds_total", "shadow builds started").labels()
+        self._c_ttl_stamped = reg.counter(
+            "cache_ttl_stamped_total",
+            "admitted rows stamped with a finite expiry (§14.2)").labels()
+        self._c_expired_masked = reg.counter(
+            "cache_expired_masked_total",
+            "TTL-expired rows masked out of plan-time tier views "
+            "(§14.2)").labels()
+        self._c_expired_reaped = reg.counter(
+            "cache_expired_reaped_total",
+            "TTL-expired rows reaped by maintenance() across all "
+            "tiers (§14.2)").labels()
+        self.fused = bool(tc.fused)
+
+    def set_fused(self, fused: bool) -> None:
+        """Select the cascade execution path (four-op vs fused kernel)."""
+        self.fused = bool(fused)
+
+    def _lookup(self, hot, warm, q, qt, thr) -> tiers.CascadeResult:
+        return tiers.cascade_query(
+            hot, warm, q, qt, thr, k=self.topk, n_probe=self._n_probe,
+            tail=self._tail, fused=self.fused,
+            quantized=self.warm_dtype == "int8",
+            warm_block_n=self.warm_block)
+
+    def _t(self, a, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype,
+                               device=self.device)
+
+    # ------------------------------------------------------------------
+    # tenant policy surface
+    # ------------------------------------------------------------------
+    def set_tenant_policy(self, tenant: int, threshold: float,
+                          admission_margin: float = 0.0) -> None:
+        self.policies.set(tenant, TenantPolicy(threshold, admission_margin))
+
+    # ------------------------------------------------------------------
+    # CacheBackend protocol: plan / commit / maintenance / stats
+    # ------------------------------------------------------------------
+    def capabilities(self) -> CacheCapabilities:
+        return CacheCapabilities(tenants=True, fused_lookup=True,
+                                 admission=True, background_rebuild=False,
+                                 tiered=True, warm_sharded=False,
+                                 warm_dtype=self.warm_dtype, ttl=True)
+
+    def plan(self, request: CacheRequest, *,
+             coalesce: bool = True) -> CachePlan:
+        """Read side: one cascade over both tiers, LRU touch, response
+        resolution, admission pre-decision, miss coalescing."""
+        t0 = time.perf_counter()
+        qt = request.tenants
+        thr = self.policies.effective_thresholds(qt)
+        now = float(self._clock()) if self._ttl_active else None
+        hot_view, warm_view = self.hot, self.warm
+        n_masked = 0
+        if now is not None:
+            hot_view, warm_view, nm = tiers.mask_expired(self.hot,
+                                                         self.warm, now)
+            n_masked = int(nm)
+            if n_masked:
+                self._c_expired_masked.inc(n_masked)
+        pilot = np.asarray(request.embeddings)
+        res = self._lookup(hot_view, warm_view,
+                           self._t(pilot, torch.float32),
+                           self._t(qt, torch.int32),
+                           self._t(thr, torch.float32))
+        self.hot = tiers.hot_touch(self.hot, res.hot_slots, res.hot_hit)
+        hit = _np(res.hit)
+        scores = _np(res.scores[:, 0])
+        vids = _np(res.value_ids[:, 0]).astype(np.int64)
+        hot_hit = _np(res.hot_hit)
+        self._n_plans += 1
+        self._c_plans.inc()
+        self._c_rows.inc(len(hit))
+        self._c_hot_hits.inc(int(hot_hit.sum()))
+        self._c_warm_hits.inc(int((hit & ~hot_hit).sum()))
+        responses = [self.responses.get(int(v)) if h else None
+                     for h, v in zip(hit, vids)]
+        admit = self.policies.pre_decision(qt, scores, hit)
+        if self.telemetry.health is not None:
+            self.telemetry.health.observe_plan(qt, hit)
+        leader = coalesce_misses(pilot, hit, qt, thr) \
+            if coalesce else ungrouped_misses(hit)
+        wall = time.perf_counter() - t0
+        self._stage_h.observe(wall, stage="plan", tenant=tenant_label(qt))
+        return CachePlan(
+            request=request, hit=hit, scores=scores,
+            value_ids=np.where(hit, vids, -1), responses=responses,
+            admit=admit, miss_leader=leader, epoch=self._epoch,
+            margins=np.asarray(thr, np.float32) - scores,
+            top_value_ids=vids, plan_wall_s=wall,
+            embed_version=self._embed_version, expired_masked=n_masked)
+
+    def commit(self, plan: CachePlan,
+               responses: Sequence[Optional[str]]) -> CommitReceipt:
+        """Write side: admit planned misses (fresh value ids — a stale
+        plan can never resurrect an id freed since plan time), flush if
+        over the watermark, GC reported evictions."""
+        t0 = time.perf_counter()
+        self._c_commits.inc()
+        if plan.epoch != self._epoch:
+            self._c_stale.inc()
+        rows = plan.miss_rows()
+        admit = plan.admit[rows]
+        texts: List[Optional[str]] = [responses[i] for i in rows]
+        for pos in np.nonzero(admit)[0]:
+            if texts[pos] is None:
+                raise ValueError(
+                    f"admitted row {int(rows[pos])} has no response")
+        vids = np.full(len(rows), -1, np.int64)
+        for pos in np.nonzero(admit)[0]:
+            vids[pos] = self._next_vid
+            self.responses[self._next_vid] = texts[pos]
+            self._next_vid += 1
+        n_admit = int(admit.sum())
+        row_tenants = plan.request.tenants[rows]
+        for tid in np.unique(row_tenants):
+            m = row_tenants == tid
+            n_a = int(admit[m].sum())
+            if n_a:
+                self._m_admissions.inc(n_a, tenant=int(tid),
+                                       decision="admitted")
+            if int(m.sum()) - n_a:
+                self._m_admissions.inc(int(m.sum()) - n_a,
+                                       tenant=int(tid), decision="skipped")
+        evicted_before = self._n_evictions
+        n_ttl = 0
+        if len(rows):
+            if plan.request.ttl is not None:
+                ttl_rows = np.asarray(plan.request.ttl, np.float32)[rows]
+            else:
+                ttl_rows = np.full(
+                    len(rows),
+                    np.inf if self.default_ttl is None
+                    else float(self.default_ttl), np.float32)
+            expires = np.full(len(rows), np.inf, np.float32)
+            fin = np.isfinite(ttl_rows)
+            if fin.any():
+                expires[fin] = np.float32(float(self._clock())) \
+                    + ttl_rows[fin]
+            n_ttl = int((fin & np.asarray(admit, bool)).sum())
+            if n_ttl:
+                self._ttl_active = True
+                self._c_ttl_stamped.inc(n_ttl)
+            self.hot, evicted = tiers.hot_insert_batch(
+                self.hot, self._t(plan.request.embeddings[rows],
+                                  torch.float32),
+                self._t(vids, torch.int32),
+                self._t(plan.request.tenants[rows], torch.int32),
+                self._t(expires, torch.float32))
+            self._gc(evicted)
+            self._maybe_flush()
+        wall = time.perf_counter() - t0
+        self._stage_h.observe(wall, stage="commit",
+                              tenant=tenant_label(plan.request.tenants))
+        return CommitReceipt(
+            admitted=n_admit, skipped=int((~admit).sum()),
+            evicted=self._n_evictions - evicted_before,
+            rebuild_due=False, commit_wall_s=wall,
+            trace_id=plan.request.trace_id,
+            embed_version=self._embed_version, ttl_stamped=n_ttl)
+
+    def maintenance(self, block: bool = False) -> MaintenanceReport:
+        """The idle tick (DESIGN.md §10.3): reap TTL-expired rows,
+        publish occupancy gauges, drain the health tracker.  Rebuilds
+        run inline at flush time in the port, so ``block`` has nothing
+        to join."""
+        del block
+        t0 = time.perf_counter()
+        expired_reaped = 0
+        if self._ttl_active:
+            now = float(self._clock())
+            self.hot, self.warm, h_ev, w_ev = tiers.reap_expired(
+                self.hot, self.warm, now)
+            expired_reaped = self._gc(h_ev) + self._gc(w_ev)
+            if expired_reaped:
+                self._c_expired_reaped.inc(expired_reaped)
+        reg = self.telemetry.registry
+        reg.gauge("cache_hot_occupancy",
+                  "hot-tier occupancy fraction").set(self.hot_occupancy)
+        reg.gauge("cache_warm_occupancy",
+                  "warm-ring occupancy fraction").set(self.warm_occupancy)
+        reg.gauge("cache_live_responses",
+                  "host response strings held").set(len(self.responses))
+        reg.gauge("cache_warm_backlog_rows",
+                  "rows appended since the published index (demotion "
+                  "pressure vs the tail window)").set(self._backlog())
+        if self.telemetry.health is not None:
+            self.telemetry.health.drain(reg)
+        host_wall = time.perf_counter() - t0
+        self._stage_h.observe(host_wall, stage="maintenance", tenant="-")
+        return MaintenanceReport(wall_s=host_wall,
+                                 embed_version=self._embed_version,
+                                 expired_reaped=expired_reaped)
+
+    def stats_snapshot(self) -> ServiceStats:
+        """The typed stats surface (DESIGN.md §10.1): every count read
+        back from the telemetry registry."""
+        reg = self.telemetry.registry
+        traffic = {
+            "plans": int(reg.value("cache_plans_total")),
+            "commits": int(reg.value("cache_commits_total")),
+            "stale_commits": int(reg.value("cache_stale_commits_total")),
+            "lookup_rows": int(reg.value("cache_lookup_rows_total")),
+            "hot_hits": int(reg.value("cache_hits_total", tier="hot")),
+            "warm_hits": int(reg.value("cache_hits_total", tier="warm")),
+            "cold_hits": int(reg.value("cache_hits_total", tier="cold")),
+        }
+        admission = {
+            "admitted": int(reg.value("cache_admissions_total",
+                                      decision="admitted")),
+            "skipped": int(reg.value("cache_admissions_total",
+                                     decision="skipped")),
+        }
+        tiers_d = {
+            "hot_occupancy": self.hot_occupancy,
+            "warm_occupancy": self.warm_occupancy,
+            "demotions": int(reg.value("cache_demotions_total")),
+            "evictions": self._n_evictions,
+            "evictions_demoted": int(
+                reg.value("cache_evictions_demoted_total")),
+            "evictions_dropped": int(
+                reg.value("cache_evictions_dropped_total")),
+            "live_responses": len(self.responses),
+            "warm_shards": self.warm_shards,
+            "warm_dtype": self.warm_dtype,
+        }
+        if self._ttl_active:
+            tiers_d["staleness"] = {
+                "default_ttl": self.default_ttl,
+                "ttl_stamped": int(reg.value("cache_ttl_stamped_total")),
+                "expired_masked": int(
+                    reg.value("cache_expired_masked_total")),
+                "expired_reaped": int(
+                    reg.value("cache_expired_reaped_total")),
+            }
+        rebuild = {
+            "rebuilds": int(reg.value("cache_rebuilds_total")),
+            "shadow_started": int(
+                reg.value("cache_shadow_rebuilds_total")),
+            "in_flight": False,
+            "last_wall_s": self._last_rebuild_s,
+            "total_wall_s": self._rebuild_total_s,
+        }
+        health = self.telemetry.health.snapshot() \
+            if self.telemetry.health is not None else None
+        return ServiceStats(schema=SCHEMA, traffic=traffic,
+                            admission=admission, tiers=tiers_d,
+                            rebuild=rebuild, learning=None,
+                            health=health, refresh=None)
+
+    def evict_tenant(self, tenant: int) -> int:
+        """Drop every entry of one tenant from both tiers; frees the
+        host strings.  Returns the number of entries evicted."""
+        self._epoch += 1
+        self.hot, self.warm, h_ev, w_ev = tiers.evict_tenant(
+            self.hot, self.warm, int(tenant))
+        return self._gc(h_ev) + self._gc(w_ev)
+
+    # ------------------------------------------------------------------
+    # internals
+    # ------------------------------------------------------------------
+    def _gc(self, evicted) -> int:
+        """Free response strings whose ids a device op reported evicted."""
+        ids = _np(evicted) if torch.is_tensor(evicted) \
+            else np.asarray(evicted)
+        n = 0
+        for v in ids[ids >= 0]:
+            if self.responses.pop(int(v), None) is not None:
+                n += 1
+        self._n_evictions += n
+        self._c_evictions.inc(n)
+        return n
+
+    def _backlog(self) -> int:
+        """Rows appended since the published index was built."""
+        return int(self.warm.total - self.warm.indexed_total)
+
+    def _tail_pressure(self) -> bool:
+        """One more flush would push the unindexed backlog past the
+        tail window."""
+        return self._backlog() + self.flush_size > self._tail
+
+    def _rebuild_inline(self) -> None:
+        t0 = time.perf_counter()
+        self.warm = tiers.warm_rebuild(self.warm, self._kmeans_iters,
+                                       self._seed)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._last_rebuild_s = time.perf_counter() - t0
+        self._rebuild_total_s += self._last_rebuild_s
+        self._c_rebuilds.inc()
+
+    def _do_flush(self, rebuild: bool) -> None:
+        self.hot, dem = tiers.demote_coldest(self.hot, self.flush_size)
+        self.warm, evicted = tiers.warm_append(self.warm, dem)
+        self._c_ev_dropped.inc(self._gc(evicted))
+        self._c_demotions.inc(int(dem.mask.sum()))
+        # the tail window only covers the last `tail` ring writes; a
+        # rebuild is forced before the unindexed backlog outgrows it
+        if rebuild or self._tail_pressure():
+            self._rebuild_inline()
+
+    def _maybe_flush(self) -> None:
+        n_valid = int(self.hot.valid.sum())
+        if n_valid >= self.flush_watermark * self.hot_capacity:
+            self._do_flush(rebuild=False)
+
+    def flush(self, rebuild: bool = True) -> None:
+        """Force one demotion flush now.  ``rebuild=False`` still
+        rebuilds if skipping would leave rows beyond the tail window."""
+        self._do_flush(rebuild)
+
+    # ------------------------------------------------------------------
+    @property
+    def hot_occupancy(self) -> float:
+        return int(self.hot.valid.sum()) / self.hot_capacity
+
+    @property
+    def warm_occupancy(self) -> float:
+        return int(self.warm.valid.sum()) / self.warm_capacity

@@ -1,0 +1,542 @@
+"""Device half of the tiered multi-tenant cache, over torch tensors.
+
+The port of `repro/cache_service/tiers.py` (single device, one
+embedder).  Two tiers share one geometry (unit-norm cosine keys) and one
+id space (host-side ``value_ids``):
+
+  * HOT  — a small flat store that absorbs every admitted insert and
+    answers with exact brute-force top-k, masked on a tenant column.
+  * WARM — a large ring buffer indexed by an IVF (centroids + fixed
+    bucket inverted lists).  Cold hot-tier rows are demoted here in
+    fixed-size flushes; the IVF is rebuilt periodically, and rows
+    appended since the last rebuild stay reachable through a fixed-size
+    brute-force *tail* window.
+
+States are NamedTuples of tensors and every operation is functional:
+it returns new states and never writes into the ones it was given
+(``mask_expired`` hands the cascade a *view* with cleared valid bits
+while the stored state stays intact, exactly as in the reference).
+Scalars (``clock``, ``cursor``, ``total``, ``indexed_total``) are 0-d
+int32 tensors on the tier's device, so a lookup never waits on the
+host.
+
+`cascade_query` selects between the four-op composition here
+(``fused=False``, the parity reference) and the fused cascade kernel
+(`kernels/cascade_lookup`: the hand-written CUDA kernel on a card, its
+plain torch version for CPU tensors).  The sharded warm tier and the
+multi-embedder ensemble arrive with later slices of the port.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import ivf as ivf_lib
+from repro_torch.kernels.cascade_lookup import ops as casc_ops
+from repro_torch.kernels.cascade_lookup.ref import topk_stable
+
+NEG = -1e30
+_I32 = torch.int32
+_I32_MAX = torch.iinfo(torch.int32).max
+
+
+class HotState(NamedTuple):
+    keys: torch.Tensor        # (N, D) float32, unit-norm rows
+    valid: torch.Tensor       # (N,)  bool
+    tenants: torch.Tensor     # (N,)  int32, -1 when invalid
+    last_used: torch.Tensor   # (N,)  int32 lamport clock
+    inserted_at: torch.Tensor  # (N,) int32
+    value_ids: torch.Tensor   # (N,)  int32 host-side response index
+    clock: torch.Tensor       # ()    int32
+    expires_at: torch.Tensor  # (N,)  float32 expiry, +inf = no TTL
+
+
+class WarmState(NamedTuple):
+    keys: torch.Tensor        # (Nw, D) float32 unit-norm
+    valid: torch.Tensor       # (Nw,) bool
+    tenants: torch.Tensor     # (Nw,) int32
+    value_ids: torch.Tensor   # (Nw,) int32
+    write_seq: torch.Tensor   # (Nw,) int32 1-based global write sequence
+    cursor: torch.Tensor      # ()    int32 next ring position
+    total: torch.Tensor       # ()    int32 total rows ever appended
+    centroids: torch.Tensor   # (K, D)
+    members: torch.Tensor     # (K, bucket) int32 row ids, -1 empty
+    sizes: torch.Tensor       # (K,) int32
+    indexed_total: torch.Tensor  # () int32: `total` at the last rebuild
+    keys_q: torch.Tensor      # (Nw, D) int8 symmetric per-row quantization
+    scales: torch.Tensor      # (Nw,) float32 per-row dequant scale
+    expires_at: torch.Tensor  # (Nw,) float32 expiry, +inf = no TTL
+
+
+class Demoted(NamedTuple):
+    keys: torch.Tensor        # (m, D)
+    value_ids: torch.Tensor   # (m,)
+    tenants: torch.Tensor     # (m,)
+    mask: torch.Tensor        # (m,) bool — False rows are padding
+    expires: Optional[torch.Tensor] = None   # (m,) float32, None = no TTL
+
+
+class CascadeResult(NamedTuple):
+    scores: torch.Tensor      # (Q, k) best-of-both-tiers cosine, desc
+    value_ids: torch.Tensor   # (Q, k) -1 where no candidate
+    hot_slots: torch.Tensor   # (Q,)   hot-tier row of the hot top-1
+    hot_hit: torch.Tensor     # (Q,)   hit answered by the hot tier
+    hit: torch.Tensor         # (Q,)   best score >= per-query threshold
+
+
+_unit = ivf_lib._unit
+
+
+def _scalar(v, device) -> torch.Tensor:
+    return torch.tensor(v, dtype=_I32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# carry-across from the reference (tests)
+# ---------------------------------------------------------------------------
+
+def _from_reference(cls, state, device):
+    out = {}
+    for name in cls._fields:
+        a = np.array(getattr(state, name))
+        out[name] = torch.from_numpy(a).to(device)
+    return cls(**out)
+
+
+def hot_from_reference(state, device="cpu") -> HotState:
+    """A reference ``HotState`` (leaves as numpy or JAX arrays) as the
+    port's; dtypes and layouts are identical."""
+    return _from_reference(HotState, state, device)
+
+
+def warm_from_reference(state, device="cpu") -> WarmState:
+    """A reference (unsharded) ``WarmState`` as the port's."""
+    return _from_reference(WarmState, state, device)
+
+
+# ---------------------------------------------------------------------------
+# hot tier
+# ---------------------------------------------------------------------------
+
+def init_hot(capacity: int, dim: int, device="cpu") -> HotState:
+    return HotState(
+        keys=torch.zeros((capacity, dim), device=device),
+        valid=torch.zeros((capacity,), dtype=torch.bool, device=device),
+        tenants=torch.full((capacity,), -1, dtype=_I32, device=device),
+        last_used=torch.zeros((capacity,), dtype=_I32, device=device),
+        inserted_at=torch.zeros((capacity,), dtype=_I32, device=device),
+        value_ids=torch.full((capacity,), -1, dtype=_I32, device=device),
+        clock=_scalar(0, device),
+        expires_at=torch.full((capacity,), float("inf"), device=device),
+    )
+
+
+def _insert_chunk(state: HotState, embs, value_ids, tenants, expires
+                  ) -> Tuple[HotState, torch.Tensor]:
+    """Insert up to ``capacity`` rows at once, with the sequential
+    semantics of one-row-at-a-time `hot_insert`.  Row r (skipped when
+    its value id is < 0) takes the next slot in the order the
+    sequential loop would pick them: free slots by ascending index,
+    then valid slots by (last_used, index) — within one chunk a freshly
+    written slot carries the newest clock, so it is never picked twice.
+    """
+    cap = state.valid.shape[0]
+    dev = state.keys.device
+    idx = torch.arange(cap, device=dev, dtype=torch.int64)
+    order_key = torch.where(state.valid,
+                            (state.last_used.long() + 1) * cap + idx, idx)
+    order = torch.argsort(order_key)
+    live = value_ids >= 0
+    rank = torch.cumsum(live.long(), 0) - 1
+    slot = order[rank.clamp_min(0)]
+    clock_r = state.clock + 1 + rank.to(_I32)               # per row
+    evicted = torch.where(live & state.valid[slot],
+                          state.value_ids[slot], -1).to(_I32)
+    s = slot[live]
+    new = HotState(
+        keys=state.keys.clone(), valid=state.valid.clone(),
+        tenants=state.tenants.clone(), last_used=state.last_used.clone(),
+        inserted_at=state.inserted_at.clone(),
+        value_ids=state.value_ids.clone(),
+        clock=state.clock + live.sum().to(_I32),
+        expires_at=state.expires_at.clone())
+    new.keys[s] = _unit(embs.float())[live]
+    new.valid[s] = True
+    new.tenants[s] = tenants.to(_I32)[live]
+    new.last_used[s] = clock_r[live]
+    new.inserted_at[s] = clock_r[live]
+    new.value_ids[s] = value_ids.to(_I32)[live]
+    new.expires_at[s] = expires.float()[live]
+    return new, evicted
+
+
+def hot_insert_batch(state: HotState, embs: torch.Tensor,
+                     value_ids: torch.Tensor, tenants: torch.Tensor,
+                     expires: Optional[torch.Tensor] = None
+                     ) -> Tuple[HotState, torch.Tensor]:
+    """Sequential batch insert; ``value_id < 0`` rows are admission
+    skips (no-op).  ``expires`` (float32, None = +inf) stamps each row's
+    TTL deadline.  Returns (state, evicted (M,) int32): the response id
+    of each overwritten valid slot (else -1), for host GC."""
+    M = embs.shape[0]
+    if expires is None:
+        expires = torch.full((M,), float("inf"), device=embs.device)
+    cap = state.valid.shape[0]
+    out = []
+    for lo in range(0, M, cap):
+        state, ev = _insert_chunk(state, embs[lo:lo + cap],
+                                  value_ids[lo:lo + cap],
+                                  tenants[lo:lo + cap],
+                                  expires[lo:lo + cap])
+        out.append(ev)
+    evicted = torch.cat(out) if out else torch.zeros(0, dtype=_I32,
+                                                     device=embs.device)
+    return state, evicted
+
+
+def hot_insert(state: HotState, emb, value_id, tenant, expires=None
+               ) -> Tuple[HotState, torch.Tensor]:
+    """Insert one embedding; returns (state, evicted_value_id)."""
+    dev = state.keys.device
+    exp = None if expires is None else \
+        torch.as_tensor(expires, dtype=torch.float32, device=dev).view(1)
+    state, ev = hot_insert_batch(
+        state, torch.as_tensor(emb, device=dev).view(1, -1),
+        torch.as_tensor(value_id, dtype=_I32, device=dev).view(1),
+        torch.as_tensor(tenant, dtype=_I32, device=dev).view(1), exp)
+    return state, ev[0]
+
+
+def hot_touch(state: HotState, slots: torch.Tensor,
+              hit: torch.Tensor) -> HotState:
+    """LRU bump for hit slots (slots: (Q,), hit: (Q,))."""
+    clock = state.clock + 1
+    safe = torch.where(hit, slots.long(), 0)
+    vals = torch.where(hit, clock, torch.zeros_like(clock))
+    last = state.last_used.scatter_reduce(0, safe, vals, "amax",
+                                          include_self=True)
+    return state._replace(last_used=last, clock=clock)
+
+
+def hot_query(state: HotState, q: torch.Tensor, q_tenants: torch.Tensor,
+              k: int = 1):
+    """Exact tenant-masked top-k.  q: (Q, D), q_tenants: (Q,) int32."""
+    qn = _unit(q.float())
+    scores = qn @ state.keys.T                                    # (Q, N)
+    ok = state.valid[None, :] & (state.tenants[None, :]
+                                 == q_tenants[:, None])
+    scores = torch.where(ok, scores, NEG)
+    s, slots = topk_stable(scores, k)
+    vids = torch.where(s > NEG / 2, state.value_ids[slots], -1)
+    return s, slots.to(_I32), vids.to(_I32)
+
+
+def coldest_slots(state: HotState, m: int) -> torch.Tensor:
+    """The m coldest hot slots in demotion order: ascending
+    (last_used, inserted_at, slot), invalid rows last."""
+    big = _I32_MAX
+    lu = torch.where(state.valid, state.last_used, big).long()
+    ins = torch.where(state.valid, state.inserted_at, big).long()
+    return torch.sort(lu * (1 << 32) + ins, stable=True).indices[:m]
+
+
+def demote_coldest(state: HotState, m: int) -> Tuple[HotState, Demoted]:
+    """Pop the m least-recently-used valid rows for warm-tier flush
+    (ties on ``last_used`` break on the insertion sequence, then slot).
+    ``mask`` is False on padding rows (fewer than m valid)."""
+    idx = coldest_slots(state, m)
+    mask = state.valid[idx]
+    valid = state.valid.clone()
+    valid[idx] = False
+    dem = Demoted(keys=state.keys[idx], value_ids=state.value_ids[idx],
+                  tenants=state.tenants[idx], mask=mask,
+                  expires=state.expires_at[idx])
+    return state._replace(valid=valid), dem
+
+
+# ---------------------------------------------------------------------------
+# warm tier
+# ---------------------------------------------------------------------------
+
+def quantize_rows(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per-row quantization of a (…, D) key panel:
+    ``keys ≈ q8 * scale[..., None]`` with scale = amax/127 (round half
+    to even, as the reference).  Returns (q8 int8, scale float32)."""
+    amax = keys.abs().amax(dim=-1)
+    scale = amax.clamp_min(1e-9) / 127.0
+    q8 = torch.round(keys / scale[..., None]).clamp(-127, 127)
+    return q8.to(torch.int8), scale.float()
+
+
+def requantize(state: WarmState) -> WarmState:
+    """Refresh ``keys_q``/``scales`` from ``keys``."""
+    q8, sc = quantize_rows(state.keys)
+    return state._replace(keys_q=q8, scales=sc)
+
+
+def init_warm(capacity: int, dim: int, n_clusters: int, bucket: int,
+              device="cpu") -> WarmState:
+    return WarmState(
+        keys=torch.zeros((capacity, dim), device=device),
+        valid=torch.zeros((capacity,), dtype=torch.bool, device=device),
+        tenants=torch.full((capacity,), -1, dtype=_I32, device=device),
+        value_ids=torch.full((capacity,), -1, dtype=_I32, device=device),
+        write_seq=torch.zeros((capacity,), dtype=_I32, device=device),
+        cursor=_scalar(0, device),
+        total=_scalar(0, device),
+        centroids=torch.zeros((n_clusters, dim), device=device),
+        members=torch.full((n_clusters, bucket), -1, dtype=_I32,
+                           device=device),
+        sizes=torch.zeros((n_clusters,), dtype=_I32, device=device),
+        indexed_total=_scalar(0, device),
+        keys_q=torch.zeros((capacity, dim), dtype=torch.int8, device=device),
+        scales=torch.zeros((capacity,), device=device),
+        expires_at=torch.full((capacity,), float("inf"), device=device),
+    )
+
+
+def warm_append(state: WarmState, dem: Demoted
+                ) -> Tuple[WarmState, torch.Tensor]:
+    """Ring-buffer append of a demoted batch (m <= warm capacity).
+
+    Returns (state, evicted (m,) int32) — response ids of overwritten
+    ring slots, -1 padding.  Appended rows stay unindexed until the
+    next rebuild; the cascade's tail window keeps them reachable.  The
+    int8 panel and the TTL column are maintained in the same update.
+    """
+    cap = state.keys.shape[0]
+    offs = torch.cumsum(dem.mask.to(_I32), 0, dtype=_I32) - 1
+    pos = (state.cursor + offs) % cap
+    evicted = torch.where(dem.mask & state.valid[pos],
+                          state.value_ids[pos], -1).to(_I32)
+    n = dem.mask.sum().to(_I32)
+    seqs = state.total + 1 + offs
+    kn = _unit(dem.keys.float())
+    k8, sc = quantize_rows(kn)
+    exp = dem.expires.float() if dem.expires is not None else \
+        torch.full(dem.mask.shape, float("inf"), device=kn.device)
+    d = pos[dem.mask].long()
+    m = dem.mask
+    new = state._replace(
+        keys=state.keys.clone(), valid=state.valid.clone(),
+        tenants=state.tenants.clone(), value_ids=state.value_ids.clone(),
+        write_seq=state.write_seq.clone(),
+        cursor=(state.cursor + n) % cap, total=state.total + n,
+        keys_q=state.keys_q.clone(), scales=state.scales.clone(),
+        expires_at=state.expires_at.clone())
+    new.keys[d] = kn[m]
+    new.valid[d] = True
+    new.tenants[d] = dem.tenants.to(_I32)[m]
+    new.value_ids[d] = dem.value_ids.to(_I32)[m]
+    new.write_seq[d] = seqs[m]
+    new.keys_q[d] = k8[m]
+    new.scales[d] = sc[m]
+    new.expires_at[d] = exp[m]
+    return new, evicted
+
+
+def warm_rebuild(state: WarmState, iters: int = 8, seed: int = 0,
+                 first: Optional[int] = None) -> WarmState:
+    """Re-cluster the warm corpus and refill the inverted lists
+    (spherical k-means + the same static list fill as `build_ivf`);
+    ``first`` injects the k-means seed row (see `core.ivf`)."""
+    n_clusters, bucket = state.members.shape
+    cent = ivf_lib.kmeans(state.keys, state.valid, n_clusters, iters, seed,
+                          first)
+    members, sizes = ivf_lib.build_lists(state.keys, state.valid, cent,
+                                         bucket)
+    return state._replace(centroids=cent, members=members, sizes=sizes,
+                          indexed_total=state.total.clone())
+
+
+def _warm_candidates(state: WarmState, qn, q_tenants, n_probe: int,
+                     tail: int):
+    """IVF probe + unindexed-tail candidate panel: (safe (Q, C) row
+    ids, ok (Q, C) mask)."""
+    Q = qn.shape[0]
+    cap = state.keys.shape[0]
+    n_clusters, bucket = state.members.shape
+    n_probe = min(n_probe, n_clusters)
+    csims = qn @ state.centroids.T                                 # (Q, K)
+    _, probes = topk_stable(csims, n_probe)
+    cand = state.members[probes].reshape(Q, n_probe * bucket)
+    is_tail = torch.zeros(cand.shape, dtype=torch.bool, device=qn.device)
+    if tail:
+        # floor-mod, as the reference's jnp `%`: torch's `%` on tensors
+        # is torch.remainder, which takes the divisor's sign too
+        offs = torch.arange(tail, dtype=_I32, device=qn.device)
+        tail_idx = (state.cursor - 1 - offs) % cap
+        unindexed = state.write_seq[tail_idx] > state.indexed_total
+        tail_cand = torch.where(unindexed, tail_idx, -1).to(_I32)
+        cand = torch.cat([cand, tail_cand[None, :].expand(Q, tail)], 1)
+        is_tail = torch.cat(
+            [is_tail, torch.ones((Q, tail), dtype=torch.bool,
+                                 device=qn.device)], 1)
+    safe = cand.clamp(0, cap - 1).long()
+    ok = (cand >= 0) & state.valid[safe] \
+        & (state.tenants[safe] == q_tenants[:, None]) \
+        & (is_tail | (state.write_seq[safe] <= state.indexed_total))
+    return safe, ok
+
+
+def warm_query(state: WarmState, q: torch.Tensor, q_tenants: torch.Tensor,
+               k: int = 1, n_probe: int = 8, tail: int = 0,
+               quantized: bool = False):
+    """IVF probe + unindexed-tail scan, tenant-masked.  ``quantized``
+    scores the candidates from the int8 panel (fp32 accumulation, times
+    the row scale), as the reference's int8 cascade does."""
+    qn = _unit(q.float())
+    safe, ok = _warm_candidates(state, qn, q_tenants, n_probe, tail)
+    if quantized:
+        panel = state.keys_q[safe].float()
+        scores = torch.einsum("qd,qnd->qn", qn, panel) * state.scales[safe]
+    else:
+        scores = torch.einsum("qd,qnd->qn", qn, state.keys[safe])
+    scores = torch.where(ok, scores, NEG)
+    top_s, top_i = topk_stable(scores, k)
+    slots = torch.gather(safe, 1, top_i)
+    vids = torch.where(top_s > NEG / 2, state.value_ids[slots], -1)
+    return top_s, slots.to(_I32), vids.to(_I32)
+
+
+# ---------------------------------------------------------------------------
+# cascade + tenant eviction
+# ---------------------------------------------------------------------------
+
+def _merge_tiers(hs, hvids, ws, wvids, wslots, thresholds, k):
+    """Best-of-tiers merge (hot side first, so ties resolve hot)."""
+    Q = hs.shape[0]
+    all_s = torch.cat([hs, ws], 1)                                 # (Q, 2k)
+    all_v = torch.cat([hvids, wvids], 1)
+    all_w = torch.cat([torch.full((Q, k), -1, dtype=_I32, device=hs.device),
+                       wslots], 1)
+    s, i = topk_stable(all_s, k)
+    hit = s[:, 0] >= thresholds
+    return (s, torch.gather(all_v, 1, i), torch.gather(all_w, 1, i),
+            hit & (i[:, 0] < k), hit)
+
+
+def cascade_lookup(hot: HotState, warm: WarmState, q: torch.Tensor,
+                   q_tenants: torch.Tensor, thresholds: torch.Tensor,
+                   k: int = 1, n_probe: int = 8, tail: int = 0,
+                   quantized: bool = False) -> CascadeResult:
+    """The four-op lookup over both tiers (hot exact top-k, warm probe,
+    bucket gather + tail scan, merge).  ``quantized`` selects the int8
+    warm scan and re-scores the merged warm rows exactly, as
+    `cascade_query` does on the fused path."""
+    hs, hslots, hvids = hot_query(hot, q, q_tenants, k)
+    ws, wslots, wvids = warm_query(warm, q, q_tenants, k, n_probe, tail,
+                                   quantized)
+    wslots = torch.where(ws > NEG / 2, wslots, -1)
+    s, vids, out_w, hot_hit, hit = _merge_tiers(hs, hvids, ws, wvids,
+                                                wslots, thresholds, k)
+    if quantized:
+        return _requantized_result(_unit(q.float()), warm, s, vids, out_w,
+                                   hslots[:, 0], thresholds, k)
+    return CascadeResult(scores=s, value_ids=vids, hot_slots=hslots[:, 0],
+                         hot_hit=hot_hit, hit=hit)
+
+
+def _rescore_exact(qn, keys, s, wslots):
+    """Replace quantized-selected warm scores with exact fp32 cosines;
+    only the (Q, k) selected rows are gathered from the fp32 panel."""
+    safe = wslots.clamp(0, keys.shape[0] - 1).long()
+    exact = torch.einsum("qd,qkd->qk", qn, keys[safe])
+    return torch.where(wslots >= 0, exact, s)
+
+
+def _requantized_result(qn, warm, s, vids, wslots, hslots, thresholds, k
+                        ) -> CascadeResult:
+    """Exact re-score of an int8-selected candidate list, then re-rank
+    (the exact scores may reorder the k selected candidates)."""
+    s = _rescore_exact(qn, warm.keys, s, wslots)
+    s, idx = topk_stable(s, k)
+    vids = torch.gather(vids, 1, idx)
+    wslots = torch.gather(wslots, 1, idx)
+    hit = s[:, 0] >= thresholds
+    return CascadeResult(scores=s, value_ids=vids, hot_slots=hslots,
+                         hot_hit=hit & (wslots[:, 0] < 0), hit=hit)
+
+
+def cascade_query(hot: HotState, warm: WarmState, q: torch.Tensor,
+                  q_tenants: torch.Tensor, thresholds: torch.Tensor,
+                  k: int = 1, n_probe: int = 8, tail: int = 0,
+                  fused: bool = False, quantized: bool = False,
+                  warm_block_n: Optional[int] = None) -> CascadeResult:
+    """Cascade lookup with a selectable execution path.
+
+    ``fused=False`` runs the four-op composition (`cascade_lookup`),
+    the parity reference.  ``fused=True`` routes through
+    `kernels/cascade_lookup`: the hand-written CUDA kernel for tensors
+    on a card, its plain torch version for CPU tensors — same results
+    either way, up to float32 summation order.  ``quantized=True`` scans
+    the warm panel from its int8 form and re-scores the selected rows
+    exactly (reported scores are fp32 cosines either way).
+    ``warm_block_n`` is accepted for the reference's signature: it is a
+    TPU VMEM-residency knob that never changes results, and the CUDA
+    kernel tiles the warm panel internally.
+    """
+    del warm_block_n
+    qt = q_tenants.to(_I32)
+    thr = thresholds.float()
+    if not fused:
+        return cascade_lookup(hot, warm, q, qt, thr, k=k, n_probe=n_probe,
+                              tail=tail, quantized=quantized)
+    qn = _unit(q.float())
+    s, vids, wslots, hslots, hot_hit, hit = casc_ops.cascade_lookup(
+        qn, qt, thr, hot.keys, hot.valid, hot.tenants, hot.value_ids,
+        warm.keys, warm.valid, warm.tenants, warm.value_ids,
+        warm.write_seq, warm.centroids, warm.members, warm.cursor,
+        warm.indexed_total, warm.keys_q, warm.scales, k=k,
+        n_probe=n_probe, tail=tail, quantized=quantized)
+    if quantized:
+        return _requantized_result(qn, warm, s, vids, wslots, hslots, thr,
+                                   k)
+    return CascadeResult(scores=s, value_ids=vids, hot_slots=hslots,
+                         hot_hit=hot_hit, hit=hit)
+
+
+def evict_tenant(hot: HotState, warm: WarmState, tenant
+                 ) -> Tuple[HotState, WarmState, torch.Tensor, torch.Tensor]:
+    """Invalidate every row of one tenant in both tiers.  Returns (hot,
+    warm, hot_evicted, warm_evicted): capacity-sized value-id lists
+    (-1 padding) for host GC."""
+    h_kill = hot.valid & (hot.tenants == tenant)
+    w_kill = warm.valid & (warm.tenants == tenant)
+    h_ev = torch.where(h_kill, hot.value_ids, -1)
+    w_ev = torch.where(w_kill, warm.value_ids, -1)
+    return (hot._replace(valid=hot.valid & ~h_kill),
+            warm._replace(valid=warm.valid & ~w_kill), h_ev, w_ev)
+
+
+# ---------------------------------------------------------------------------
+# TTL / staleness (DESIGN.md §14)
+# ---------------------------------------------------------------------------
+
+def mask_expired(hot: HotState, warm: WarmState, now: float
+                 ) -> Tuple[HotState, WarmState, torch.Tensor]:
+    """Plan-time staleness mask: views of both tiers with every expired
+    row's ``valid`` bit cleared; the stored state is untouched.
+    Returns (hot_view, warm_view, n_masked)."""
+    now = torch.tensor(now, dtype=torch.float32)
+    h_live = hot.expires_at > now.to(hot.expires_at.device)
+    w_live = warm.expires_at > now.to(warm.expires_at.device)
+    n = (hot.valid & ~h_live).sum() + (warm.valid & ~w_live).sum()
+    return (hot._replace(valid=hot.valid & h_live),
+            warm._replace(valid=warm.valid & w_live), n.to(_I32))
+
+
+def reap_expired(hot: HotState, warm: WarmState, now: float
+                 ) -> Tuple[HotState, WarmState, torch.Tensor, torch.Tensor]:
+    """Free every expired row in both tiers.  Returns (hot, warm,
+    hot_reaped, warm_reaped) value-id lists (-1 padding) for host GC."""
+    now = torch.tensor(now, dtype=torch.float32)
+    h_kill = hot.valid & (hot.expires_at <= now.to(hot.expires_at.device))
+    w_kill = warm.valid & (warm.expires_at
+                           <= now.to(warm.expires_at.device))
+    h_ev = torch.where(h_kill, hot.value_ids, -1)
+    w_ev = torch.where(w_kill, warm.value_ids, -1)
+    return (hot._replace(valid=hot.valid & ~h_kill),
+            warm._replace(valid=warm.valid & ~w_kill), h_ev, w_ev)

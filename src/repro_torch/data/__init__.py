@@ -1,0 +1,11 @@
+from repro_torch.data.tokenizer import HashTokenizer, PAD, BOS, EOS, UNK
+from repro_torch.data.corpora import (
+    DOMAINS, PairDataset, Query, make_pair_dataset, make_query_stream,
+    render_query, sample_query,
+)
+
+__all__ = [
+    "HashTokenizer", "PAD", "BOS", "EOS", "UNK",
+    "DOMAINS", "PairDataset", "Query", "make_pair_dataset",
+    "make_query_stream", "render_query", "sample_query",
+]

@@ -1,0 +1,151 @@
+"""Build and launch of the hand-written CUDA cascade-lookup kernel.
+
+The source is ``csrc/cascade_lookup.cu``: CUDA C++ for Hopper
+(``sm_90a``) with a plain C interface.  It is compiled on first use with
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
+-fPIC`` into a shared library keyed by a hash of the source and flags,
+under ``build/repro_torch/`` at the repository root, and loaded with
+``ctypes``.  Nothing is
+built or loaded at import: the module imports on a machine without
+``nvcc`` or a card.
+
+``COUNTS["cascade_lookup"]`` counts launches: `launch` adds one where it
+launches the kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "cascade_lookup.cu"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+MAX_SMEM = 48 * 1024
+
+COUNTS = {"cascade_lookup": 0}
+_LIB: Optional[ctypes.CDLL] = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LAUNCH_ARGTYPES = (
+    [_P, _P, _P]                          # q, q_tenants, thresholds
+    + [_P, _P, _P, _P, _I]                # hot keys/valid/tenants/vids, Nh
+    + [_P, _P, _P, _P, _P, _P, _P, _I]    # warm keys/q8/scales/valid/
+    #                                       tenants/vids/write_seq, cap
+    + [_P, _P, _I, _I]                    # centroids, members, K, bucket
+    + [_P, _P]                            # cursor, indexed_total
+    + [_I, _I, _I, _I, _I, _I]            # Q, D, k, n_probe, tail, quantized
+    + [_P, _P, _P, _P, _P, _P]            # outputs
+    + [_P])                               # stream
+
+
+BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
+                       "cascade kernel cannot be built")
+
+
+def library_path() -> Path:
+    src = SOURCE.read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"cascade_lookup-{key[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernel unless a library for this source exists;
+    returns its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, out)                  # atomic against a racing build
+    return out
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.cascade_lookup_launch.argtypes = _LAUNCH_ARGTYPES
+        lib.cascade_lookup_launch.restype = ctypes.c_int
+        lib.cascade_lookup_smem_bytes.argtypes = [_I, _I, _I, _I]
+        lib.cascade_lookup_smem_bytes.restype = ctypes.c_size_t
+        lib.cascade_lookup_max_k.argtypes = []
+        lib.cascade_lookup_max_k.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def max_k() -> int:
+    return int(_lib().cascade_lookup_max_k())
+
+
+def launch(q, q_tenants, thresholds, hot_keys, hot_valid, hot_tenants,
+           hot_value_ids, warm_keys, warm_keys_q, warm_scales, warm_valid,
+           warm_tenants, warm_value_ids, warm_write_seq, centroids, members,
+           cursor, indexed_total, *, k: int, n_probe: int, tail: int,
+           quantized: bool):
+    """Launch on ``torch.cuda.current_stream()``; every tensor is a
+    checked, contiguous CUDA tensor of the kernel's dtype (see
+    `ops.cascade_lookup`; the warm panel not scanned may be None).
+    Allocates the outputs; does not synchronise.  Raises if the launch
+    is refused."""
+    lib = _lib()
+    Q, D = q.shape
+    K, bucket = members.shape
+    smem = lib.cascade_lookup_smem_bytes(D, K, n_probe, k)
+    if smem > MAX_SMEM:
+        raise ValueError(f"cascade kernel needs {smem} B of shared memory "
+                         f"(D={D}, K={K}); at most {MAX_SMEM} B supported")
+    dev = q.device
+    out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    out_v = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    out_w = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    out_h = torch.empty((Q,), dtype=torch.int32, device=dev)
+    out_hh = torch.empty((Q,), dtype=torch.bool, device=dev)
+    out_hit = torch.empty((Q,), dtype=torch.bool, device=dev)
+    if Q == 0:
+        return out_s, out_v, out_w, out_h, out_hh, out_hit
+
+    def ptr(t):                           # NULL for the unused warm panel
+        return None if t is None else t.data_ptr()
+
+    err = lib.cascade_lookup_launch(
+        ptr(q), ptr(q_tenants), ptr(thresholds),
+        ptr(hot_keys), ptr(hot_valid), ptr(hot_tenants), ptr(hot_value_ids),
+        hot_keys.shape[0],
+        ptr(warm_keys), ptr(warm_keys_q), ptr(warm_scales), ptr(warm_valid),
+        ptr(warm_tenants), ptr(warm_value_ids), ptr(warm_write_seq),
+        warm_valid.shape[0],
+        ptr(centroids), ptr(members), K, bucket,
+        ptr(cursor), ptr(indexed_total),
+        Q, D, k, n_probe, tail, int(quantized),
+        ptr(out_s), ptr(out_v), ptr(out_w), ptr(out_h), ptr(out_hh),
+        ptr(out_hit), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cascade_lookup kernel launch failed: CUDA "
+                           f"error {err}")
+    COUNTS["cascade_lookup"] += 1
+    return out_s, out_v, out_w, out_h, out_hh, out_hit

@@ -1,0 +1,102 @@
+"""Plain torch version of the fused cascade lookup.
+
+The port of the reference's oracle (`repro/kernels/cascade_lookup/
+ref.py`): the tiered cache's four-op path (hot exact top-k, warm
+centroid probe, IVF bucket gather + unindexed-tail scan, best-of-tiers
+merge) over plain tensors.  The CPU tests run it, and ``chip_smoke.py``
+holds the CUDA kernel against it on the card.  Candidate order matches
+``jax.lax.top_k`` (lowest index first among ties) everywhere, via
+``torch.sort(descending=True, stable=True)``; ``torch.topk`` promises no
+order among ties.
+
+Queries are unit-norm float32.  ``quantized=True`` scores the warm panel
+from its int8 per-row quantization (``warm_keys_q`` + ``warm_scales``)
+with fp32 accumulation; the caller re-scores the selected rows exactly
+from the fp32 panel through the returned ``warm_slots``.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG = -1e30
+
+
+def topk_stable(x: torch.Tensor, k: int):
+    """Top-k along the last axis, ties to the lowest index — the order
+    of ``jax.lax.top_k`` (``torch.topk`` promises none)."""
+    s, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return s[..., :k], i[..., :k]
+
+
+def cascade_lookup(q, q_tenants, thresholds,
+                   hot_keys, hot_valid, hot_tenants, hot_value_ids,
+                   warm_keys, warm_valid, warm_tenants, warm_value_ids,
+                   warm_write_seq, centroids, members, cursor, indexed_total,
+                   warm_keys_q=None, warm_scales=None,
+                   k: int = 1, n_probe: int = 8, tail: int = 0,
+                   quantized: bool = False):
+    """q: (Q, D) unit-norm; q_tenants/thresholds: (Q,); ``cursor`` and
+    ``indexed_total`` are 0-d int32 tensors (or ints).
+
+    Returns (scores (Q, k) f32, value_ids (Q, k) i32, warm_slots (Q, k)
+    i32, hot_slots (Q,) i32, hot_hit (Q,) bool, hit (Q,) bool) —
+    ``warm_slots`` is -1 for candidates answered by the hot tier (or
+    padding).
+    """
+    i32 = torch.int32
+    q = q.float()
+    q_tenants = q_tenants.to(i32)
+    Q = q.shape[0]
+    dev = q.device
+
+    # hot tier: exact tenant-masked top-k
+    hs_all = q @ hot_keys.T                                        # (Q, Nh)
+    ok = hot_valid[None, :] & (hot_tenants[None, :] == q_tenants[:, None])
+    hs_all = torch.where(ok, hs_all, NEG)
+    hs, hslots = topk_stable(hs_all, k)
+    hvids = torch.where(hs > NEG / 2, hot_value_ids[hslots], -1)
+
+    # warm tier: IVF probe + unindexed tail
+    cap = warm_valid.shape[0]
+    n_clusters, bucket = members.shape
+    n_probe = min(n_probe, n_clusters)
+    csims = q @ centroids.T                                        # (Q, K)
+    _, probes = topk_stable(csims, n_probe)
+    cand = members[probes].reshape(Q, n_probe * bucket)
+    is_tail = torch.zeros(cand.shape, dtype=torch.bool, device=dev)
+    if tail:
+        # torch's tensor `%` is a floor-mod, like the reference's
+        offs = torch.arange(tail, dtype=i32, device=dev)
+        tail_idx = (cursor - 1 - offs) % cap
+        unindexed = warm_write_seq[tail_idx] > indexed_total
+        tail_cand = torch.where(unindexed, tail_idx, -1).to(i32)
+        cand = torch.cat([cand, tail_cand[None, :].expand(Q, tail)], 1)
+        is_tail = torch.cat(
+            [is_tail, torch.ones((Q, tail), dtype=torch.bool, device=dev)],
+            1)
+    safe = cand.clamp(0, cap - 1).long()
+    ok = (cand >= 0) & warm_valid[safe] \
+        & (warm_tenants[safe] == q_tenants[:, None]) \
+        & (is_tail | (warm_write_seq[safe] <= indexed_total))
+    if quantized:
+        panel = warm_keys_q[safe].float()
+        wscores = torch.einsum("qd,qnd->qn", q, panel) * warm_scales[safe]
+    else:
+        wscores = torch.einsum("qd,qnd->qn", q, warm_keys[safe])
+    wscores = torch.where(ok, wscores, NEG)
+    ws, wi = topk_stable(wscores, k)
+    wslots = torch.gather(safe, 1, wi)
+    wvids = torch.where(ws > NEG / 2, warm_value_ids[wslots], -1)
+    wslots = torch.where(ws > NEG / 2, wslots, -1)
+
+    # best-of-tiers merge (hot side first, so ties resolve hot)
+    all_s = torch.cat([hs, ws], 1)                                 # (Q, 2k)
+    all_v = torch.cat([hvids, wvids], 1).to(i32)
+    all_w = torch.cat([torch.full((Q, k), -1, dtype=i32, device=dev),
+                       wslots.to(i32)], 1)
+    s, i = topk_stable(all_s, k)
+    vids = torch.gather(all_v, 1, i)
+    out_wslots = torch.gather(all_w, 1, i)
+    hit = s[:, 0] >= thresholds
+    hot_hit = hit & (i[:, 0] < k)
+    return s, vids, out_wslots, hslots[:, 0].to(i32), hot_hit, hit

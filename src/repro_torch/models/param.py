@@ -1,0 +1,123 @@
+"""Seeded parameter init and the weight carry-across from the reference.
+
+The reference keeps parameters as a nested dict of arrays with the
+layers stacked along a leading period axis (``layers/pos0/mixer/wq`` is
+``(n_periods, d, h, hd)``) and initialises them with
+``jax.random``.  The port keeps them as ``nn.Parameter``s of plain
+``nn.Module``s, one module per layer, in PyTorch's ``(out, in)`` linear
+layout.  ``Initializer`` draws every tensor from a seeded
+``torch.Generator`` with the reference's distributions (lecun-normal,
+normal(0.02), ones, zeros); the numbers differ from ``jax.random``'s,
+so parity tests carry the reference's own weights across with
+``state_dict_from_reference`` instead.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+
+
+class Initializer:
+    """Creates parameters from one seeded generator, in creation order."""
+
+    def __init__(self, generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32, device=None):
+        self.gen = generator
+        self.dtype = dtype
+        self.device = device
+
+    def normal(self, shape, stddev: float = 0.02) -> nn.Parameter:
+        v = torch.randn(tuple(shape), generator=self.gen, dtype=self.dtype,
+                        device=self.device) * stddev
+        return nn.Parameter(v)
+
+    def lecun(self, shape, fan_in: int) -> nn.Parameter:
+        """Normal with std 1/sqrt(fan_in); ``fan_in`` is the reference's
+        (the product of the input axes in its layout)."""
+        return self.normal(shape, stddev=1.0 / max(1.0, fan_in) ** 0.5)
+
+    def zeros(self, shape) -> nn.Parameter:
+        return nn.Parameter(torch.zeros(tuple(shape), dtype=self.dtype,
+                                        device=self.device))
+
+    def ones(self, shape) -> nn.Parameter:
+        return nn.Parameter(torch.ones(tuple(shape), dtype=self.dtype,
+                                       device=self.device))
+
+
+def make_initializer(cfg: ModelConfig, seed: int, device) -> Initializer:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return Initializer(gen, dtype=getattr(torch, cfg.param_dtype),
+                       device=device)
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def state_dict_from_reference(tree: Mapping, cfg: ModelConfig
+                              ) -> Dict[str, torch.Tensor]:
+    """The reference encoder's value tree (``split(init_lm(cfg))[0]``,
+    leaves as numpy arrays) -> this port's ``Encoder`` state dict.
+
+    Layer ``j * len(cfg.period) + i`` of the port is period ``j`` of the
+    reference's ``layers/pos{i}`` stack.  Transposed on the way (the
+    reference multiplies ``x @ W`` with W in ``(in, out)`` order, the
+    port uses ``F.linear`` with ``(out, in)``):
+
+    * ``mixer/wq``, ``wk``, ``wv``: ``(d, h, hd)`` -> ``(h*hd, d)``
+    * ``mixer/wo``: ``(h, hd, d)`` -> ``(d, h*hd)``
+    * ``ffn/w_gate``, ``w_up``: ``(d, f)`` -> ``(f, d)``;
+      ``ffn/w_down``: ``(f, d)`` -> ``(d, f)``
+
+    Not transposed: ``embed/table`` ``(vocab, d)``, every norm's
+    ``scale``/``bias`` and the attention biases (reshaped
+    ``(h, hd)`` -> ``(h*hd,)``).  The untied ``embed/unembed`` table
+    has no encoder use and is dropped.
+    """
+    flat = _flatten(tree)
+    P = len(cfg.period)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def t(a):
+        return torch.from_numpy(np.array(a, copy=True))
+
+    sd["embed.table"] = t(flat["embed/table"])
+    for name in ("scale", "bias"):
+        if f"final_norm/{name}" in flat:
+            sd[f"final_norm.{name}"] = t(flat[f"final_norm/{name}"])
+    for key, arr in flat.items():
+        if not key.startswith("layers/"):
+            continue
+        _, pos, *rest = key.split("/")
+        i = int(pos[3:])
+        leaf = "/".join(rest)
+        for j in range(arr.shape[0]):
+            a = arr[j]
+            if leaf in ("mixer/wq", "mixer/wk", "mixer/wv"):
+                name, a = "attn." + leaf[6:], a.reshape(a.shape[0], -1).T
+            elif leaf == "mixer/wo":
+                name, a = "attn.wo", a.reshape(-1, a.shape[-1]).T
+            elif leaf in ("mixer/bq", "mixer/bk", "mixer/bv"):
+                name, a = "attn." + leaf[6:], a.reshape(-1)
+            elif leaf.startswith("ffn/"):
+                name, a = "mlp." + leaf[4:], a.T
+            elif leaf.startswith(("norm1/", "norm2/")):
+                name = leaf.replace("/", ".")
+            else:
+                raise KeyError(f"no port counterpart for {key}")
+            sd[f"layers.{j * P + i}.{name}"] = t(a)
+    return sd

@@ -1,0 +1,179 @@
+"""The paper's deployment: a semantic cache in front of an LLM.
+
+The port of `repro/serving/engine.py` ``CachedLLMService`` with the
+echo backend only (``engine=None``: a miss is answered ``answer(<query>)``).
+The decoder zoo and ``ServeEngine`` arrive with the decoder-zoo slice of
+the port; until then an engine is refused.
+"""
+from __future__ import annotations
+
+import itertools
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from repro_torch.cache_service.protocol import CacheBackend, CacheRequest
+from repro_torch.data.tokenizer import HashTokenizer
+from repro_torch.obs import Telemetry
+from repro_torch.obs.registry import tenant_label
+
+
+@dataclass
+class ServedRequest:
+    query: str
+    response: str
+    cache_hit: bool
+    score: float = 0.0
+
+
+class CachedLLMService:
+    """``handle`` is a thin typed pipeline over any ``CacheBackend``
+    (DESIGN.md §7): embed -> ``plan`` (per-row verdicts, resolved
+    responses, admission pre-decision, miss coalescing) -> one answer
+    per miss *group* leader -> ``commit`` -> ``maintenance()`` between
+    batches when the receipt asks for it."""
+
+    def __init__(self, embed_fn, cache: CacheBackend, engine: None,
+                 tokenizer: HashTokenizer, max_query_len: int = 32,
+                 max_new_tokens: int = 16, fused: Optional[bool] = None,
+                 coalesce: bool = True,
+                 telemetry: Optional[Telemetry] = None):
+        """``fused`` (None = leave the backend's choice) selects the
+        cache's cascade path — the fused lookup kernel vs the four-op
+        composition.  ``telemetry`` (None = adopt the backend's) wires
+        the §10 spans and serving counters: each ``handle`` produces
+        one span tree rooted at ``request`` with embed/plan/generate/
+        commit(/maintenance) children."""
+        if engine is not None:
+            raise NotImplementedError(
+                "the decoder engine arrives with the decoder-zoo slice of "
+                "the port; pass engine=None (misses answer 'answer(q)')")
+        self.embed_fn = embed_fn          # list[str] -> (B, D) unit vectors
+        if not isinstance(cache, CacheBackend):
+            raise TypeError(
+                f"cache backend {type(cache).__name__} does not implement "
+                "the CacheBackend protocol (capabilities/plan/commit/"
+                "maintenance/stats_snapshot)")
+        self.cache = cache
+        self.caps = cache.capabilities()
+        self.engine = engine
+        self.tok = tokenizer
+        self.max_query_len = max_query_len
+        self.max_new_tokens = max_new_tokens
+        self.coalesce = coalesce
+        self.telemetry = (telemetry
+                          or getattr(cache, "telemetry", None)
+                          or Telemetry())
+        reg = self.telemetry.registry
+        self._stage_h = self.telemetry.stage_histogram()
+        self._m_requests = reg.counter(
+            "serve_requests_total", "queries handled", labels=("tenant",))
+        self._m_hits = reg.counter(
+            "serve_hits_total", "queries served from cache",
+            labels=("tenant",))
+        self._m_misses = reg.counter(
+            "serve_misses_total", "queries that missed", labels=("tenant",))
+        self._c_generations = reg.counter(
+            "serve_generations_total", "LLM generations (group leaders)"
+            ).labels()
+        self._c_coalesced = reg.counter(
+            "serve_coalesced_misses_total",
+            "misses served by another row's generation").labels()
+        self._c_maintenance = reg.counter(
+            "serve_maintenance_calls_total",
+            "between-batch maintenance() calls").labels()
+        self._trace = itertools.count()
+        if fused is not None:
+            if self.caps.fused_lookup:
+                self.cache.set_fused(fused)
+            elif fused:
+                raise ValueError(
+                    f"cache backend {type(cache).__name__} has no fused "
+                    "cascade path; use CacheService or drop fused=True")
+
+    def _llm_answer(self, queries: List[str]) -> List[str]:
+        return [f"answer({q})" for q in queries]
+
+    def handle(self, queries: List[str],
+               tenant: int = 0) -> List[ServedRequest]:
+        if not self.caps.tenants and np.any(np.asarray(tenant) != 0):
+            raise ValueError(
+                f"cache backend {type(self.cache).__name__} is not "
+                "tenant-aware; serving tenant "
+                f"{tenant} through it would break isolation")
+        tracer = self.telemetry.tracer
+        lab = tenant_label(np.asarray(tenant))
+        trace_id = next(self._trace)
+        with tracer.span("request", tenant=lab, trace_id=trace_id,
+                         n=len(queries)):
+            t0 = time.perf_counter()
+            with tracer.span("embed", tenant=lab):
+                embs = self.embed_fn(queries)
+            self._stage_h.observe(time.perf_counter() - t0,
+                                  stage="embed", tenant=lab)
+            with tracer.span("plan", tenant=lab):
+                plan = self.cache.plan(
+                    CacheRequest.build(embs, tenant, trace_id=trace_id,
+                                       texts=queries),
+                    coalesce=self.coalesce)
+
+            leaders = plan.leader_rows()
+            t0 = time.perf_counter()
+            with tracer.span("generate", tenant=lab,
+                             n_leaders=len(leaders)):
+                answers = dict(zip(
+                    leaders,
+                    self._llm_answer([queries[i] for i in leaders])
+                    if leaders else []))
+            self._stage_h.observe(time.perf_counter() - t0,
+                                  stage="generate", tenant=lab)
+            responses: List[Optional[str]] = [None] * len(queries)
+            for i in plan.miss_rows():
+                responses[int(i)] = answers[int(plan.miss_leader[i])]
+
+            with tracer.span("commit", tenant=lab):
+                receipt = self.cache.commit(plan, responses)
+            self._m_requests.inc(len(queries), tenant=lab)
+            self._m_hits.inc(int(plan.hit.sum()), tenant=lab)
+            self._m_misses.inc(int((~plan.hit).sum()), tenant=lab)
+            self._c_generations.inc(len(leaders))
+            self._c_coalesced.inc(plan.n_coalesced)
+            if receipt.rebuild_due:
+                with tracer.span("maintenance", tenant=lab):
+                    self.cache.maintenance()
+                self._c_maintenance.inc()
+
+        out: List[Optional[ServedRequest]] = [None] * len(queries)
+        for i, q in enumerate(queries):
+            if plan.hit[i]:
+                out[i] = ServedRequest(q, plan.responses[i], True,
+                                       float(plan.scores[i]))
+            else:
+                out[i] = ServedRequest(q, responses[i], False)
+        return out  # type: ignore
+
+    def stats(self) -> Dict[str, object]:
+        """Unified telemetry snapshot: the serving counters plus the
+        backend's ``stats_snapshot()`` nested under ``"backend"``."""
+        reg = self.telemetry.registry
+        snap = self.cache.stats_snapshot()
+        backend = snap.to_dict() if hasattr(snap, "to_dict") else dict(snap)
+        return {"backend": backend,
+                "requests": int(reg.value("serve_requests_total")),
+                "hits": int(reg.value("serve_hits_total")),
+                "misses": int(reg.value("serve_misses_total")),
+                "generations": int(reg.value("serve_generations_total")),
+                "coalesced_misses": int(
+                    reg.value("serve_coalesced_misses_total")),
+                "maintenance_calls": int(
+                    reg.value("serve_maintenance_calls_total")),
+                "hit_rate": self.hit_rate}
+
+    @property
+    def hit_rate(self) -> float:
+        reg = self.telemetry.registry
+        hits = reg.value("serve_hits_total")
+        n = hits + reg.value("serve_misses_total")
+        return hits / n if n else 0.0

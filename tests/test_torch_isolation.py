@@ -1,0 +1,100 @@
+"""The port stands alone: nothing under ``src/repro_torch/``, nor
+``chip_smoke.py`` or the port's example, imports JAX or the reference
+package; the entry points refuse to run on a card that is absent rather
+than continue on the CPU; the kernel wrapper has no fallback path."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+STANDALONE = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_with_cache_torch.py",
+    ROOT / "tests" / "test_torch_cuda_kernels.py"]     # runs on the card
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+@pytest.mark.parametrize("path", STANDALONE,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro", "flax", "optax"}, roots
+
+
+def test_kernel_wrapper_has_no_fallback():
+    """ops.py dispatches on the device alone: no try/except that could
+    route a card's tensors to the plain version."""
+    src = (PORT / "kernels" / "cascade_lookup" / "ops.py").read_text()
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(ast.parse(src)))
+
+
+def test_plain_version_only_for_cpu_tensors(monkeypatch):
+    """Only CPU tensors reach the plain version: tensors on any other
+    device go to the kernel or are refused (here: 'meta')."""
+    from repro_torch.cache_service import tiers
+    from repro_torch.kernels.cascade_lookup import ops, ref
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain version called for non-CPU tensors")
+
+    monkeypatch.setattr(ref, "cascade_lookup", forbidden)
+    hot, warm = tiers.init_hot(8, 4, "meta"), tiers.init_warm(16, 4, 2, 4,
+                                                              "meta")
+    q = torch.zeros(3, 4, device="meta")
+    qt = torch.zeros(3, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ops.cascade_lookup(
+            q, qt, q[:, 0], hot.keys, hot.valid, hot.tenants, hot.value_ids,
+            warm.keys, warm.valid, warm.tenants, warm.value_ids,
+            warm.write_seq, warm.centroids, warm.members, warm.cursor,
+            warm.indexed_total, warm.keys_q, warm.scales, k=1)
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_a_card(no_card):
+    from repro_torch import resolve_device
+    from repro_torch.cache_service import CacheConfig, CacheService
+    from repro_torch.configs import get_config
+    from repro_torch.core import EmbedderTrainer
+    from repro_torch.models import Encoder
+    cfg = get_config("modernbert-149m").reduced(n_layers=2)
+    for make in (lambda: resolve_device("cuda"),
+                 lambda: Encoder(cfg),
+                 lambda: EmbedderTrainer(cfg),
+                 lambda: CacheService(CacheConfig(dim=16)),
+                 lambda: CacheService(CacheConfig(dim=16), device="cuda:0")):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """No card -> non-zero exit and no result line; the same alone in a
+    directory that holds nothing else of the repo."""
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd is tmp_path:
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+        res = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             capture_output=True, text=True, timeout=120,
+                             env={"PATH": "/usr/bin:/bin",
+                                  "CUDA_VISIBLE_DEVICES": ""})
+        assert res.returncode != 0
+        assert '"ok": true' not in res.stdout
