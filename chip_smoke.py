@@ -7,22 +7,43 @@ Needs one NVIDIA card (the kernels target Hopper, ``sm_90a``) and
 ``nvcc``.  Exits non-zero, printing no result, when CUDA is unavailable
 or the port is not beside the script.  Phases, each fatal on failure:
 
-1. build every CUDA kernel of the serving path from the checkout's
-   sources (one ``nvcc`` per source, all started together);
-2. kernel parity at the serving shapes (``TieringConfig`` defaults:
-   D=768, Q=64, Nh=1024, warm ring 16384, K=64, bucket=256, n_probe=8,
-   tail = flush_size * rebuild_every = 256) on a populated hot tier and
-   a wrapped warm ring with a real IVF rebuild, several tenants,
-   invalid rows and an unindexed tail: the kernel against its plain
-   torch version on the same CUDA tensors, fp32 and int8, k in {1, 4};
-   ints and flags equal, scores within ``SCORE_ATOL``; both timed with
-   CUDA events (median of repeats after warm-up);
+1. build every CUDA kernel of the port from the checkout's sources (one
+   ``nvcc`` per source, all started together);
+2. kernel parity, each kernel against its plain torch version on the
+   same CUDA tensors, all timed with CUDA events (median of repeats
+   after warm-up):
+   * the cascade lookup at the serving shapes (``TieringConfig``
+     defaults: D=768, Q=64, Nh=1024, warm ring 16384, K=64, bucket=256,
+     n_probe=8, tail = flush_size * rebuild_every = 256) on a populated
+     hot tier and a wrapped warm ring with a real IVF rebuild, several
+     tenants, invalid rows and an unindexed tail, fp32 and int8, k in
+     {1, 4}; ints and flags equal, scores within ``SCORE_ATOL``;
+   * the cosine top-k at Q=64, D=768, N=4096 (the flat cache's
+     capacity) and N=65536, 25 % invalid rows, k in {1, 4}, and an
+     all-invalid panel; indices equal, scores within ``SCORE_ATOL``;
+   * the contrastive forward and backward at B=16 (the paper's batch)
+     and B=4096, D=768, on mixed, all-duplicate and all-distinct
+     labels; components ``rtol 1e-5``, gradients within ``GRAD_ATOL``
+     of torch autograd through the plain version;
 3. serving: the full-width ``modernbert-149m`` encoder (seeded random
    weights) behind ``CacheService(fused=True)`` and
    ``CachedLLMService(engine=None)``, a 4096-query medical trace in
-   batches of 64; the kernel's launch count must equal the plan count,
-   with hits, misses and at least one flush + IVF rebuild; the final
-   tiers are re-queried fused and four-op, which must agree.
+   batches of 64; the cascade kernel's launch count must equal the plan
+   count, with hits, misses and at least one flush + IVF rebuild; the
+   final tiers are re-queried fused and four-op, which must agree;
+4. training: the same encoder fine-tuned with the paper's recipe
+   (``FinetuneConfig()`` defaults: lr 6.5383e-5, batch 16, clip 0.5,
+   margin 0.5, one epoch) on the real train split of a 2048-pair
+   medical set plus synthetic pairs from 256 unlabeled queries; the
+   contrastive forward and backward kernels must each launch once per
+   step, every loss and grad norm must be finite, and on the first batch
+   the kernels' loss and gradients must equal the plain formulation's;
+5. flat serving: the fine-tuned encoder behind the paper's
+   ``SemanticCache(capacity=4096)`` over the same trace; the cosine
+   top-k kernel's launch count must equal the plan count, with hits and
+   misses, ``FLAT_THRESHOLD`` must sit above every score between two
+   texts of different meaning, and every answer must be the echo of a
+   query of the same meaning.
 
 Prints the card's name and power limit, the stage latencies, a JSON
 line of per-kernel numbers and, last, ``{"ok": true, "device": ...}``.
@@ -41,6 +62,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 SCORE_ATOL = 1e-5          # fp32 sums in another order (~1e-7 observed)
+GRAD_ATOL = 1e-6           # contrastive gradients, same reason
 SHAPES = dict(D=768, Q=64, Nh=1024, cap=16384, K=64, bucket=256,
               n_probe=8, tail=256)
 N_REQUESTS = 4096
@@ -51,6 +73,15 @@ BATCH = 64
 # texts is 0.9941 and the smallest between two equal texts 0.999999:
 # 0.999 serves exact repeats only, with no false hit (PERF.md).
 THRESHOLD = 0.999
+# The flat cache's threshold after fine-tuning: above the largest score
+# between two texts of different (entity, aspect) that the fine-tuned
+# encoder gives on the card (0.999471 on the H100, PERF.md), so that
+# every hit is a query of the same meaning; phase 5 fails if the
+# measured maximum reaches it.
+FLAT_THRESHOLD = 0.9998
+FLAT_CAPACITY = 4096       # examples/serve_with_cache.py's flat cache
+TOPK_N = (4096, 65536)     # flat-cache capacity; a 201 MB key panel
+CONTRASTIVE_B = (16, 4096)  # the paper's batch; a large one
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 
@@ -269,6 +300,189 @@ def kernel_phase(dev):
     return out
 
 
+def score_report(embed_fn, stream) -> dict:
+    """Scores between the trace's distinct texts under ``embed_fn``: the
+    largest between two different texts and between two texts of
+    different meaning (entity, aspect), the smallest between two equal
+    texts (embedded at different batch positions), and the paraphrase
+    (same meaning, other wording) and unrelated-pair quantiles."""
+    import numpy as np
+    texts = [x.text for x in stream]
+    emb = embed_fn(texts)
+    uniq = {t: i for i, t in enumerate(texts)}
+    first = np.asarray(list(uniq.values()))
+    sims = emb[first] @ emb[first].T
+    np.fill_diagonal(sims, -1.0)
+    idx = np.asarray([uniq[t] for t in texts])
+    same = np.einsum("nd,nd->n", emb, emb[idx])
+    meaning = np.asarray([hash((stream[i].entity, stream[i].aspect))
+                          for i in first])
+    iu = np.triu_indices(len(first), 1)
+    para = meaning[iu[0]] == meaning[iu[1]]
+    out = {"max_different_text": float(sims.max()),
+           "min_equal_text": float(same.min()),
+           "max_unrelated": float(sims[iu][~para].max())}
+    print(f"  score gap: max different-text {out['max_different_text']:.6f}"
+          f", min equal-text {out['min_equal_text']:.6f} ({len(uniq)} "
+          "distinct texts)")
+    for name, v in (("paraphrase", sims[iu][para]),
+                    ("unrelated", sims[iu][~para])):
+        qs = np.quantile(v, [0.01, 0.5, 0.99])
+        print(f"  {name} pairs ({len(v)}): p1 {qs[0]:.4f} median "
+              f"{qs[1]:.4f} p99 {qs[2]:.4f} max {v.max():.4f}")
+    # what a lower threshold would admit: paraphrase pairs (would-be
+    # paraphrase hits) and unrelated pairs (would-be false hits) above it
+    print("  pairs above a threshold (paraphrase / unrelated): " + ", ".join(
+        f"{t}: {int((sims[iu][para] >= t).sum())} / "
+        f"{int((sims[iu][~para] >= t).sum())}"
+        for t in (0.95, 0.98, 0.99, 0.995, 0.999)))
+    return out
+
+
+def topk_bound_ms(Q: int, N: int, D: int, k: int):
+    """Least time for one cosine top-k: queries, keys and the valid mask
+    read once and the outputs written once over HBM bandwidth, vs its
+    2 Q N D fp32 flops over the fp32 rate."""
+    n_bytes = 4 * Q * D + 4 * N * D + N + 8 * Q * k
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 2 * Q * N * D / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def topk_phase(dev):
+    """The cosine top-k kernel against its plain version at the flat
+    cache's shapes, and the times of both and of the two-call library
+    reference (matmul + ``torch.topk``, TF32 off)."""
+    import torch
+    from repro_torch.kernels.cosine_topk import ops, ref
+    g = torch.Generator(device=dev).manual_seed(1)
+    Q, D = 64, 768
+
+    def unit(x):
+        return x / x.norm(dim=-1, keepdim=True)
+
+    def check(q, keys, valid, k, what):
+        a = ref.cosine_topk(q, keys, valid, k)
+        b = ops.cosine_topk(q, keys, valid, k)
+        torch.cuda.synchronize()
+        if b[0].shape != (q.shape[0], k) or not torch.equal(a[1], b[1]):
+            fail(f"cosine_topk {what}: indices differ from the plain "
+                 "version")
+        err = float((a[0] - b[0]).abs().max())
+        if err > SCORE_ATOL:
+            fail(f"cosine_topk {what}: max |score diff| {err:.3g}")
+        return err
+
+    out = {"max_abs_err": 0.0, "by_n": {}}
+    for N in TOPK_N:
+        keys = unit(torch.randn(N, D, generator=g, device=dev))
+        valid = torch.rand(N, generator=g, device=dev) >= 0.25
+        src = torch.randint(0, N, (Q // 2,), generator=g, device=dev)
+        q = torch.cat([keys[src], torch.randn(Q - Q // 2, D, generator=g,
+                                              device=dev)])
+        q = unit(q + 0.05 * torch.randn(Q, D, generator=g, device=dev))
+        for k in (1, 4):
+            err = check(q, keys, valid, k, f"N={N} k={k}")
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+        ms = cuda_ms(lambda: ops.cosine_topk(q, keys, valid, 1))
+        plain = cuda_ms(lambda: ref.cosine_topk(q, keys, valid, 1), iters=5)
+        lib = cuda_ms(lambda: torch.topk(
+            torch.where(valid, q @ keys.T, -1e30), 1))
+        bound, by = topk_bound_ms(Q, N, D, 1)
+        out["by_n"][N] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                              bound_ms=bound, bound_by=by)
+        print(f"  cosine_topk N={N}: indices equal, max |dscore| "
+              f"{out['max_abs_err']:.3g}; k=1: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, library {lib:.4f} ms, bound {bound:.4f} ms "
+              f"({by})")
+    keys = unit(torch.randn(256, D, generator=g, device=dev))
+    check(q, keys, torch.zeros(256, dtype=torch.bool, device=dev), 4,
+          "all-invalid")
+    print("  cosine_topk all-invalid panel: indices 0..k-1 as the plain "
+          "version")
+    return out
+
+
+def contrastive_bound_ms(B: int, D: int, backward: bool):
+    """Least time: the forward reads e1, e2 and the labels and writes
+    the components and the loss (6 B D flops); the backward reads e1, e2
+    and writes both gradients (6 B D flops).  Bytes bound both."""
+    n_bytes = 4 * (4 * B * D + 1) if backward else 8 * B * D + 4 * B + 20
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 6 * B * D / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def contrastive_phase(dev):
+    """The contrastive forward and backward kernels against the plain
+    formulation (its autograd for the gradients) on the same CUDA
+    tensors, and the times of both."""
+    import torch
+    from repro_torch.core import losses
+    from repro_torch.kernels.contrastive import kernel, ops, ref
+    g = torch.Generator(device=dev).manual_seed(2)
+    D = 768
+    out = {"max_abs_err": 0.0, "by_b": {}}
+    for B in CONTRASTIVE_B:
+        for labels in ("mixed", "pos", "neg"):
+            e1 = torch.randn(B, D, generator=g, device=dev)
+            e2 = 0.6 * e1 + torch.randn(B, D, generator=g, device=dev)
+            if labels == "mixed":
+                lab = (torch.rand(B, generator=g, device=dev) < 0.5).int()
+                lab[0], lab[-1] = 0, 1
+            else:
+                lab = torch.full((B,), int(labels == "pos"),
+                                 dtype=torch.int32, device=dev)
+            want = torch.stack(ref.contrastive_components(e1, e2, lab))
+            got = torch.stack(ops.contrastive_components(e1, e2, lab))
+            a1, a2 = e1.clone().requires_grad_(), e2.clone().requires_grad_()
+            p_loss = losses.online_contrastive_loss(a1, a2, lab)
+            p1, p2 = torch.autograd.grad(p_loss, (a1, a2))
+            b1, b2 = e1.clone().requires_grad_(), e2.clone().requires_grad_()
+            k_loss = ops.online_contrastive_loss(b1, b2, lab)
+            k1, k2 = torch.autograd.grad(k_loss, (b1, b2))
+            torch.cuda.synchronize()
+            what = f"contrastive B={B} {labels}"
+            if not torch.allclose(got[:2], want[:2], rtol=1e-5, atol=1e-6) \
+                    or not torch.allclose(got[2:], want[2:], rtol=0,
+                                          atol=1e-6):
+                fail(f"{what}: components {got.tolist()} vs plain "
+                     f"{want.tolist()}")
+            if not torch.allclose(k_loss, p_loss, rtol=1e-5, atol=0):
+                fail(f"{what}: loss {float(k_loss)} vs plain "
+                     f"{float(p_loss)}")
+            err = max(float((k1 - p1).abs().max()),
+                      float((k2 - p2).abs().max()))
+            if err > GRAD_ATOL:
+                fail(f"{what}: max |dgrad| {err:.3g} > {GRAD_ATOL}")
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            if labels == "mixed":
+                mixed = (e1, e2, lab)
+        # times at the mixed batch, on the kernels' own entry points
+        a, b, lab = mixed
+        _, _, rows, coef = kernel.forward(a, b, lab, 0.5)
+        up = torch.ones((), device=dev)
+        fwd = cuda_ms(lambda: kernel.forward(a, b, lab, 0.5))
+        bwd = cuda_ms(lambda: kernel.backward(a, b, rows, coef, up))
+        a1, a2 = a.clone().requires_grad_(), b.clone().requires_grad_()
+        plain_fwd = cuda_ms(lambda: losses.online_contrastive_loss(
+            a1, a2, lab))
+        plain_both = cuda_ms(lambda: torch.autograd.grad(
+            losses.online_contrastive_loss(a1, a2, lab), (a1, a2)))
+        fb, fby = contrastive_bound_ms(B, D, False)
+        bb, bby = contrastive_bound_ms(B, D, True)
+        out["by_b"][B] = dict(
+            fwd_ms=fwd, bwd_ms=bwd, plain_fwd_ms=plain_fwd,
+            plain_bwd_ms=plain_both - plain_fwd, fwd_bound_ms=fb,
+            fwd_bound_by=fby, bwd_bound_ms=bb, bwd_bound_by=bby)
+        print(f"  contrastive B={B}: components, loss and gradients equal "
+              f"the plain version's (max |dgrad| {out['max_abs_err']:.3g});"
+              f" forward {fwd:.4f} ms (plain {plain_fwd:.4f}), backward "
+              f"{bwd:.4f} ms (plain {plain_both - plain_fwd:.4f}), bounds "
+              f"{fb:.6f} / {bb:.6f} ms ({fby})")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serving through the port's entry points
 # ---------------------------------------------------------------------------
@@ -279,18 +493,13 @@ def serving_phase(dev):
     from repro_torch.cache_service import (
         CacheConfig, CacheService, TieringConfig, tiers,
     )
-    from repro_torch.configs import get_config
     from repro_torch.core import EmbedderTrainer, FinetuneConfig
     from repro_torch.data import HashTokenizer, make_query_stream
     from repro_torch.kernels.cascade_lookup import kernel
     from repro_torch.obs import Telemetry, Tracer
     from repro_torch.serving import CachedLLMService
 
-    cfg = get_config("modernbert-149m")
-    widths = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff,
-              cfg.vocab_size, cfg.dtype)
-    if widths != (22, 768, 12, 1152, 50368, "bfloat16"):
-        fail(f"modernbert-149m is not at its published widths: {widths}")
+    cfg = encoder_config()
     tok = HashTokenizer(vocab_size=cfg.vocab_size)
     t0 = time.perf_counter()
     trainer = EmbedderTrainer(cfg, FinetuneConfig(max_len=32, seed=0),
@@ -335,40 +544,14 @@ def serving_phase(dev):
     # and of equal texts (embedded at different batch positions), so a
     # hit, and a miss coalesced under its group leader, must be answered
     # with the echo of the very same query text
-    emb = svc.embed_fn(texts)
-    uniq = {t: i for i, t in enumerate(texts)}
-    first = np.asarray(list(uniq.values()))
-    sims = emb[first] @ emb[first].T
-    np.fill_diagonal(sims, -1.0)
-    idx = np.asarray([uniq[t] for t in texts])
-    same = np.einsum("nd,nd->n", emb, emb[idx])
-    print(f"  score gap: max different-text {sims.max():.6f}, min "
-          f"equal-text {same.min():.6f} ({len(uniq)} distinct texts)")
-    # paraphrases (same entity and aspect, other wording) against
-    # unrelated pairs: how far the seeded encoder separates meaning
-    meaning = np.asarray([hash((stream[i].entity, stream[i].aspect))
-                          for i in first])
-    iu = np.triu_indices(len(first), 1)
-    para = meaning[iu[0]] == meaning[iu[1]]
-    for name, v in (("paraphrase", sims[iu][para]),
-                    ("unrelated", sims[iu][~para])):
-        qs = np.quantile(v, [0.01, 0.5, 0.99])
-        print(f"  {name} pairs ({len(v)}): p1 {qs[0]:.4f} median "
-              f"{qs[1]:.4f} p99 {qs[2]:.4f} max {v.max():.4f}")
-    if not sims.max() < THRESHOLD <= same.min():
+    sc = score_report(svc.embed_fn, stream)
+    if not sc["max_different_text"] < THRESHOLD <= sc["min_equal_text"]:
         fail(f"threshold {THRESHOLD} outside the observed score gap")
     for r in served:
         if r.response != f"answer({r.query})":
             fail(f"request {r.query!r} answered {r.response!r}")
 
-    stages = {}
-    for root in telemetry.tracer.roots():
-        for child in root.children:
-            stages.setdefault(child.name, []).append(child.duration_s)
-    p50 = {n: 1e3 * statistics.median(v) for n, v in stages.items()}
-    print("  stage p50 (ms, host wall incl. sync): " + ", ".join(
-        f"{n} {p50[n]:.3f}" for n in ("embed", "plan", "generate",
-                                      "commit") if n in p50))
+    p50 = stage_p50(telemetry)
     hit_scores = [r.score for r in served if r.cache_hit]
     print(f"  hit scores: min {min(hit_scores):.5f} median "
           f"{statistics.median(hit_scores):.5f}")
@@ -396,24 +579,24 @@ def serving_phase(dev):
     err = float((fused.scores - four.scores).abs().max())
     if err > SCORE_ATOL:
         fail(f"final tiers: fused vs four-op scores differ by {err:.3g}")
-    profile_batch(svc, texts[:BATCH])
+    prof = profile(lambda: svc.handle(texts[:BATCH], tenant=0),
+                   "serving batch")
     return {"launches": launches, "plans": plans, "p50_ms": p50,
-            "hits": st["hits"], "hit_rate": st["hit_rate"]}
+            "hits": st["hits"], "hit_rate": st["hit_rate"], "profile": prof}
 
 
-def profile_batch(svc, batch) -> None:
-    """Where one serving batch's time goes: ``torch.profiler`` over one
-    more ``handle`` (after the counted run), device busy time against
-    the host wall clock, and the top operations by device and host
-    time."""
+def profile(fn, what: str) -> dict:
+    """Where one call's time goes: ``torch.profiler`` over one more
+    ``fn()`` (after the counted run), device busy time against the host
+    wall clock, and the top operations by device and host time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as tprofile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    svc.handle(batch, tenant=0)                     # warm
+    fn()                                            # warm
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    with tprofile(activities=acts) as prof:
         t0 = time.perf_counter()
-        svc.handle(batch, tenant=0)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -421,9 +604,9 @@ def profile_batch(svc, batch) -> None:
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels)
-    print(f"  profile of one batch: host wall {wall * 1e3:.3f} ms, device "
-          f"busy {dev_us / 1e3:.3f} ms (idle share "
-          f"{1 - dev_us / 1e3 / (wall * 1e3):.3f}) over "
+    idle = 1 - dev_us / 1e3 / (wall * 1e3)
+    print(f"  profile of one {what}: host wall {wall * 1e3:.3f} ms, device "
+          f"busy {dev_us / 1e3:.3f} ms (idle share {idle:.3f}) over "
           f"{sum(e.count for e in kernels)} kernel launches")
     for key, label, pool in (("self_device_time_total", "device", kernels),
                              ("self_cpu_time_total", "host", events)):
@@ -432,6 +615,206 @@ def profile_batch(svc, batch) -> None:
         print(f"  top by {label} time: " + "; ".join(
             f"{e.key[:48]} {getattr(e, key) / 1e3:.3f} ms x{e.count}"
             for e in top))
+    return {"wall_ms": wall * 1e3, "device_ms": dev_us / 1e3,
+            "idle_share": idle}
+
+
+def stage_p50(telemetry) -> dict:
+    stages = {}
+    for root in telemetry.tracer.roots():
+        for child in root.children:
+            stages.setdefault(child.name, []).append(child.duration_s)
+    p50 = {n: 1e3 * statistics.median(v) for n, v in stages.items()}
+    print("  stage p50 (ms, host wall incl. sync): " + ", ".join(
+        f"{n} {p50[n]:.3f}" for n in ("embed", "plan", "generate",
+                                      "commit") if n in p50))
+    return p50
+
+
+# ---------------------------------------------------------------------------
+# phase 4: fine-tuning with the paper's recipe
+# ---------------------------------------------------------------------------
+
+def encoder_config():
+    from repro_torch.configs import get_config
+    cfg = get_config("modernbert-149m")
+    widths = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff,
+              cfg.vocab_size, cfg.dtype)
+    if widths != (22, 768, 12, 1152, 50368, "bfloat16"):
+        fail(f"modernbert-149m is not at its published widths: {widths}")
+    return cfg
+
+
+def training_set():
+    """The real train split of a 2048-pair medical set plus the synthetic
+    pairs the template generator makes from 256 unlabeled queries (the
+    paper's real-plus-synthetic recipe), and the eval split."""
+    import numpy as np
+    from repro_torch.core import (
+        TemplateGenerator, generate_synthetic_pairs, records_to_dataset,
+    )
+    from repro_torch.data import PairDataset, make_pair_dataset, sample_query
+    train, evl = make_pair_dataset("medical", 2048, seed=0).split(
+        eval_frac=0.15, seed=1)
+    rng = np.random.default_rng(2)
+    unlabeled = [sample_query(rng, "medical") for _ in range(256)]
+    syn = records_to_dataset(generate_synthetic_pairs(
+        unlabeled, TemplateGenerator(seed=1), n_pos=2, n_neg=2))
+    full = PairDataset(q1=list(train.q1) + list(syn.q1),
+                       q2=list(train.q2) + list(syn.q2),
+                       labels=np.concatenate([train.labels, syn.labels]),
+                       domain="medical")
+    return full, evl, len(train), len(syn)
+
+
+def first_batch_check(trainer, train, tok):
+    """On the first batch of the fit, the kernels' loss and dL/de1,
+    dL/de2 against the plain formulation on the same embeddings."""
+    import numpy as np
+    import torch
+    from repro_torch.core import losses
+    from repro_torch.data import iter_batches, tokenize_pairs
+    from repro_torch.kernels.contrastive import ops
+    ft = trainer.ft
+    batch = next(iter_batches(tokenize_pairs(train, tok, ft.max_len),
+                              ft.batch_size, seed=ft.seed))
+    dev = trainer.device
+    with torch.no_grad():
+        toks = torch.as_tensor(
+            np.concatenate([batch["tok1"], batch["tok2"]]), device=dev)
+        masks = torch.as_tensor(
+            np.concatenate([batch["mask1"], batch["mask2"]]), device=dev)
+        e1, e2 = trainer.model.encode(toks, masks).chunk(2)
+    lab = torch.as_tensor(batch["label"], device=dev)
+    res = []
+    for fn in (ops.online_contrastive_loss, losses.online_contrastive_loss):
+        a1, a2 = e1.clone().requires_grad_(), e2.clone().requires_grad_()
+        loss = fn(a1, a2, lab, ft.margin)
+        res.append((loss.detach(), *torch.autograd.grad(loss, (a1, a2))))
+    torch.cuda.synchronize()
+    (kl, k1, k2), (pl, p1, p2) = res
+    err = max(float((k1 - p1).abs().max()), float((k2 - p2).abs().max()))
+    if not torch.allclose(kl, pl, rtol=1e-5, atol=0) or err > GRAD_ATOL:
+        fail(f"first batch: kernel loss {float(kl)} vs plain {float(pl)}, "
+             f"max |dgrad| {err:.3g}")
+    print(f"  first batch: kernel loss {float(kl):.6f} = plain "
+          f"{float(pl):.6f}, max |dgrad| {err:.3g}")
+
+
+def training_phase(dev):
+    import numpy as np
+    import torch
+    from repro_torch.core import EmbedderTrainer, FinetuneConfig
+    from repro_torch.data import HashTokenizer
+    from repro_torch.kernels.contrastive import kernel
+
+    cfg = encoder_config()
+    tok = HashTokenizer(vocab_size=cfg.vocab_size)
+    ft = FinetuneConfig(max_len=32, log_every=1)    # the paper's recipe
+    trainer = EmbedderTrainer(cfg, ft, device=dev)
+    train, evl, n_real, n_syn = training_set()
+    print(f"  train {len(train)} pairs ({n_real} real + {n_syn} synthetic),"
+          f" eval {len(evl)}; lr {ft.lr}, batch {ft.batch_size}, clip "
+          f"{ft.max_grad_norm}, margin {ft.margin}, {ft.epochs} epoch")
+    first_batch_check(trainer, train, tok)
+    before = trainer.evaluate(evl, tok)
+
+    for name in kernel.COUNTS:
+        kernel.COUNTS[name] = 0
+    out = trainer.fit(train, tok)
+    launches = dict(kernel.COUNTS)
+    steps = out["steps"]
+
+    hist = trainer.history
+    losses = np.asarray([h["loss"] for h in hist])
+    norms = np.asarray([h["grad_norm"] for h in hist])
+    if len(hist) != steps or not (np.isfinite(losses).all()
+                                  and np.isfinite(norms).all()):
+        fail(f"non-finite loss or grad norm in {len(hist)} logged steps")
+    for name, n in launches.items():
+        if n != steps:
+            fail(f"{name} launched {n} times in {steps} steps")
+    step_ms = 1e3 * np.diff([0.0] + [h["seconds"] for h in hist])
+    after = trainer.evaluate(evl, tok)
+    print(f"  {steps} steps in {out['train_seconds']:.2f} s; step p50 "
+          f"{np.median(step_ms):.3f} ms (host wall incl. one sync), loss "
+          f"{losses[:10].mean():.4f} (first 10) -> {losses[-10:].mean():.4f}"
+          f" (last 10), grad norm p50 {np.median(norms):.4f}")
+    for tag, m in (("before", before), ("after", after)):
+        print(f"  eval {tag}: precision {m['precision']:.4f} recall "
+              f"{m['recall']:.4f} f1 {m['f1']:.4f} ap {m['ap']:.4f}")
+    from repro_torch.data import iter_batches, tokenize_pairs
+    batch = next(iter_batches(tokenize_pairs(train, tok, ft.max_len),
+                              ft.batch_size, seed=5))
+    prof = profile(lambda: trainer._step(batch), "training step")
+    return {"trainer": trainer, "tok": tok, "steps": steps,
+            "launches": launches, "step_p50_ms": float(np.median(step_ms)),
+            "before": before, "after": after, "profile": prof}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the paper's flat SemanticCache behind the fine-tuned encoder
+# ---------------------------------------------------------------------------
+
+def flat_serving_phase(dev, trainer, tok):
+    from repro_torch.core import SemanticCache
+    from repro_torch.data import make_query_stream
+    from repro_torch.kernels.cosine_topk import kernel
+    from repro_torch.obs import Telemetry, Tracer
+    from repro_torch.serving import CachedLLMService
+
+    stream = make_query_stream("medical", N_REQUESTS, seed=11,
+                               repeat_frac=0.4)
+    texts = [x.text for x in stream]
+    meaning = {x.text: (x.entity, x.aspect) for x in stream}
+    embed_fn = trainer.make_embed_fn(tok)
+    print("  scores on the trace after fine-tuning:")
+    sc = score_report(embed_fn, stream)
+    if not sc["max_unrelated"] < FLAT_THRESHOLD:
+        fail(f"flat threshold {FLAT_THRESHOLD} is not above the largest "
+             f"score between texts of different meaning "
+             f"({sc['max_unrelated']:.6f})")
+    telemetry = Telemetry(tracer=Tracer(keep=N_REQUESTS))
+    cache = SemanticCache(capacity=FLAT_CAPACITY, dim=trainer.cfg.d_model,
+                          threshold=FLAT_THRESHOLD, telemetry=telemetry,
+                          device=dev)
+    svc = CachedLLMService(embed_fn, cache, None, tok)
+
+    kernel.COUNTS["cosine_topk"] = 0
+    t0 = time.perf_counter()
+    served = []
+    for i in range(0, N_REQUESTS, BATCH):
+        served += svc.handle(texts[i:i + BATCH], tenant=0)
+    wall = time.perf_counter() - t0
+    launches = kernel.COUNTS["cosine_topk"]
+
+    st = svc.stats()
+    plans = st["backend"]["plans"]
+    if launches != plans:
+        fail(f"cosine_topk launched {launches} times for {plans} plans")
+    if not (st["hits"] > 0 and st["misses"] > 0):
+        fail(f"need hits and misses: {st['hits']} / {st['misses']}")
+    paraphrase_hits = 0
+    for r in served:
+        answered = r.response[len("answer("):-1]
+        if not r.response.startswith("answer(") or \
+                meaning.get(answered) != meaning[r.query]:
+            fail(f"request {r.query!r} answered {r.response!r}")
+        paraphrase_hits += r.cache_hit and answered != r.query
+    print(f"  served {len(served)} requests in {wall:.2f} s: hits "
+          f"{st['hits']} ({paraphrase_hits} paraphrases, "
+          f"{st['hits'] - paraphrase_hits} exact repeats), misses "
+          f"{st['misses']}, hit rate {st['hit_rate']:.3f}, coalesced "
+          f"{st['coalesced_misses']}, occupancy "
+          f"{st['backend']['occupancy']:.4f}")
+    p50 = stage_p50(telemetry)
+    prof = profile(lambda: svc.handle(texts[:BATCH], tenant=0),
+                   "flat serving batch")
+    return {"launches": launches, "plans": plans, "p50_ms": p50,
+            "profile": prof,
+            "hits": st["hits"], "paraphrase_hits": paraphrase_hits,
+            "hit_rate": st["hit_rate"], "max_unrelated":
+            sc["max_unrelated"]}
 
 
 def main() -> int:
@@ -441,6 +824,8 @@ def main() -> int:
               "runs only on a CUDA card", file=sys.stderr)
         return 2
     from repro_torch.kernels.cascade_lookup import kernel as cascade_kernel
+    from repro_torch.kernels.contrastive import kernel as cl_kernel
+    from repro_torch.kernels.cosine_topk import kernel as topk_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -449,22 +834,37 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
 
     print("phase 1: build")
     t0 = time.perf_counter()
-    builders = {"cascade_lookup": cascade_kernel.build}
-    with ThreadPoolExecutor(len(builders)) as pool:
-        futs = {n: pool.submit(b) for n, b in builders.items()}
+    builds = {"cascade_lookup": cascade_kernel.build,
+                "cosine_topk": topk_kernel.build,
+                "contrastive": cl_kernel.build}
+    with ThreadPoolExecutor(len(builds)) as pool:
+        futs = {n: pool.submit(b) for n, b in builds.items()}
         for n, f in futs.items():
             print(f"  {n}: {os.path.relpath(f.result(), ROOT)}")
     print(f"  built in {time.perf_counter() - t0:.1f} s")
 
-    print("phase 2: kernel parity at serving shapes")
+    print("phase 2: kernel parity (cascade at serving shapes, cosine "
+          "top-k at flat-cache shapes, contrastive at training shapes)")
     kp = kernel_phase(dev)
+    tp = topk_phase(dev)
+    cp = contrastive_phase(dev)
 
     print("phase 3: serving (full-width encoder, fused cascade)")
     sv = serving_phase(dev)
 
+    print("phase 4: fine-tuning (full-width encoder, the paper's recipe)")
+    tr = training_phase(dev)
+
+    print("phase 5: flat serving (fine-tuned encoder, SemanticCache)")
+    fl = flat_serving_phase(dev, tr["trainer"], tr["tok"])
+    print(f"  all phases in {time.perf_counter() - t_start:.1f} s")
+
+    n_flat = FLAT_CAPACITY
+    b_train = CONTRASTIVE_B[0]
     kernels = [{
         "name": "cascade_lookup", "route": "cuda",
         "source": "src/repro_torch/kernels/cascade_lookup/csrc/"
@@ -477,6 +877,45 @@ def main() -> int:
         "int8_ms": kp["int8_ms"], "int8_plain_ms": kp["int8_plain_ms"],
         "int8_bound_ms": kp["int8_bound_ms"],
         "serving_p50_ms": sv["p50_ms"], "serving_hit_rate": sv["hit_rate"],
+        "card": card,
+    }, {
+        "name": "cosine_topk", "route": "cuda",
+        "source": "src/repro_torch/kernels/cosine_topk/csrc/cosine_topk.cu",
+        "replaces": "src/repro/kernels/cosine_topk/kernel.py:86",
+        "launches": fl["launches"], "max_abs_err": tp["max_abs_err"],
+        **tp["by_n"][n_flat],
+        "at": f"Q=64 D=768 N={n_flat} k=1",
+        "by_n": tp["by_n"], "flat_p50_ms": fl["p50_ms"],
+        "flat_hit_rate": fl["hit_rate"], "card": card,
+    }, {
+        "name": "contrastive_components", "route": "cuda",
+        "source": "src/repro_torch/kernels/contrastive/csrc/contrastive.cu",
+        "replaces": "src/repro/kernels/contrastive/kernel.py:95",
+        "launches": tr["launches"]["contrastive_components"],
+        "max_abs_err": cp["max_abs_err"],
+        "ms": cp["by_b"][b_train]["fwd_ms"],
+        "plain_ms": cp["by_b"][b_train]["plain_fwd_ms"],
+        "bound_ms": cp["by_b"][b_train]["fwd_bound_ms"],
+        "bound_by": cp["by_b"][b_train]["fwd_bound_by"],
+        "library_ms": None, "at": f"B={b_train} D=768",
+        "by_b": {b: {k: v for k, v in d.items() if k.startswith("fwd")
+                     or k == "plain_fwd_ms"}
+                 for b, d in cp["by_b"].items()},
+        "train_step_p50_ms": tr["step_p50_ms"], "card": card,
+    }, {
+        "name": "contrastive_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/contrastive/csrc/contrastive.cu",
+        "replaces": None,
+        "launches": tr["launches"]["contrastive_backward"],
+        "max_abs_err": cp["max_abs_err"],
+        "ms": cp["by_b"][b_train]["bwd_ms"],
+        "plain_ms": cp["by_b"][b_train]["plain_bwd_ms"],
+        "bound_ms": cp["by_b"][b_train]["bwd_bound_ms"],
+        "bound_by": cp["by_b"][b_train]["bwd_bound_by"],
+        "library_ms": None, "at": f"B={b_train} D=768",
+        "by_b": {b: {k: v for k, v in d.items() if k.startswith("bwd")
+                     or k == "plain_bwd_ms"}
+                 for b, d in cp["by_b"].items()},
         "card": card,
     }]
     print(json.dumps({"kernels": kernels}))

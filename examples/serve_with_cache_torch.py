@@ -1,24 +1,30 @@
 """Serve cached requests through the PyTorch/CUDA port: the compact
 encoder embeds each query, the tiered ``CacheService`` looks it up with
-the fused cascade kernel, misses are answered by the echo backend
-(``engine=None``) and admitted.
+the fused cascade kernel (or, with ``--flat``, the paper's
+``SemanticCache`` with the cosine top-k kernel), misses are answered by
+the echo backend (``engine=None``) and admitted.
 
     PYTHONPATH=src python examples/serve_with_cache_torch.py            # card
     PYTHONPATH=src python examples/serve_with_cache_torch.py \\
         --device cpu --reduced --queries 128 --batch 16                 # CPU
+    PYTHONPATH=src python examples/serve_with_cache_torch.py \\
+        --device cpu --reduced --finetune --flat --threshold 0.95       # CPU
 
-On a card the cascade runs the hand-written CUDA kernel; on the CPU the
-same call runs its plain torch version.  The encoder is initialised from
-``--seed`` at the config's widths (no published weights ship with the
-repo), so its hit threshold is a property of that seed, not the paper's.
+On a card the lookups run the hand-written CUDA kernels; on the CPU the
+same calls run their plain torch versions.  The encoder is initialised
+from ``--seed`` at the config's widths (no published weights ship with
+the repo); ``--finetune`` first fine-tunes it on medical pairs (the
+paper's recipe at the published widths; at ``--reduced`` size the
+reference example's two epochs at lr 5e-4).  The hit threshold is a
+property of those weights, not the paper's.
 """
 import argparse
 import time
 
 from repro_torch.cache_service import CacheConfig, CacheService, TieringConfig
 from repro_torch.configs import get_config
-from repro_torch.core import EmbedderTrainer, FinetuneConfig
-from repro_torch.data import HashTokenizer, make_query_stream
+from repro_torch.core import EmbedderTrainer, FinetuneConfig, SemanticCache
+from repro_torch.data import HashTokenizer, make_pair_dataset, make_query_stream
 from repro_torch.obs import Telemetry
 from repro_torch.serving import CachedLLMService
 
@@ -34,22 +40,42 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--four-op", action="store_true",
                     help="run the four-op cascade instead of the kernel")
+    ap.add_argument("--finetune", action="store_true",
+                    help="fine-tune the encoder on medical pairs first")
+    ap.add_argument("--flat", action="store_true",
+                    help="the paper's flat SemanticCache (capacity 4096) "
+                         "instead of the tiered CacheService")
     args = ap.parse_args()
+    if args.flat and args.four_op:
+        ap.error("--four-op selects the tiered cascade; drop --flat")
 
     cfg = get_config("modernbert-149m")
     if args.reduced:
         cfg = cfg.reduced(vocab_size=4096)
     tok = HashTokenizer(vocab_size=cfg.vocab_size)
-    trainer = EmbedderTrainer(cfg, FinetuneConfig(max_len=32,
-                                                  seed=args.seed),
-                              device=args.device)
+    ft = FinetuneConfig(max_len=32, seed=args.seed)
+    if args.reduced:
+        ft = FinetuneConfig(epochs=2, batch_size=32, lr=5e-4, max_len=32,
+                            margin=0.7, seed=args.seed)
+    trainer = EmbedderTrainer(cfg, ft, device=args.device)
+    if args.finetune:
+        out = trainer.fit(make_pair_dataset("medical", 1024, seed=0), tok)
+        print(f"fine-tuned the encoder: {out['steps']} steps in "
+              f"{out['train_seconds']:.1f} s")
     telemetry = Telemetry()
-    cache = CacheService(CacheConfig(
-        dim=cfg.d_model, threshold=args.threshold, telemetry=telemetry,
-        tiering=TieringConfig(fused=not args.four_op)), device=args.device)
+    if args.flat:
+        cache = SemanticCache(capacity=4096, dim=cfg.d_model,
+                              threshold=args.threshold, telemetry=telemetry,
+                              device=args.device)
+    else:
+        cache = CacheService(CacheConfig(
+            dim=cfg.d_model, threshold=args.threshold, telemetry=telemetry,
+            tiering=TieringConfig(fused=not args.four_op)),
+            device=args.device)
     svc = CachedLLMService(trainer.make_embed_fn(tok), cache, None, tok)
-    print(f"encoder {cfg.name} on {cache.device}; cascade "
-          f"{'four-op' if args.four_op else 'fused kernel'}")
+    path = ("flat SemanticCache" if args.flat else "four-op cascade"
+            if args.four_op else "fused cascade kernel")
+    print(f"encoder {cfg.name} on {cache.device}; {path}")
 
     texts = [q.text for q in make_query_stream("medical", args.queries,
                                                seed=11, repeat_frac=0.4)]
@@ -64,13 +90,17 @@ def main():
 
     st = svc.stats()
     bk = st["backend"]
-    print(f"queries {st['requests']} in {wall:.2f} s: hits {st['hits']} "
-          f"(hot {bk['traffic']['hot_hits']}, warm "
-          f"{bk['traffic']['warm_hits']}), misses {st['misses']}, hit rate "
-          f"{st['hit_rate']:.1%}")
-    print(f"demotions {bk['tiers']['demotions']}, rebuilds "
-          f"{bk['rebuild']['rebuilds']}, live responses "
-          f"{bk['tiers']['live_responses']}")
+    print(f"queries {st['requests']} in {wall:.2f} s: hits {st['hits']}, "
+          f"misses {st['misses']}, hit rate {st['hit_rate']:.1%}")
+    if args.flat:
+        print(f"flat store occupancy {bk['occupancy']:.4f}, live "
+              f"responses {bk['live_responses']}")
+    else:
+        print(f"hot hits {bk['traffic']['hot_hits']}, warm hits "
+              f"{bk['traffic']['warm_hits']}; demotions "
+              f"{bk['tiers']['demotions']}, rebuilds "
+              f"{bk['rebuild']['rebuilds']}, live responses "
+              f"{bk['tiers']['live_responses']}")
     stage_h = telemetry.stage_histogram()
     for stage in ("embed", "plan", "generate", "commit"):
         agg = stage_h.aggregate(stage=stage)

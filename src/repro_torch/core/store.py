@@ -1,0 +1,141 @@
+"""The flat cache's device-resident vector store — the port of
+`repro/core/store.py`.
+
+A fixed-capacity store whose state is a tuple of device tensors:
+insert, query, touch and evict are functions of a state that return a
+new one (the tensors are cloned where written, as the reference's
+functional updates are).  Eviction: first free slot, else the least
+recently used (a Lamport clock bumped on hits, lowest slot on ties);
+TTL eviction is a mask update on int32 clock differences.
+
+`query` scores through `kernels.cosine_topk.ops` (the CUDA kernel on a
+card, its plain version on the CPU), or an injected ``topk_fn``.
+``query_sharded`` waits for the sharded slice of the port.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels.cosine_topk import ops as _topk_ops
+
+
+class StoreState(NamedTuple):
+    keys: torch.Tensor         # (N, D) float32, unit-norm rows
+    valid: torch.Tensor        # (N,)  bool
+    last_used: torch.Tensor    # (N,)  int32 Lamport clock
+    inserted_at: torch.Tensor  # (N,)  int32
+    value_ids: torch.Tensor    # (N,)  int32 host-side response index
+    clock: torch.Tensor        # ()    int32
+
+
+class QueryResult(NamedTuple):
+    scores: torch.Tensor       # (Q, k) cosine similarity, desc
+    slots: torch.Tensor        # (Q, k) store rows
+    value_ids: torch.Tensor    # (Q, k)
+    hit: torch.Tensor          # (Q,)  best score >= threshold
+
+
+def init_store(capacity: int, dim: int, device="cpu") -> StoreState:
+    i32 = torch.int32
+    return StoreState(
+        keys=torch.zeros((capacity, dim), dtype=torch.float32,
+                         device=device),
+        valid=torch.zeros((capacity,), dtype=torch.bool, device=device),
+        last_used=torch.zeros((capacity,), dtype=i32, device=device),
+        inserted_at=torch.zeros((capacity,), dtype=i32, device=device),
+        value_ids=torch.full((capacity,), -1, dtype=i32, device=device),
+        clock=torch.zeros((), dtype=i32, device=device))
+
+
+def _normalise(x: torch.Tensor) -> torch.Tensor:
+    x = x.float()
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
+                           min=1e-9)
+
+
+def insert(state: StoreState, emb: torch.Tensor,
+           value_id) -> StoreState:
+    """Insert one embedding (D,) with its response id."""
+    vid = torch.as_tensor(value_id, dtype=torch.int32,
+                          device=state.keys.device).reshape(1)
+    return insert_batch(state, emb[None], vid)
+
+
+def insert_batch(state: StoreState, embs: torch.Tensor,
+                 value_ids: torch.Tensor) -> StoreState:
+    """Insert B rows with the reference's sequential semantics, without
+    a loop: row i takes the first free slot, else the least recently
+    used one, and advances the clock by one.
+
+    Every insertion leaves its slot the most recently used, so the
+    slots are taken in one fixed cyclic order: the free slots by index,
+    then the used ones by (last_used, index), then those again.  Row i
+    goes to position ``i mod N`` of that order, with clock ``clock + 1 +
+    i``; when B > N, row i is overwritten by row i + N, so only the last
+    N rows are written.
+    """
+    dev = state.keys.device
+    embs = torch.as_tensor(embs, device=dev)
+    value_ids = torch.as_tensor(value_ids, device=dev)
+    B = embs.shape[0]
+    if B == 0:
+        return state
+    N = state.valid.shape[0]
+    key = torch.where(state.valid, state.last_used.long(), -1)
+    order = torch.sort(key, stable=True).indices                   # (N,)
+    rows = torch.arange(max(0, B - N), B, device=dev)
+    slots = order[rows % N]
+    clocks = (state.clock + 1 + rows).to(torch.int32)
+    keys = state.keys.clone()
+    keys[slots] = _normalise(embs[rows])
+    valid = state.valid.clone()
+    valid[slots] = True
+    last_used = state.last_used.clone()
+    last_used[slots] = clocks
+    inserted_at = state.inserted_at.clone()
+    inserted_at[slots] = clocks
+    vids = state.value_ids.clone()
+    vids[slots] = value_ids[rows].to(torch.int32)
+    return StoreState(keys, valid, last_used, inserted_at, vids,
+                      state.clock + B)
+
+
+def query(state: StoreState, q: torch.Tensor, threshold: float,
+          k: int = 1, topk_fn=None) -> QueryResult:
+    """q: (Q, D).  The top-k cosine matches among valid rows.
+
+    ``topk_fn(q, keys, valid, k) -> (scores, slots)`` is the injection
+    point; it defaults to `kernels.cosine_topk.ops.cosine_topk`.
+    """
+    qn = _normalise(q).contiguous()
+    fn = topk_fn or _topk_ops.cosine_topk
+    scores, slots = fn(qn, state.keys, state.valid, k)
+    value_ids = state.value_ids[slots.long()]
+    hit = scores[:, 0] >= threshold
+    return QueryResult(scores=scores, slots=slots, value_ids=value_ids,
+                       hit=hit)
+
+
+def touch(state: StoreState, slots: torch.Tensor,
+          hit: torch.Tensor) -> StoreState:
+    """LRU bump of hit slots (slots, hit: (Q,)); a scatter-max, so a
+    slot hit twice takes the clock once, and misses write 0 at slot
+    0."""
+    clock = state.clock + 1
+    safe = torch.where(hit, slots.long(), 0)
+    val = torch.where(hit, clock, torch.zeros_like(clock))
+    last = state.last_used.scatter_reduce(0, safe, val.to(torch.int32),
+                                          reduce="amax", include_self=True)
+    return state._replace(last_used=last, clock=clock)
+
+
+def evict_older_than(state: StoreState, max_age: int) -> StoreState:
+    """TTL policy: invalidate entries older than ``max_age`` ticks."""
+    expired = (state.clock - state.inserted_at) > max_age
+    return state._replace(valid=state.valid & ~expired)
+
+
+def occupancy(state: StoreState) -> torch.Tensor:
+    return state.valid.float().mean()

@@ -1,4 +1,19 @@
 """Hand-written Hopper kernels of the port, one package per reference
 Pallas kernel, each with ``kernel.py`` (the CUDA kernel), ``ref.py``
 (its plain torch version) and ``ops.py`` (kernel for CUDA tensors,
-plain version for CPU tensors)."""
+plain version for CPU tensors); ``_build`` compiles and loads them."""
+
+
+def check_tensor(name, t, dtype, shape, device) -> None:
+    """Raise ValueError unless ``t`` is a contiguous ``dtype`` tensor of
+    ``shape`` on ``device`` — what a kernel wrapper checks before it
+    hands a pointer to CUDA."""
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")

@@ -1,11 +1,8 @@
-"""Build and launch of the hand-written CUDA cascade-lookup kernel.
+"""Launch of the hand-written CUDA cascade-lookup kernel.
 
 The source is ``csrc/cascade_lookup.cu``: CUDA C++ for Hopper
-(``sm_90a``) with a plain C interface.  It is compiled on first use with
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
--fPIC`` into a shared library keyed by a hash of the source and flags,
-under ``build/repro_torch/`` at the repository root, and loaded with
-``ctypes``.  Nothing is
+(``sm_90a``) with a plain C interface, built at first use by
+`repro_torch.kernels._build` and loaded with ``ctypes``.  Nothing is
 built or loaded at import: the module imports on a machine without
 ``nvcc`` or a card.
 
@@ -15,23 +12,16 @@ launches the kernel, and nowhere else.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
-from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _build
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "cascade_lookup.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 MAX_SMEM = 48 * 1024
 
 COUNTS = {"cascade_lookup": 0}
-_LIB: Optional[ctypes.CDLL] = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,55 +37,23 @@ _LAUNCH_ARGTYPES = (
     + [_P])                               # stream
 
 
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
-                       "cascade kernel cannot be built")
-
-
-def library_path() -> Path:
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"cascade_lookup-{key[:16]}.so"
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.cascade_lookup_launch.argtypes = _LAUNCH_ARGTYPES
+    lib.cascade_lookup_launch.restype = ctypes.c_int
+    lib.cascade_lookup_smem_bytes.argtypes = [_I, _I, _I, _I]
+    lib.cascade_lookup_smem_bytes.restype = ctypes.c_size_t
+    lib.cascade_lookup_max_k.argtypes = []
+    lib.cascade_lookup_max_k.restype = ctypes.c_int
 
 
 def build() -> Path:
     """Compile the kernel unless a library for this source exists;
     returns its path."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)                  # atomic against a racing build
-    return out
+    return _build.build(SOURCE)
 
 
 def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.cascade_lookup_launch.argtypes = _LAUNCH_ARGTYPES
-        lib.cascade_lookup_launch.restype = ctypes.c_int
-        lib.cascade_lookup_smem_bytes.argtypes = [_I, _I, _I, _I]
-        lib.cascade_lookup_smem_bytes.restype = ctypes.c_size_t
-        lib.cascade_lookup_max_k.argtypes = []
-        lib.cascade_lookup_max_k.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+    return _build.load(SOURCE, _declare)
 
 
 def max_k() -> int:

@@ -15,20 +15,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import check_tensor
 from repro_torch.kernels.cascade_lookup import kernel as _kernel
 from repro_torch.kernels.cascade_lookup import ref as _ref
-
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
 
 
 def cascade_lookup(q, q_tenants, thresholds,
@@ -78,12 +67,12 @@ def cascade_lookup(q, q_tenants, thresholds,
             ("members", members, i32, (K, bucket)),
             ("cursor", cursor, i32, ()),
             ("indexed_total", indexed_total, i32, ())):
-        _check(name, t, dt, shape, dev)
+        check_tensor(name, t, dt, shape, dev)
     if quantized:
-        _check("warm_keys_q", warm_keys_q, torch.int8, (cap, D), dev)
-        _check("warm_scales", warm_scales, f32, (cap,), dev)
+        check_tensor("warm_keys_q", warm_keys_q, torch.int8, (cap, D), dev)
+        check_tensor("warm_scales", warm_scales, f32, (cap,), dev)
     else:
-        _check("warm_keys", warm_keys, f32, (cap, D), dev)
+        check_tensor("warm_keys", warm_keys, f32, (cap, D), dev)
     return _kernel.launch(
         q, q_tenants, thresholds, hot_keys, hot_valid, hot_tenants,
         hot_value_ids, None if quantized else warm_keys,

@@ -1,0 +1,40 @@
+"""Dispatch for the cosine top-k lookup of the flat store.
+
+Tensors on the CPU go to the plain torch version (`ref.py`); tensors on
+a card go to the hand-written CUDA kernel (`kernel.py`) or raise — there
+is no fallback from the card.  Both return the same pair, so
+`core.store.query` is agnostic.  The kernel takes float32 keys (the
+store's); the reference kernel's bf16 key panels are not taken.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import check_tensor
+from repro_torch.kernels.cosine_topk import kernel as _kernel
+from repro_torch.kernels.cosine_topk import ref as _ref
+
+
+def cosine_topk(q, keys, valid, k: int = 1):
+    """q: (Q, D); keys: (N, D); valid: (N,) bool -> ((Q, k) scores,
+    (Q, k) int32 indices); see `ref.cosine_topk`."""
+    dev = q.device
+    if dev.type == "cpu":
+        return _ref.cosine_topk(q, keys, valid, k)
+    if dev.type != "cuda":
+        raise ValueError(f"cosine_topk runs on cpu or cuda tensors, got "
+                         f"{dev}")
+    if q.dim() != 2 or keys.dim() != 2:
+        raise ValueError(f"q {tuple(q.shape)} and keys {tuple(keys.shape)} "
+                         "must be 2-d")
+    Q, D = q.shape
+    N = keys.shape[0]
+    if not 1 <= k <= _kernel.max_k():
+        raise ValueError(f"k={k} outside the kernel's 1..{_kernel.max_k()}")
+    if k > N:
+        raise ValueError(f"k={k} exceeds the {N} key rows")
+    for name, t, dt, shape in (("q", q, torch.float32, (Q, D)),
+                               ("keys", keys, torch.float32, (N, D)),
+                               ("valid", valid, torch.bool, (N,))):
+        check_tensor(name, t, dt, shape, dev)
+    return _kernel.launch(q, keys, valid, k)

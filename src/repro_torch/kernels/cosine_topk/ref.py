@@ -1,0 +1,25 @@
+"""Plain torch version of the cosine top-k lookup — the port of
+`repro/kernels/cosine_topk/ref.py`.
+
+Invalid rows score -1e30 and the k best come out in the order of
+``jax.lax.top_k``: score descending, lowest index first among ties,
+each index once (``torch.sort(stable=True)``; ``torch.topk`` promises no
+order among ties).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.cascade_lookup.ref import topk_stable
+
+NEG_INF = -1e30
+
+
+def cosine_topk(q, keys, valid, k: int = 1):
+    """q: (Q, D) unit-norm queries; keys: (N, D) unit-norm rows; valid:
+    (N,) bool.  Returns (scores (Q, k) float32 desc, indices (Q, k)
+    int32)."""
+    scores = q.float() @ keys.float().T                    # (Q, N)
+    scores = torch.where(valid[None, :], scores, NEG_INF)
+    s, i = topk_stable(scores, k)
+    return s, i.to(torch.int32)

@@ -1,23 +1,40 @@
-"""The CUDA cascade kernel against its plain torch version, on the card.
+"""The port's CUDA kernels against their plain torch versions, on the card.
 
 Only torch and the port are imported (the card's machine has no JAX), so
 ``PYTHONPATH=src python -m pytest -q --noconftest
 tests/test_torch_cuda_kernels.py`` runs there (``tests/conftest.py``
 imports JAX); elsewhere every case skips.  The cases cover what the
-serving-shape check in ``chip_smoke.py`` does not: a width that is not a
-multiple of 4 (the kernel's scalar loads), k up to the kernel's maximum,
-a ring whose cursor sits below the tail window, exact ties (dyadic keys:
-lowest hot row, lowest warm position, hot before warm), an empty warm
-tier, all-invalid tiers, a zero-row batch, and the refusals.
+serving- and training-shape checks in ``chip_smoke.py`` do not.
+
+* cascade lookup: a width that is not a multiple of 4 (the kernel's
+  scalar loads), k up to the kernel's maximum, a ring whose cursor sits
+  below the tail window, exact ties (dyadic keys: lowest hot row, lowest
+  warm position, hot before warm), an empty warm tier, all-invalid
+  tiers, a zero-row batch, and the refusals;
+* cosine top-k: odd widths, k up to the maximum, ties (lowest index
+  first), all-invalid and fewer-valid-than-k panels, an empty batch, a
+  float64 recomputation and the refusals;
+* contrastive forward and backward: mixed and one-class batches, B = 1,
+  zero rows (the clamped denominator), large B, float64 recomputations
+  and the refusals.
 
 Tolerances: scores ``atol 1e-5`` (fp32 sums in another order); ids,
-slots and flags exactly.
+slots and flags exactly; contrastive components ``rtol 1e-5``, their
+extrema ``atol 1e-6``, gradients ``atol 1e-6`` against torch autograd of
+the plain version.
 """
 import pytest
 import torch
 
 from repro_torch.cache_service import tiers
+from repro_torch.core import losses
 from repro_torch.kernels.cascade_lookup import kernel, ops, ref
+from repro_torch.kernels.contrastive import kernel as cl_kernel
+from repro_torch.kernels.contrastive import ops as cl_ops
+from repro_torch.kernels.contrastive import ref as cl_ref
+from repro_torch.kernels.cosine_topk import kernel as ct_kernel
+from repro_torch.kernels.cosine_topk import ops as ct_ops
+from repro_torch.kernels.cosine_topk import ref as ct_ref
 
 SCORE_ATOL = 1e-5
 
@@ -236,3 +253,245 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         ops.cascade_lookup(bad, *args[1:], k=1)
     with pytest.raises(ValueError, match="on cpu"):
         ops.cascade_lookup(q, qt.cpu(), *args[2:], k=1)
+
+
+# ---------------------------------------------------------------------------
+# cosine top-k
+# ---------------------------------------------------------------------------
+
+def _topk_check(q, keys, valid, k):
+    before = ct_kernel.COUNTS["cosine_topk"]
+    a = ct_ref.cosine_topk(q, keys, valid, k)
+    b = ct_ops.cosine_topk(q, keys, valid, k)
+    torch.cuda.synchronize()
+    assert ct_kernel.COUNTS["cosine_topk"] == before + 1
+    assert b[0].shape == a[0].shape == (q.shape[0], k)
+    assert b[0].dtype == torch.float32 and b[1].dtype == torch.int32
+    torch.testing.assert_close(b[0], a[0], rtol=0, atol=SCORE_ATOL)
+    assert torch.equal(b[1], a[1])
+    return b
+
+
+def _panel(dev, g, Q, N, D, invalid=0.25):
+    q = _unit(torch.randn(Q, D, generator=g, device=dev))
+    keys = _unit(torch.randn(N, D, generator=g, device=dev))
+    valid = torch.rand(N, generator=g, device=dev) >= invalid
+    return q, keys, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 37, 768])
+@pytest.mark.parametrize("k", [1, 3, 4, 16])
+def test_cosine_topk_matches_plain_version(dev, D, k):
+    g = torch.Generator(device=dev).manual_seed(D * 10 + k)
+    q, keys, valid = _panel(dev, g, 19, 3001, D)
+    # near-copies of stored rows, so the top scores are far from ties
+    q[:6] = _unit(keys[:6] + 0.05 * torch.randn(6, D, generator=g,
+                                                 device=dev))
+    s, i = _topk_check(q, keys, valid, k)
+    assert (i[:6, 0] == torch.arange(6, device=dev, dtype=torch.int32))[
+        valid[:6]].all()
+
+
+@pytest.mark.cuda
+def test_cosine_topk_ties_lowest_index_first(dev):
+    D = 8
+    a_key = torch.zeros(D, device=dev)
+    a_key[:4] = 0.5
+    b_key = a_key.clone()
+    b_key[3] = -0.5
+    keys = torch.stack([b_key, a_key, b_key, a_key, a_key, b_key, a_key])
+    valid = torch.tensor([1, 1, 1, 0, 1, 1, 1], dtype=torch.bool,
+                         device=dev)
+    s, i = _topk_check(a_key[None].repeat(3, 1), keys, valid, 5)
+    assert i[0].tolist() == [1, 4, 6, 0, 2]
+    assert s[0].tolist() == [1.0, 1.0, 1.0, 0.5, 0.5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_valid", [0, 2])
+def test_cosine_topk_fewer_valid_rows_than_k(dev, n_valid):
+    """Masked rows fill the list with -1e30, lowest index first, each
+    index once (the reference's plain version, lax.top_k)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, keys, _ = _panel(dev, g, 5, 40, 16)
+    valid = torch.zeros(40, dtype=torch.bool, device=dev)
+    valid[[7, 30][:n_valid]] = True
+    s, i = _topk_check(q, keys, valid, 4)
+    masked = [r for r in range(40) if not bool(valid[r])][:4 - n_valid]
+    for row in i.tolist():
+        assert sorted(row[:n_valid]) == [7, 30][:n_valid]
+        assert row[n_valid:] == masked
+    assert (s[:, n_valid:] == ct_ref.NEG_INF).all()
+
+
+@pytest.mark.cuda
+def test_cosine_topk_empty_batch_and_small_panels(dev):
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, keys, valid = _panel(dev, g, 3, 5, 24)
+    before = ct_kernel.COUNTS["cosine_topk"]
+    s, i = ct_ops.cosine_topk(q[:0], keys, valid, 2)
+    assert s.shape == (0, 2) and i.shape == (0, 2)
+    assert ct_kernel.COUNTS["cosine_topk"] == before
+    _topk_check(q, keys, valid, 5)              # k == N
+    _topk_check(q, keys[:1], valid[:1], 1)
+
+
+@pytest.mark.cuda
+def test_cosine_topk_scores_are_fp32_exact(dev):
+    """Scores against a float64 recomputation: TF32 or bf16 anywhere
+    would miss by ~1e-3."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    q, keys, valid = _panel(dev, g, 33, 5000, 768)
+    s, i = _topk_check(q, keys, valid, 4)
+    exact = torch.einsum("qd,qkd->qk", q.double(),
+                         keys[i.long()].double())
+    torch.testing.assert_close(s.double(), exact, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cosine_topk_refuses_what_the_kernel_does_not_take(dev):
+    g = torch.Generator(device=dev).manual_seed(14)
+    q, keys, valid = _panel(dev, g, 3, 20, 16)
+    with pytest.raises(ValueError, match="k="):
+        ct_ops.cosine_topk(q, keys, valid, ct_kernel.max_k() + 1)
+    with pytest.raises(ValueError, match="k=5"):
+        ct_ops.cosine_topk(q, keys[:4], valid[:4], 5)
+    with pytest.raises(ValueError, match="dtype"):
+        ct_ops.cosine_topk(q, keys.bfloat16(), valid, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ct_ops.cosine_topk(q, torch.cat([keys, keys], 1)[:, ::2], valid, 1)
+    with pytest.raises(ValueError, match="on cpu"):
+        ct_ops.cosine_topk(q, keys, valid.cpu(), 1)
+    with pytest.raises(ValueError, match="shape"):
+        ct_ops.cosine_topk(q, keys, valid[:-1], 1)
+
+
+# ---------------------------------------------------------------------------
+# contrastive forward and backward
+# ---------------------------------------------------------------------------
+
+def _pairs(dev, g, B, D, labels="mixed"):
+    e1 = torch.randn(B, D, generator=g, device=dev)
+    e2 = 0.6 * e1 + torch.randn(B, D, generator=g, device=dev)
+    if labels == "mixed":
+        lab = (torch.rand(B, generator=g, device=dev) < 0.5).int()
+        lab[0] = 0
+        lab[-1] = 1
+    else:
+        lab = torch.full((B,), int(labels == "pos"), dtype=torch.int32,
+                         device=dev)
+    return e1, e2, lab
+
+
+def _contrastive_check(e1, e2, lab, margin=0.5, grad_rtol=0.0):
+    """Components, loss and gradients of the kernels against the plain
+    versions on the same CUDA tensors."""
+    before = dict(cl_kernel.COUNTS)
+    want = cl_ref.contrastive_components(e1, e2, lab, margin)
+    got = cl_ops.contrastive_components(e1, e2, lab, margin)
+    torch.testing.assert_close(torch.stack(got[:2]), torch.stack(want[:2]),
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(torch.stack(got[2:]), torch.stack(want[2:]),
+                               rtol=0, atol=1e-6)
+    a1, a2 = e1.clone().requires_grad_(), e2.clone().requires_grad_()
+    plain = losses.online_contrastive_loss(a1, a2, lab, margin)
+    p1, p2 = torch.autograd.grad(plain, (a1, a2))
+    b1, b2 = e1.clone().requires_grad_(), e2.clone().requires_grad_()
+    loss = cl_ops.online_contrastive_loss(b1, b2, lab, margin)
+    k1, k2 = torch.autograd.grad(loss, (b1, b2))
+    torch.cuda.synchronize()
+    assert cl_kernel.COUNTS["contrastive_components"] == \
+        before["contrastive_components"] + 2
+    assert cl_kernel.COUNTS["contrastive_backward"] == \
+        before["contrastive_backward"] + 1
+    torch.testing.assert_close(loss, plain, rtol=1e-5, atol=0)
+    torch.testing.assert_close(k1, p1, rtol=grad_rtol, atol=1e-6)
+    torch.testing.assert_close(k2, p2, rtol=grad_rtol, atol=1e-6)
+    return got, loss, k1, k2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D", [(1, 8), (16, 768), (37, 37), (300, 64),
+                                 (4096, 768)])
+@pytest.mark.parametrize("labels", ["mixed", "pos", "neg"])
+def test_contrastive_matches_plain_version(dev, B, D, labels):
+    if B == 1 and labels == "mixed":
+        labels = "pos"
+    g = torch.Generator(device=dev).manual_seed(B + D)
+    _contrastive_check(*_pairs(dev, g, B, D, labels))
+
+
+@pytest.mark.cuda
+def test_contrastive_one_class_components_keep_the_sentinels(dev):
+    g = torch.Generator(device=dev).manual_seed(21)
+    e1, e2, lab = _pairs(dev, g, 12, 32, "pos")
+    got, loss, _, _ = _contrastive_check(e1, e2, lab)
+    assert float(got[0]) == 0.0 and float(got[2]) == 1e9
+    assert float(loss.detach()) > 0         # the fallback: every pair
+    e1, e2, lab = _pairs(dev, g, 12, 32, "neg")
+    got, _, _, _ = _contrastive_check(e1, e2, lab)
+    assert float(got[1]) == 0.0 and float(got[3]) == -1e9
+
+
+@pytest.mark.cuda
+def test_contrastive_zero_rows_take_the_clamped_branch(dev):
+    """|e1||e2| < 1e-9 clamps the denominator: d = 1 - <e1,e2>/1e-9 and
+    dd/de1 = -e2/1e-9 (gradients of order 1e9, compared relatively)."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    e1, e2, lab = _pairs(dev, g, 6, 16)
+    e1[1] = 0.0                              # one zero row
+    e1[2] = 0.0
+    e2[2] = 0.0                              # both zero
+    e1[3] *= 1e-6                            # tiny product
+    e2[3] *= 1e-5
+    _contrastive_check(e1, e2, lab, grad_rtol=1e-5)
+
+
+def _online_loss_f64(e1, e2, lab, margin):
+    """`core.losses.online_contrastive_loss` kept in float64."""
+    num = (e1 * e2).sum(-1)
+    den = e1.norm(dim=-1) * e2.norm(dim=-1)
+    d = 1 - num / den.clamp_min(1e-9)
+    pos, neg = lab == 1, lab == 0
+    min_neg = torch.where(neg, d, 1e9).min()
+    max_pos = torch.where(pos, d, -1e9).max()
+    hp = pos & torch.where(neg.any(), d > min_neg, True)
+    hn = neg & torch.where(pos.any(), d < max_pos, True)
+    return ((d.square() * hp).sum()
+            + ((margin - d).clamp_min(0).square() * hn).sum()) / len(d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("labels", ["mixed", "pos"])
+def test_contrastive_is_fp32_exact(dev, labels):
+    """Loss and gradients against a float64 recomputation of the same
+    masks (taken from the float64 distances; random inputs, no ties)."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    e1, e2, lab = _pairs(dev, g, 64, 768, labels)
+    b1, b2 = e1.clone().requires_grad_(), e2.clone().requires_grad_()
+    loss = cl_ops.online_contrastive_loss(b1, b2, lab, 0.5)
+    k1, k2 = torch.autograd.grad(loss, (b1, b2))
+    d1, d2 = e1.double().requires_grad_(), e2.double().requires_grad_()
+    exact = _online_loss_f64(d1, d2, lab, 0.5)
+    x1, x2 = torch.autograd.grad(exact, (d1, d2))
+    assert abs(float(loss.detach()) - float(exact.detach())) <= \
+        1e-6 * max(1.0, float(exact.detach()))
+    torch.testing.assert_close(k1.double(), x1, rtol=0, atol=1e-6)
+    torch.testing.assert_close(k2.double(), x2, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_contrastive_refuses_what_the_kernel_does_not_take(dev):
+    g = torch.Generator(device=dev).manual_seed(24)
+    e1, e2, lab = _pairs(dev, g, 4, 8)
+    with pytest.raises(ValueError, match="empty"):
+        cl_ops.online_contrastive_loss(e1[:0], e2[:0], lab[:0])
+    with pytest.raises(ValueError, match="must both be"):
+        cl_ops.online_contrastive_loss(e1, e2[:, :4], lab)
+    with pytest.raises(ValueError, match="integer"):
+        cl_ops.contrastive_components(e1, e2, lab.float())
+    with pytest.raises(ValueError, match="labels"):
+        cl_ops.contrastive_components(e1, e2, lab[:3])
+    with pytest.raises(ValueError, match="on cpu"):
+        cl_ops.contrastive_components(e1, e2, lab.cpu())

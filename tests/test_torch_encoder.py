@@ -100,7 +100,7 @@ def test_embedder_trainer_matches_reference():
     np.testing.assert_allclose(b, a, rtol=0, atol=EMB_ATOL)
     fn = pt.make_embed_fn(HashTokenizer(pcfg.vocab_size))
     np.testing.assert_allclose(fn(texts[:2]), b[:2], rtol=0, atol=1e-6)
-    assert not hasattr(pt, "fit")             # arrives with training
+    assert callable(pt.fit) and callable(pt.evaluate)   # the training half
 
 
 def test_seeded_init_distributions():

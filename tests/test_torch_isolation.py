@@ -14,7 +14,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 STANDALONE = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "serve_with_cache_torch.py",
+    ROOT / "examples" / "finetune_embedder_torch.py",
     ROOT / "tests" / "test_torch_cuda_kernels.py"]     # runs on the card
+KERNELS = ("cascade_lookup", "cosine_topk", "contrastive")
 
 
 def _imported_roots(path: Path):
@@ -34,10 +36,21 @@ def test_no_jax_or_reference_imports(path):
     assert not roots & {"jax", "jaxlib", "repro", "flax", "optax"}, roots
 
 
-def test_kernel_wrapper_has_no_fallback():
+def test_the_slice_modules_are_covered():
+    names = {str(p.relative_to(PORT)) for p in STANDALONE if PORT in p.parents}
+    for mod in ("core/losses.py", "core/store.py", "core/cache.py",
+                "core/metrics.py", "core/synth.py", "data/pairs.py",
+                "training/optim.py", "kernels/_build.py",
+                *(f"kernels/{k}/{f}.py" for k in KERNELS
+                  for f in ("kernel", "ref", "ops"))):
+        assert mod in names, mod
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_kernel_wrapper_has_no_fallback(name):
     """ops.py dispatches on the device alone: no try/except that could
     route a card's tensors to the plain version."""
-    src = (PORT / "kernels" / "cascade_lookup" / "ops.py").read_text()
+    src = (PORT / "kernels" / name / "ops.py").read_text()
     assert not any(isinstance(n, ast.Try) for n in ast.walk(ast.parse(src)))
 
 
@@ -72,13 +85,14 @@ def test_entry_points_raise_without_a_card(no_card):
     from repro_torch import resolve_device
     from repro_torch.cache_service import CacheConfig, CacheService
     from repro_torch.configs import get_config
-    from repro_torch.core import EmbedderTrainer
+    from repro_torch.core import EmbedderTrainer, SemanticCache
     from repro_torch.models import Encoder
     cfg = get_config("modernbert-149m").reduced(n_layers=2)
     for make in (lambda: resolve_device("cuda"),
                  lambda: Encoder(cfg),
                  lambda: EmbedderTrainer(cfg),
                  lambda: CacheService(CacheConfig(dim=16)),
+                 lambda: SemanticCache(capacity=8, dim=16),
                  lambda: CacheService(CacheConfig(dim=16), device="cuda:0")):
         with pytest.raises(RuntimeError, match="cuda"):
             make()
