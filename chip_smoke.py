@@ -25,6 +25,11 @@ or the port is not beside the script.  Phases, each fatal on failure:
      and B=4096, D=768, on mixed, all-duplicate and all-distinct
      labels; components ``rtol 1e-5``, gradients within ``GRAD_ATOL``
      of torch autograd through the plain version;
+   * the ensemble cascade over E=3 stacked key panels at the cascade's
+     serving shapes, random simplex weights per query, several tenants,
+     fp32 and int8, k in {1, 4}; ints and flags equal, scores within
+     ``SCORE_ATOL``; and at E=1 every output equal to the single
+     cascade kernel's;
 3. serving: the full-width ``modernbert-149m`` encoder (seeded random
    weights) behind ``CacheService(fused=True)`` and
    ``CachedLLMService(engine=None)``, a 4096-query medical trace in
@@ -43,7 +48,23 @@ or the port is not beside the script.  Phases, each fatal on failure:
    top-k kernel's launch count must equal the plan count, with hits and
    misses, ``FLAT_THRESHOLD`` must sit above every score between two
    texts of different meaning, and every answer must be the echo of a
-   query of the same meaning.
+   query of the same meaning;
+6. ensemble serving: three full-width panels (the phase-4 fine-tuned
+   encoder as the pilot, the untuned seed-0 encoder, a random-projection
+   embedder) behind ``CacheService(fused=True, learned_admission=True,
+   embedders=3)``, the threshold set in the run above every fused score
+   (at the initial uniform weights) between texts of different meaning.
+   (a) The same trace through ``CachedLLMService(engine=None)``: the
+   ensemble kernel's launch count must equal the plan count, with hits,
+   misses, a flush and an IVF rebuild, no hit answered with a query of
+   another meaning, and the final tiers must answer the same fused and
+   four-op.  (b) A fresh service driven through plan / commit /
+   maintenance over the trace on two tenants, each miss answered with
+   its meaning's canonical response (a stand-in for an LLM that answers
+   paraphrases alike, so misses can be labeled duplicates): at least
+   one weight refit and one threshold refit must apply, and launches
+   must equal plans; each tenant's learned weights, threshold, hit rate
+   and false hits are printed.
 
 Prints the card's name and power limit, the stage latencies, a JSON
 line of per-kernel numbers and, last, ``{"ok": true, "device": ...}``.
@@ -81,6 +102,12 @@ THRESHOLD = 0.999
 FLAT_THRESHOLD = 0.9998
 FLAT_CAPACITY = 4096       # examples/serve_with_cache.py's flat cache
 TOPK_N = (4096, 65536)     # flat-cache capacity; a 201 MB key panel
+ENS_E = 3                  # ensemble panels: tuned, untuned, projection
+# the ensemble threshold: this much above the largest fused score
+# between two texts of different meaning measured in the run (serving
+# embeds the trace in the same 64-text batches as the measurement, so
+# the keys are the measured ones)
+ENS_MARGIN = 1e-4
 CONTRASTIVE_B = (16, 4096)  # the paper's batch; a large one
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
@@ -223,11 +250,13 @@ def compare(a, b, what: str) -> float:
     return err
 
 
-def work_bound_ms(hot, warm, q, qt, k: int, quantized: bool):
+def work_bound_ms(hot, warm, q, qt, k: int, quantized: bool, E: int = 1):
     """Least time for one lookup on this card, and what bounds it: the
-    bytes this run's inputs make the lookup read (each needed row once)
-    and write, over HBM bandwidth, vs its fp32 dot products over the
-    fp32 rate."""
+    bytes this run's inputs make the lookup read (each needed row once,
+    on each of the E key panels) and write, over HBM bandwidth, vs its
+    fp32 dot products over the fp32 rate.  ``q`` is the pilot query
+    (routing runs on it alone); E > 1 adds the other panels' query rows
+    and the (Q, E) weights."""
     import torch
     from repro_torch.kernels.cascade_lookup.ref import topk_stable
     s = SHAPES
@@ -250,18 +279,19 @@ def work_bound_ms(hot, warm, q, qt, k: int, quantized: bool):
         & (is_tail | (warm.write_seq[safe] <= warm.indexed_total))
     row_bytes = (D + 4) if quantized else 4 * D
     n_bytes = (
-        Q * (4 * D + 8)                                   # q, tenant, thr
+        Q * (4 * E * D + 8)                               # q, tenant, thr
+        + (Q * E * 4 if E > 1 else 0)                     # weights
         + hot.valid.shape[0] * 5                          # valid, tenant
-        + int(hot_ok.any(0).sum()) * 4 * D                # live hot rows
+        + E * int(hot_ok.any(0).sum()) * 4 * D            # live hot rows
         + K * 4 * D                                       # centroids
         + int(torch.unique(probes).numel()) * bucket * 4  # probed lists
         + tail * 4                                        # tail write_seq
         + int(torch.unique(cand[cand >= 0]).numel()) * 9  # valid/ten/seq
-        + int(torch.unique(safe[ok]).numel()) * row_bytes  # scored rows
+        + E * int(torch.unique(safe[ok]).numel()) * row_bytes  # scored
         + Q * k * 12 + Q * 6)                             # outputs
-    flops = 2 * D * (int(hot_ok.sum()) + Q * K + int(ok.sum()))
+    flops = 2 * D * (E * int(hot_ok.sum()) + Q * K + E * int(ok.sum()))
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    print(f"  work at k={k} ({'int8' if quantized else 'fp32'}): "
+    print(f"  work at E={E} k={k} ({'int8' if quantized else 'fp32'}): "
           f"{n_bytes / 1e6:.3f} MB unique bytes, {flops / 1e6:.1f} MFLOP")
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes >= t_ops else "operations"
@@ -297,6 +327,88 @@ def kernel_phase(dev):
         print(f"  {tag or 'fp32_'}k=1: kernel {out[f'{tag}ms']:.4f} ms, "
               f"plain {out[f'{tag}plain_ms']:.4f} ms, bound "
               f"{out[f'{tag}bound_ms']:.4f} ms ({out[f'{tag}bound_by']})")
+    return out
+
+
+def ensemble_states(dev, hot, warm, q, seed: int = 3):
+    """E key panels over phase 2's tiers: panel 0 the base keys (same
+    bits), panel e > 0 the same rows under a random linear view (a
+    Gaussian D x D map, renormalized: cosines roughly kept, so
+    paraphrase queries still find their rows); the queries' E rows
+    likewise, and random simplex weights per query."""
+    import torch
+    from repro_torch.cache_service import tiers
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D = q.shape[1]
+    maps = [torch.randn(D, D, generator=g, device=dev) / D ** 0.5
+            for _ in range(ENS_E - 1)]
+
+    def view(x):
+        return torch.stack([x] + [tiers._unit(x @ m) for m in maps])
+
+    wk = view(warm.keys)
+    q8, sc = tiers.quantize_rows(wk)
+    ens = tiers.EnsembleState(hot_keys=view(hot.keys).contiguous(),
+                              warm_keys=wk.contiguous(), warm_keys_q=q8,
+                              warm_scales=sc)
+    w = torch.rand(q.shape[0], ENS_E, generator=g, device=dev) + 0.05
+    return ens, view(q).contiguous(), (w / w.sum(1, keepdim=True))
+
+
+def ensemble_kernel_phase(dev):
+    """The ensemble kernel against its plain version at E=3 on the
+    serving shapes, E=1 against the single cascade kernel, and the
+    times of both versions."""
+    import torch
+    from repro_torch.cache_service import tiers
+    from repro_torch.kernels.cascade_lookup import ops, ref
+    hot, warm, q, qt, thr = build_states(dev)
+    ens, qe, w = ensemble_states(dev, hot, warm, q)
+    args = (qe, w, qt, thr, ens.hot_keys, hot.valid, hot.tenants,
+            hot.value_ids, ens.warm_keys, warm.valid, warm.tenants,
+            warm.value_ids, warm.write_seq, warm.centroids, warm.members,
+            warm.cursor, warm.indexed_total, ens.warm_keys_q,
+            ens.warm_scales)
+    s = SHAPES
+    kw = dict(n_probe=s["n_probe"], tail=s["tail"])
+    out = {"max_abs_err": 0.0}
+    one = tiers.init_ensemble(1, hot, warm)      # the base keys, same bits
+    for quantized in (False, True):
+        for k in (1, 4):
+            a = ref.ensemble_lookup(*args, k=k, quantized=quantized, **kw)
+            b = ops.ensemble_lookup(*args, k=k, quantized=quantized, **kw)
+            torch.cuda.synchronize()
+            err = compare(a, b, f"ensemble E={ENS_E} quantized={quantized} "
+                                f"k={k}")
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            print(f"  ensemble E={ENS_E} {'int8' if quantized else 'fp32'} "
+                  f"k={k}: ints/flags equal, max |dscore| {err:.3g}; hits "
+                  f"{int(b[5].sum())}/{s['Q']} (hot {int(b[4].sum())})")
+            # E=1 at weight 1 is the single cascade, bit for bit
+            e1 = ops.ensemble_lookup(
+                q[None], torch.ones(s["Q"], 1, device=dev), *args[2:4],
+                one.hot_keys, *args[5:8], one.warm_keys, *args[9:17],
+                one.warm_keys_q, one.warm_scales, k=k, quantized=quantized,
+                **kw)
+            single = ops.cascade_lookup(*lookup_args(hot, warm, q, qt, thr),
+                                        k=k, quantized=quantized, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(e1, single)):
+                fail(f"ensemble E=1 differs from the single cascade "
+                     f"(quantized={quantized}, k={k})")
+        tag = "int8_" if quantized else ""
+        out[f"{tag}ms"] = cuda_ms(lambda: ops.ensemble_lookup(
+            *args, k=1, quantized=quantized, **kw))
+        out[f"{tag}plain_ms"] = cuda_ms(lambda: ref.ensemble_lookup(
+            *args, k=1, quantized=quantized, **kw), iters=5)
+        out[f"{tag}bound_ms"], out[f"{tag}bound_by"] = work_bound_ms(
+            hot, warm, q, qt, 1, quantized, E=ENS_E)
+        print(f"  ensemble {tag or 'fp32_'}k=1: kernel "
+              f"{out[f'{tag}ms']:.4f} ms, plain {out[f'{tag}plain_ms']:.4f}"
+              f" ms, bound {out[f'{tag}bound_ms']:.4f} ms "
+              f"({out[f'{tag}bound_by']})")
+    print("  ensemble E=1: every output equal to the single cascade "
+          "kernel's (fp32, int8; k=1, 4)")
     return out
 
 
@@ -817,6 +929,259 @@ def flat_serving_phase(dev, trainer, tok):
             sc["max_unrelated"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: an ensemble of embedders with learned mixture weights
+# ---------------------------------------------------------------------------
+
+def ensemble_embed_fn(dev, trainer, tok):
+    """list[str] -> (B, 3, 768): the fine-tuned encoder (the pilot), the
+    untuned seed-0 encoder (the paper's base row) and a random
+    projection embedder (``launch/serve.py``'s extra panel)."""
+    import numpy as np
+    from repro_torch.core import EncoderEmbedder, RandomProjectionEmbedder
+    cfg = encoder_config()
+    untuned = EncoderEmbedder(cfg, max_len=32, seed=0, device=dev)
+    proj = RandomProjectionEmbedder(dim=cfg.d_model, seed=101)
+    pilot = trainer.make_embed_fn(tok)
+    names = ("tuned encoder", untuned.name, proj.name)
+
+    def embed(texts):
+        return np.stack([pilot(texts), untuned.embed(texts),
+                         proj.embed(texts)], axis=1)
+    return embed, names
+
+
+def ensemble_score_report(embed_fn, names, stream) -> dict:
+    """Scores between the trace's distinct texts, per panel and fused at
+    the initial uniform weights: how well each panel ranks paraphrases
+    (same entity and aspect) above unrelated pairs (average precision),
+    the largest fused score between texts of different meaning (the
+    threshold goes above it) and the pilot's (miss coalescing compares
+    pilot cosines with the fused threshold)."""
+    import numpy as np
+    from repro_torch.core import average_precision
+    texts = [x.text for x in stream]
+    emb = np.concatenate([embed_fn(texts[i:i + BATCH])
+                          for i in range(0, len(texts), BATCH)])
+    uniq = {t: i for i, t in enumerate(texts)}
+    first = np.asarray(list(uniq.values()))
+    meaning = np.asarray([hash((stream[i].entity, stream[i].aspect))
+                          for i in first])
+    iu = np.triu_indices(len(first), 1)
+    para = meaning[iu[0]] == meaning[iu[1]]
+    w = np.float32(1.0 / ENS_E)
+    fused = np.zeros(len(iu[0]), np.float32)
+    out = {"ap": {}}
+    for e, name in enumerate(names):
+        x = emb[first, e]
+        sims = (x @ x.T)[iu]
+        fused += w * sims
+        out["ap"][name] = float(average_precision(sims, para))
+        if e == 0:
+            out["pilot"] = sims
+        print(f"  panel {e} ({name}): paraphrase AP {out['ap'][name]:.4f}, "
+              f"max unrelated {sims[~para].max():.6f}, paraphrase median "
+              f"{np.median(sims[para]):.4f}, unrelated median "
+              f"{np.median(sims[~para]):.4f}")
+    out["fused_ap"] = float(average_precision(fused, para))
+    out["max_unrelated"] = float(fused[~para].max())
+    out["fused"], out["para"] = fused, para
+    print(f"  fused (uniform 1/{ENS_E}): paraphrase AP {out['fused_ap']:.4f}"
+          f", max unrelated {out['max_unrelated']:.6f}, paraphrase max "
+          f"{fused[para].max():.6f}, paraphrase pairs above the max "
+          f"unrelated {int((fused[para] > out['max_unrelated']).sum())} of "
+          f"{int(para.sum())}, over {len(first)} distinct texts")
+    return out
+
+
+def ensemble_config(threshold: float, telemetry=None):
+    from repro_torch.cache_service import (
+        CacheConfig, EnsembleConfig, LearningConfig, TieringConfig,
+    )
+    return CacheConfig(dim=encoder_config().d_model, threshold=threshold,
+                       telemetry=telemetry,
+                       tiering=TieringConfig(fused=True),
+                       learning=LearningConfig(learned_admission=True),
+                       ensemble=EnsembleConfig(embedders=ENS_E))
+
+
+def ensemble_serving_phase(dev, embed_fn, thr: float, tok) -> dict:
+    """(a) The trace through ``CachedLLMService``.  Miss coalescing is
+    off: the service coalesces on the pilot's cosine against the fused
+    threshold, which the pilot alone exceeds for texts of different
+    meaning (printed), so a coalesced member could be stored with
+    another meaning's answer."""
+    import numpy as np
+    import torch
+    from repro_torch.cache_service import CacheService, tiers
+    from repro_torch.data import make_query_stream
+    from repro_torch.kernels.cascade_lookup import kernel
+    from repro_torch.obs import Telemetry, Tracer
+    from repro_torch.serving import CachedLLMService
+
+    stream = make_query_stream("medical", N_REQUESTS, seed=11,
+                               repeat_frac=0.4)
+    texts = [x.text for x in stream]
+    meaning = {x.text: (x.entity, x.aspect) for x in stream}
+    telemetry = Telemetry(tracer=Tracer(keep=N_REQUESTS))
+    cache = CacheService(ensemble_config(thr, telemetry), device=dev)
+    svc = CachedLLMService(embed_fn, cache, None, tok, coalesce=False)
+
+    for name in kernel.COUNTS:
+        kernel.COUNTS[name] = 0
+    t0 = time.perf_counter()
+    served = []
+    for i in range(0, N_REQUESTS, BATCH):
+        served += svc.handle(texts[i:i + BATCH], tenant=0)
+    wall = time.perf_counter() - t0
+    launches = dict(kernel.COUNTS)
+
+    st = svc.stats()
+    bk = st["backend"]
+    plans = bk["traffic"]["plans"]
+    paraphrase_hits = 0
+    for r in served:
+        answered = r.response[len("answer("):-1]
+        if not r.response.startswith("answer(") or \
+                meaning.get(answered) != meaning[r.query]:
+            fail(f"ensemble: request {r.query!r} answered {r.response!r}")
+        paraphrase_hits += r.cache_hit and answered != r.query
+    print(f"  served {len(served)} requests in {wall:.2f} s: hits "
+          f"{st['hits']} ({paraphrase_hits} paraphrases; hot "
+          f"{bk['traffic']['hot_hits']}, warm {bk['traffic']['warm_hits']})"
+          f", misses {st['misses']}, hit rate {st['hit_rate']:.4f}; "
+          f"demotions {bk['tiers']['demotions']}, rebuilds "
+          f"{bk['rebuild']['rebuilds']}, maintenance calls "
+          f"{st['maintenance_calls']}; launches {launches}")
+    if launches["cascade_lookup_ensemble"] != plans:
+        fail(f"ensemble kernel launched "
+             f"{launches['cascade_lookup_ensemble']} times for {plans} "
+             "plans")
+    if not (st["hits"] > 0 and st["misses"] > 0):
+        fail(f"ensemble: need hits and misses: {st['hits']} / "
+             f"{st['misses']}")
+    if bk["rebuild"]["rebuilds"] < 1 or bk["tiers"]["demotions"] < 1:
+        fail("ensemble: no flush + IVF rebuild happened")
+    lrn = bk["learning"]
+    print(f"  feedback: {lrn['feedback_events']} events, "
+          f"{lrn['duplicate_events']} duplicates (the echo backend labels "
+          f"none), refits applied {lrn['refits_applied']}, weight refits "
+          f"applied {lrn['weight_refits_applied']}")
+    p50 = stage_p50(telemetry)
+
+    # the final tiers answer the same through the kernel and four-op
+    emb = embed_fn(texts[-BATCH:])
+    if emb.shape != (BATCH, ENS_E, encoder_config().d_model) \
+            or not np.isfinite(emb).all() \
+            or np.abs(np.linalg.norm(emb, axis=2) - 1).max() > 1e-3:
+        fail(f"bad ensemble embeddings: {emb.shape}")
+    qd = torch.as_tensor(emb, device=dev)
+    w = torch.full((BATCH, ENS_E), 1.0 / ENS_E, device=dev)
+    qt = torch.zeros(BATCH, dtype=torch.int32, device=dev)
+    th = torch.full((BATCH,), thr, device=dev)
+    res = [tiers.ensemble_cascade_query(
+        cache.hot, cache.warm, cache.ens, qd, w, qt, th, k=cache.topk,
+        n_probe=cache._n_probe, tail=cache._tail, fused=f)
+        for f in (True, False)]
+    torch.cuda.synchronize()
+    for name in ("value_ids", "hot_slots", "hot_hit", "hit"):
+        if not torch.equal(getattr(res[0], name), getattr(res[1], name)):
+            fail(f"ensemble final tiers: fused vs four-op {name} differ")
+    err = max(float((res[0].scores - res[1].scores).abs().max()),
+              float((res[0].panel_scores
+                     - res[1].panel_scores).abs().max()))
+    if err > SCORE_ATOL:
+        fail(f"ensemble final tiers: fused vs four-op differ by {err:.3g}")
+    print(f"  final tiers: fused and four-op agree (max |dscore| "
+          f"{err:.3g}); pilot panel equal to the base keys: "
+          f"{bool(torch.equal(cache.ens.hot_keys[0], cache.hot.keys))}")
+    prof = profile(lambda: svc.handle(texts[:BATCH], tenant=0),
+                   "ensemble serving batch")
+    return {"launches": launches["cascade_lookup_ensemble"], "plans": plans,
+            "p50_ms": p50, "hits": st["hits"], "hit_rate": st["hit_rate"],
+            "paraphrase_hits": paraphrase_hits, "profile": prof}
+
+
+def ensemble_learning_phase(dev, embed_fn, names, thr: float) -> dict:
+    """(b) A fresh service over the trace on two tenants (batches
+    alternate), each miss answered with its meaning's canonical
+    response, ``maintenance()`` after every commit."""
+    import numpy as np
+    from repro_torch.cache_service import CacheRequest, CacheService
+    from repro_torch.data import make_query_stream
+    from repro_torch.kernels.cascade_lookup import kernel
+
+    stream = make_query_stream("medical", N_REQUESTS, seed=11,
+                               repeat_frac=0.4)
+    canon = {(x.entity, x.aspect): f"canon({x.entity}|{x.aspect})"
+             for x in stream}
+    cache = CacheService(ensemble_config(thr), device=dev)
+    counts = {t: {"queries": 0, "hits": 0, "false_hits": 0} for t in (0, 1)}
+    kernel.COUNTS["cascade_lookup_ensemble"] = 0
+    t0 = time.perf_counter()
+    for b, i in enumerate(range(0, N_REQUESTS, BATCH)):
+        batch = stream[i:i + BATCH]
+        texts = [x.text for x in batch]
+        tenant = b % 2
+        plan = cache.plan(CacheRequest.build(embed_fn(texts), tenant,
+                                             texts=texts), coalesce=False)
+        want = [canon[(x.entity, x.aspect)] for x in batch]
+        c = counts[tenant]
+        c["queries"] += len(batch)
+        c["hits"] += int(plan.hit.sum())
+        c["false_hits"] += sum(h and r != w for h, r, w in
+                               zip(plan.hit, plan.responses, want))
+        cache.commit(plan, [None if h else w
+                            for h, w in zip(plan.hit, want)])
+        cache.maintenance()
+    wall = time.perf_counter() - t0
+    launches = kernel.COUNTS["cascade_lookup_ensemble"]
+    plans = cache.stats_snapshot().traffic["plans"]
+    fb = cache.feedback
+    w_applied = [r for r in fb.weight_refit_log if r.applied]
+    t_applied = [r for r in fb.refit_log if r.applied]
+    budget = fb.config.max_false_hit_rate
+    print(f"  {N_REQUESTS} queries on 2 tenants in {wall:.2f} s; "
+          f"{fb.counters['events']} feedback events "
+          f"({fb.counters['duplicate_events']} duplicates), "
+          f"{fb.counters['ensemble_events']} ensemble events; weight "
+          f"refits applied {len(w_applied)} of "
+          f"{len(fb.weight_refit_log)}, threshold refits applied "
+          f"{len(t_applied)} of {len(fb.refit_log)}; launches {launches} "
+          f"for {plans} plans")
+    out = {"launches": launches, "plans": plans, "tenants": {},
+           "weight_refits": len(w_applied), "threshold_refits":
+           len(t_applied)}
+    weights = cache.policies.weights_state()
+    for t, c in counts.items():
+        w = weights.get(t, [1.0 / ENS_E] * ENS_E)
+        pol = cache.policies.get(t)
+        fh = c["false_hits"] / max(c["hits"], 1)
+        out["tenants"][t] = dict(weights=w, threshold=pol.threshold,
+                                 margin=pol.admission_margin,
+                                 hit_rate=c["hits"] / c["queries"],
+                                 false_hits=c["false_hits"],
+                                 false_hit_share=fh)
+        print(f"  tenant {t}: weights " + ", ".join(
+            f"{n} {x:.4f}" for n, x in zip(names, w))
+            + f"; threshold {thr:.6f} -> {pol.threshold:.6f} (margin "
+            f"{pol.admission_margin:.4f}); hit rate "
+            f"{c['hits'] / c['queries']:.4f}; false hits {c['false_hits']}"
+            f" of {c['hits']} hits ({fh:.4f}; budget {budget})")
+    for r in w_applied[:3] + w_applied[-2:]:
+        print(f"  weight refit tenant {r.tenant}: "
+              f"{[round(x, 4) for x in r.old_weights]} -> "
+              f"{[round(x, 4) for x in r.new_weights]}, threshold "
+              f"{r.old_threshold:.6f} -> {r.new_threshold:.6f} "
+              f"({r.n_events} events, {r.n_duplicates} duplicates)")
+    if launches != plans:
+        fail(f"ensemble learning: {launches} launches for {plans} plans")
+    if not w_applied or not t_applied:
+        fail(f"ensemble learning: weight refits applied {len(w_applied)}, "
+             f"threshold refits applied {len(t_applied)}; need one of each")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -839,17 +1204,19 @@ def main() -> int:
     print("phase 1: build")
     t0 = time.perf_counter()
     builds = {"cascade_lookup": cascade_kernel.build,
-                "cosine_topk": topk_kernel.build,
-                "contrastive": cl_kernel.build}
+              "cosine_topk": topk_kernel.build,
+              "contrastive": cl_kernel.build}
     with ThreadPoolExecutor(len(builds)) as pool:
         futs = {n: pool.submit(b) for n, b in builds.items()}
         for n, f in futs.items():
             print(f"  {n}: {os.path.relpath(f.result(), ROOT)}")
     print(f"  built in {time.perf_counter() - t0:.1f} s")
 
-    print("phase 2: kernel parity (cascade at serving shapes, cosine "
-          "top-k at flat-cache shapes, contrastive at training shapes)")
+    print("phase 2: kernel parity (cascade and ensemble cascade at serving "
+          "shapes, cosine top-k at flat-cache shapes, contrastive at "
+          "training shapes)")
     kp = kernel_phase(dev)
+    ep = ensemble_kernel_phase(dev)
     tp = topk_phase(dev)
     cp = contrastive_phase(dev)
 
@@ -861,6 +1228,26 @@ def main() -> int:
 
     print("phase 5: flat serving (fine-tuned encoder, SemanticCache)")
     fl = flat_serving_phase(dev, tr["trainer"], tr["tok"])
+
+    print(f"phase 6: ensemble serving ({ENS_E} full-width panels, learned "
+          "mixture weights)")
+    embed_fn, names = ensemble_embed_fn(dev, tr["trainer"], tr["tok"])
+    from repro_torch.data import make_query_stream
+    sc = ensemble_score_report(embed_fn, names, make_query_stream(
+        "medical", N_REQUESTS, seed=11, repeat_frac=0.4))
+    ens_thr = min(sc["max_unrelated"] + ENS_MARGIN, 1.0)
+    if not sc["max_unrelated"] < ens_thr:
+        fail(f"no ensemble threshold above the largest different-meaning "
+             f"fused score {sc['max_unrelated']:.6f}")
+    print(f"  threshold {ens_thr:.6f}; pairs of different meaning at or "
+          f"above it: fused {int((sc['fused'][~sc['para']] >= ens_thr).sum())}"
+          f", pilot alone {int((sc['pilot'][~sc['para']] >= ens_thr).sum())}"
+          " (why miss coalescing stays off)")
+    print("  (a) serving through CachedLLMService")
+    es = ensemble_serving_phase(dev, embed_fn, ens_thr, tr["tok"])
+    print("  (b) learning the mixture weights (canonical answers, 2 "
+          "tenants)")
+    el = ensemble_learning_phase(dev, embed_fn, names, ens_thr)
     print(f"  all phases in {time.perf_counter() - t_start:.1f} s")
 
     n_flat = FLAT_CAPACITY
@@ -916,6 +1303,20 @@ def main() -> int:
         "by_b": {b: {k: v for k, v in d.items() if k.startswith("bwd")
                      or k == "plain_bwd_ms"}
                  for b, d in cp["by_b"].items()},
+        "card": card,
+    }, {
+        "name": "cascade_lookup_ensemble", "route": "cuda",
+        "source": "src/repro_torch/kernels/cascade_lookup/csrc/"
+                  "cascade_lookup.cu",
+        "replaces": "src/repro/kernels/cascade_lookup/kernel.py:501",
+        "launches": es["launches"], "max_abs_err": ep["max_abs_err"],
+        "ms": ep["ms"], "plain_ms": ep["plain_ms"],
+        "bound_ms": ep["bound_ms"], "bound_by": ep["bound_by"],
+        "library_ms": None, "at": f"E={ENS_E} Q=64 D=768 k=1",
+        "int8_ms": ep["int8_ms"], "int8_plain_ms": ep["int8_plain_ms"],
+        "int8_bound_ms": ep["int8_bound_ms"],
+        "learning_launches": el["launches"],
+        "serving_p50_ms": es["p50_ms"], "serving_hit_rate": es["hit_rate"],
         "card": card,
     }]
     print(json.dumps({"kernels": kernels}))

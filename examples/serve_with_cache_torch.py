@@ -9,21 +9,34 @@ the echo backend (``engine=None``) and admitted.
         --device cpu --reduced --queries 128 --batch 16                 # CPU
     PYTHONPATH=src python examples/serve_with_cache_torch.py \\
         --device cpu --reduced --finetune --flat --threshold 0.95       # CPU
+    PYTHONPATH=src python examples/serve_with_cache_torch.py \\
+        --device cpu --reduced --ensemble 3 --learned-admission         # CPU
 
-On a card the lookups run the hand-written CUDA kernels; on the CPU the
-same calls run their plain torch versions.  The encoder is initialised
-from ``--seed`` at the config's widths (no published weights ship with
-the repo); ``--finetune`` first fine-tunes it on medical pairs (the
-paper's recipe at the published widths; at ``--reduced`` size the
-reference example's two epochs at lr 5e-4).  The hit threshold is a
-property of those weights, not the paper's.
+``--ensemble E`` serves E embedders through the fused ensemble cascade:
+the (optionally fine-tuned) encoder is the pilot panel, panels 1..E-1
+are random-projection embedders (seeds 101, 102, ...), as the
+reference's ``launch/serve.py``; ``--learned-admission`` learns each
+tenant's threshold (and, under an ensemble, its mixture weights) from
+the feedback stream.  On a card the lookups run the hand-written CUDA
+kernels; on the CPU the same calls run their plain torch versions.  The
+encoder is initialised from ``--seed`` at the config's widths (no
+published weights ship with the repo); ``--finetune`` first fine-tunes
+it on medical pairs (the paper's recipe at the published widths; at
+``--reduced`` size the reference example's two epochs at lr 5e-4).  The
+hit threshold is a property of those weights, not the paper's.
 """
 import argparse
 import time
 
-from repro_torch.cache_service import CacheConfig, CacheService, TieringConfig
+import numpy as np
+
+from repro_torch.cache_service import (
+    CacheConfig, CacheService, EnsembleConfig, LearningConfig, TieringConfig,
+)
 from repro_torch.configs import get_config
-from repro_torch.core import EmbedderTrainer, FinetuneConfig, SemanticCache
+from repro_torch.core import (
+    EmbedderTrainer, FinetuneConfig, RandomProjectionEmbedder, SemanticCache,
+)
 from repro_torch.data import HashTokenizer, make_pair_dataset, make_query_stream
 from repro_torch.obs import Telemetry
 from repro_torch.serving import CachedLLMService
@@ -45,9 +58,18 @@ def main():
     ap.add_argument("--flat", action="store_true",
                     help="the paper's flat SemanticCache (capacity 4096) "
                          "instead of the tiered CacheService")
+    ap.add_argument("--ensemble", type=int, default=0, metavar="E",
+                    help="serve E embedders through the fused ensemble "
+                         "cascade: the encoder is the pilot, panels "
+                         "1..E-1 are random-projection embedders")
+    ap.add_argument("--learned-admission", action="store_true",
+                    help="learn per-tenant thresholds (and ensemble "
+                         "mixture weights) from the feedback stream")
     args = ap.parse_args()
-    if args.flat and args.four_op:
-        ap.error("--four-op selects the tiered cascade; drop --flat")
+    if args.flat and (args.four_op or args.ensemble
+                      or args.learned_admission):
+        ap.error("--four-op, --ensemble and --learned-admission select "
+                 "the tiered cache; drop --flat")
 
     cfg = get_config("modernbert-149m")
     if args.reduced:
@@ -70,11 +92,27 @@ def main():
     else:
         cache = CacheService(CacheConfig(
             dim=cfg.d_model, threshold=args.threshold, telemetry=telemetry,
-            tiering=TieringConfig(fused=not args.four_op)),
+            tiering=TieringConfig(fused=not args.four_op),
+            learning=LearningConfig(
+                learned_admission=args.learned_admission),
+            ensemble=EnsembleConfig(embedders=args.ensemble or None)),
             device=args.device)
-    svc = CachedLLMService(trainer.make_embed_fn(tok), cache, None, tok)
+    embed_fn = trainer.make_embed_fn(tok)
+    if args.ensemble:
+        extras = [RandomProjectionEmbedder(dim=cfg.d_model, seed=101 + e)
+                  for e in range(args.ensemble - 1)]
+        pilot_fn = embed_fn
+
+        def embed_fn(texts):
+            return np.stack([pilot_fn(texts)]
+                            + [e.embed(texts) for e in extras], axis=1)
+    svc = CachedLLMService(embed_fn, cache, None, tok)
     path = ("flat SemanticCache" if args.flat else "four-op cascade"
             if args.four_op else "fused cascade kernel")
+    if args.ensemble:
+        path += f", ensemble of {args.ensemble} embedders"
+    if args.learned_admission:
+        path += ", learned admission"
     print(f"encoder {cfg.name} on {cache.device}; {path}")
 
     texts = [q.text for q in make_query_stream("medical", args.queries,
@@ -101,6 +139,14 @@ def main():
               f"{bk['tiers']['demotions']}, rebuilds "
               f"{bk['rebuild']['rebuilds']}, live responses "
               f"{bk['tiers']['live_responses']}")
+        lrn = bk["learning"]
+        if lrn:
+            print(f"feedback events {lrn['feedback_events']} "
+                  f"({lrn['duplicate_events']} duplicates), threshold "
+                  f"refits {lrn['refits_applied']}, weight refits "
+                  f"{lrn['weight_refits_applied']}; published "
+                  f"{lrn['learned_policies']} "
+                  f"{lrn.get('ensemble_weights', '')}")
     stage_h = telemetry.stage_histogram()
     for stage in ("embed", "plan", "generate", "commit"):
         agg = stage_h.aggregate(stage=stage)

@@ -1,10 +1,15 @@
 """Tiered multi-tenant cache service of the port: hot exact tier, warm
 IVF ring with demotion and inline rebuild, per-tenant thresholds and
-admission, host-side response GC, TTL — driven through the typed
-``CacheBackend`` plan/commit protocol (DESIGN.md §7)."""
+admission learned from feedback, the fused multi-embedder ensemble
+with learned mixture weights, host-side response GC, TTL — driven
+through the typed ``CacheBackend`` plan/commit protocol (DESIGN.md
+§7)."""
 from repro_torch.cache_service.config import (
     CacheConfig, EnsembleConfig, LearningConfig, ShardingConfig,
     StalenessConfig, TieringConfig,
+)
+from repro_torch.cache_service.feedback import (
+    FeedbackAccumulator, FeedbackConfig,
 )
 from repro_torch.cache_service.policy import PolicyTable, TenantPolicy
 from repro_torch.cache_service.protocol import (
@@ -17,6 +22,7 @@ __all__ = [
     "CacheService", "ServiceStats",
     "CacheConfig", "TieringConfig", "ShardingConfig", "LearningConfig",
     "EnsembleConfig", "StalenessConfig", "PolicyTable", "TenantPolicy",
+    "FeedbackAccumulator", "FeedbackConfig",
     "CacheBackend", "CacheCapabilities", "CachePlan", "CacheRequest",
     "CommitReceipt", "MaintenanceReport", "coalesce_misses",
     "ungrouped_misses",

@@ -36,8 +36,6 @@ from repro_torch.cache_service.policy import ColdRoutingPolicy, EmbedderRefreshP
 _LOOPS = "the service-learning-loops slice"
 _NOT_PORTED = {
     "background_rebuild": _LOOPS,
-    "learned_admission": _LOOPS,
-    "feedback": _LOOPS,
     "conformal": _LOOPS,
     "cold_capacity": "the cold-tier slice",
     "cold_policy": "the cold-tier slice",
@@ -45,8 +43,6 @@ _NOT_PORTED = {
     "embedder_trainer": "the embedder-refresh slice",
     "embedder_tokenizer": "the embedder-refresh slice",
     "refresh_policy": "the embedder-refresh slice",
-    "embedders": "the ensemble slice",
-    "weights": "the ensemble slice",
     "mesh": "the sharded-warm-tier slice",
 }
 

@@ -1,11 +1,11 @@
 """CacheService — the serving-path facade over the tiered store.
 
-The port of `repro/cache_service/service.py` for one device and one
-embedder.  The host half owns response strings (a dict keyed by value
-id, garbage-collected from the eviction reports every device op
-returns) and the per-tenant policy table; the device half is `tiers`:
-a hot exact store, a warm IVF ring and one cascaded lookup, on the
-service's ``device`` (the card unless the caller asks for the CPU).
+The port of `repro/cache_service/service.py` for one device.  The host
+half owns response strings (a dict keyed by value id, garbage-collected
+from the eviction reports every device op returns) and the per-tenant
+policy table; the device half is `tiers`: a hot exact store, a warm IVF
+ring and one cascaded lookup, on the service's ``device`` (the card
+unless the caller asks for the CPU).
 
 Lifecycle of an entry:
 
@@ -23,10 +23,25 @@ Serving surface (DESIGN.md §7): ``plan(CacheRequest) -> CachePlan``
 (cascade verdicts, hit responses, admission pre-decision, miss
 coalescing), then ``commit(plan, responses) -> CommitReceipt``
 (admissions, demotion flush, GC), ``maintenance()`` on the idle tick
-(TTL reap, gauges, health drain).  The double-buffered rebuild, the
-learning loops, the cold tier, embedder refresh, the ensemble and the
-sharded warm tier are refused by the port's ``CacheConfig`` until the
-slices that bring them land (ROADMAP.md).
+(TTL reap, threshold and mixture-weight refits, gauges, health drain).
+
+Learned admission (DESIGN.md §9): every commit labels its miss rows
+against their stored neighbours (duplicate <=> the generated response
+equals the neighbour's), a per-tenant reservoir accumulates the labeled
+scores (`feedback.FeedbackAccumulator`), and ``maintenance()`` refits
+each tenant's threshold and admission margin under hysteresis guards.
+
+The ensemble (DESIGN.md §13): with ``EnsembleConfig(embedders=E)``
+requests carry (B, E, D) embeddings, row 0 the *pilot*; E row-aligned
+key panels ride beside the tiers and one fused cascade pass scores all
+of them with per-tenant mixture weights (uniform 1/E by default).  With
+learned admission the weights are re-learned per tenant from the
+feedback stream, each refit recalibrating the tenant's threshold
+against the fused score; ``publish_panel`` swaps one embedder's panels.
+
+The double-buffered rebuild, conformal calibration, the cold tier,
+embedder refresh and the sharded warm tier are refused by the port's
+``CacheConfig`` until the slices that bring them land (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -40,6 +55,9 @@ import torch
 
 from repro_torch.cache_service import tiers
 from repro_torch.cache_service.config import CacheConfig
+from repro_torch.cache_service.feedback import (
+    FeedbackAccumulator, record_refit,
+)
 from repro_torch.cache_service.policy import PolicyTable, TenantPolicy
 from repro_torch.cache_service.protocol import (
     CacheCapabilities, CachePlan, CacheRequest, CommitReceipt,
@@ -105,13 +123,40 @@ class CacheService:
         times are relative to the clock's value at construction,
         because float32 deadlines on absolute epoch seconds would round
         to ~256 s steps.
+
+        ``LearningConfig(learned_admission=True)`` (or a ``feedback``
+        config) turns on the §9 feedback loop.
+        ``EnsembleConfig(embedders=E)`` (an int, or a sequence of E
+        embedder handles) turns on the §13 ensemble; ``weights`` seeds
+        the default mixture.  ``embedders`` excludes
+        ``learned_embedder`` (the §11 refresh retrains the single pilot
+        embedder), and ``weights`` needs ``embedders``.
         """
         if not isinstance(config, CacheConfig):
             raise TypeError("CacheService takes a CacheConfig")
         self.device = resolve_device(device)
         cfg = self.config = config
         tc, stc = cfg.tiering, cfg.staleness
+        lc, ec = cfg.learning, cfg.ensemble
         dim = cfg.dim
+        embedders = ec.embedders
+        n_embedders = 0 if embedders is None else embedders \
+            if isinstance(embedders, int) else len(embedders)
+        if n_embedders < 0 or n_embedders == 0 and embedders is not None:
+            raise ValueError(f"embedders must name at least one "
+                             f"embedder, got {embedders!r}")
+        self.n_embedders = n_embedders
+        if n_embedders and (lc.learned_embedder
+                            or lc.refresh_policy is not None
+                            or lc.embedder_trainer is not None):
+            raise ValueError(
+                "embedders= and learned_embedder= are mutually "
+                "exclusive: the §11 refresh retrains the single pilot "
+                "embedder in place; under an ensemble a candidate "
+                "embedder is published per panel via publish_panel() "
+                "instead (DESIGN.md §13)")
+        if ec.weights is not None and not n_embedders:
+            raise ValueError("ensemble weights without embedders")
         hot_capacity, warm_capacity = tc.hot_capacity, tc.warm_capacity
         flush_size = tc.flush_size
         if flush_size is None:
@@ -145,7 +190,22 @@ class CacheService:
                                     tc.bucket, self.device)
         self.policies = PolicyTable(TenantPolicy(cfg.threshold,
                                                  cfg.admission_margin))
+        # §13: E row-aligned key panels over the shared tiers; panel 0
+        # (the pilot) duplicates the base keys
+        self.ens: Optional[tiers.EnsembleState] = None
+        if n_embedders:
+            self.ens = tiers.init_ensemble(n_embedders, self.hot, self.warm)
+            if ec.weights is not None:
+                self.policies.set_default_weights(ec.weights)
+        self.learned_admission = bool(lc.learned_admission
+                                      or lc.feedback is not None)
+        self.feedback: Optional[FeedbackAccumulator] = \
+            FeedbackAccumulator(lc.feedback) if self.learned_admission \
+            else None
         self.responses: Dict[int, str] = {}
+        # raw query text per admitted value id: the neighbour side of
+        # the labeled pairs the feedback stream pools
+        self._texts: Dict[int, str] = {}
         self._next_vid = 0
         self._epoch = 0              # bumped by evict_tenant (plan staleness)
         self._embed_version = 0
@@ -160,6 +220,10 @@ class CacheService:
         self._ttl_active = stc.default_ttl is not None
         self.telemetry = cfg.telemetry if cfg.telemetry is not None \
             else Telemetry()
+        if self.telemetry.health is not None and self.feedback is not None:
+            fb_cfg = self.feedback.config
+            self.telemetry.health.set_budget_source(
+                lambda t: fb_cfg.max_false_hit_rate)
         reg = self.telemetry.registry
         self._stage_h = self.telemetry.stage_histogram()
         self._c_plans = reg.counter(
@@ -195,6 +259,10 @@ class CacheService:
             "IVF re-clusters completed (published or inline)").labels()
         self._c_shadow = reg.counter(
             "cache_shadow_rebuilds_total", "shadow builds started").labels()
+        self._c_stale_ver = reg.counter(
+            "cache_stale_version_commits_total",
+            "admissions rejected because the plan embedded under an "
+            "older embedder version than is live (§11)").labels()
         self._c_ttl_stamped = reg.counter(
             "cache_ttl_stamped_total",
             "admitted rows stamped with a finite expiry (§14.2)").labels()
@@ -219,6 +287,13 @@ class CacheService:
             quantized=self.warm_dtype == "int8",
             warm_block_n=self.warm_block)
 
+    def _ens_lookup(self, hot, warm, q, w, qt, thr) -> tiers.EnsembleResult:
+        return tiers.ensemble_cascade_query(
+            hot, warm, self.ens, q, w, qt, thr, k=self.topk,
+            n_probe=self._n_probe, tail=self._tail, fused=self.fused,
+            quantized=self.warm_dtype == "int8",
+            warm_block_n=self.warm_block)
+
     def _t(self, a, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype,
                                device=self.device)
@@ -230,6 +305,35 @@ class CacheService:
                           admission_margin: float = 0.0) -> None:
         self.policies.set(tenant, TenantPolicy(threshold, admission_margin))
 
+    def set_tenant_weights(self, tenant: int, weights) -> None:
+        """Pin one tenant's ensemble mixture weights (§13), normalized
+        to the simplex; learned refits may still move them later."""
+        if self.ens is None:
+            raise ValueError("set_tenant_weights needs embedders=")
+        self.policies.set_weights(tenant, weights)
+
+    def publish_panel(self, e: int, hot_keys, warm_keys) -> None:
+        """Versioned publish of ONE embedder's key panels (DESIGN.md
+        §13): ``hot_keys`` (Nh, D) and ``warm_keys`` (Nw, D) are the
+        full-capacity panels under the candidate embedder (valid rows
+        re-embedded, every other row carrying its current key).  Per-slot
+        metadata and the pilot-built IVF are untouched.  Publishing the
+        pilot (e=0) swaps the base tiers' keys too.  The embedder version
+        bumps either way, so plans embedded under the old panel set are
+        rejected at commit."""
+        if self.ens is None:
+            raise ValueError("publish_panel needs embedders=")
+        if not 0 <= int(e) < self.n_embedders:
+            raise ValueError(f"panel {e} out of range "
+                             f"[0, {self.n_embedders})")
+        hk = self._t(hot_keys, torch.float32)
+        wk = self._t(warm_keys, torch.float32)
+        self.ens = tiers.publish_panel(self.ens, int(e), hk, wk)
+        if int(e) == 0:
+            self.hot, self.warm = tiers.publish_reembedded_keys(
+                self.hot, self.warm, hk, wk)
+        self._embed_version += 1
+
     # ------------------------------------------------------------------
     # CacheBackend protocol: plan / commit / maintenance / stats
     # ------------------------------------------------------------------
@@ -237,7 +341,9 @@ class CacheService:
         return CacheCapabilities(tenants=True, fused_lookup=True,
                                  admission=True, background_rebuild=False,
                                  tiered=True, warm_sharded=False,
-                                 warm_dtype=self.warm_dtype, ttl=True)
+                                 warm_dtype=self.warm_dtype,
+                                 learned_admission=self.learned_admission,
+                                 ensemble=self.n_embedders, ttl=True)
 
     def plan(self, request: CacheRequest, *,
              coalesce: bool = True) -> CachePlan:
@@ -255,11 +361,29 @@ class CacheService:
             n_masked = int(nm)
             if n_masked:
                 self._c_expired_masked.inc(n_masked)
-        pilot = np.asarray(request.embeddings)
-        res = self._lookup(hot_view, warm_view,
-                           self._t(pilot, torch.float32),
-                           self._t(qt, torch.int32),
-                           self._t(thr, torch.float32))
+        panel_scores = None
+        if self.ens is not None:
+            # §13: one fused pass over all E panels; the pilot slice
+            # (row 0) feeds miss coalescing downstream
+            emb = np.asarray(request.embeddings)
+            if emb.ndim != 3 or emb.shape[1] != self.n_embedders:
+                raise ValueError(
+                    f"ensemble backend expects (B, {self.n_embedders}, D)"
+                    f" embeddings, got {emb.shape}")
+            pilot = emb[:, 0]
+            weights = self.policies.weights_for(qt, self.n_embedders)
+            res = self._ens_lookup(hot_view, warm_view,
+                                   self._t(emb, torch.float32),
+                                   self._t(weights, torch.float32),
+                                   self._t(qt, torch.int32),
+                                   self._t(thr, torch.float32))
+            panel_scores = _np(res.panel_scores)
+        else:
+            pilot = np.asarray(request.embeddings)
+            res = self._lookup(hot_view, warm_view,
+                               self._t(pilot, torch.float32),
+                               self._t(qt, torch.int32),
+                               self._t(thr, torch.float32))
         self.hot = tiers.hot_touch(self.hot, res.hot_slots, res.hot_hit)
         hit = _np(res.hit)
         scores = _np(res.scores[:, 0])
@@ -273,6 +397,8 @@ class CacheService:
         responses = [self.responses.get(int(v)) if h else None
                      for h, v in zip(hit, vids)]
         admit = self.policies.pre_decision(qt, scores, hit)
+        if self.feedback is not None:
+            self.feedback.observe_plan(hit)
         if self.telemetry.health is not None:
             self.telemetry.health.observe_plan(qt, hit)
         leader = coalesce_misses(pilot, hit, qt, thr) \
@@ -285,7 +411,8 @@ class CacheService:
             admit=admit, miss_leader=leader, epoch=self._epoch,
             margins=np.asarray(thr, np.float32) - scores,
             top_value_ids=vids, plan_wall_s=wall,
-            embed_version=self._embed_version, expired_masked=n_masked)
+            embed_version=self._embed_version,
+            panel_scores=panel_scores, expired_masked=n_masked)
 
     def commit(self, plan: CachePlan,
                responses: Sequence[Optional[str]]) -> CommitReceipt:
@@ -298,15 +425,29 @@ class CacheService:
             self._c_stale.inc()
         rows = plan.miss_rows()
         admit = plan.admit[rows]
+        n_stale_ver = 0
+        if plan.embed_version != self._embed_version and len(rows):
+            # the plan embedded under a panel set that has since been
+            # swapped (publish_panel): admitting its rows would plant
+            # old-space keys into the new panels — reject them
+            n_stale_ver = int(np.asarray(admit, bool).sum())
+            admit = np.zeros_like(np.asarray(admit, bool))
+            if n_stale_ver:
+                self._c_stale_ver.inc(n_stale_ver)
         texts: List[Optional[str]] = [responses[i] for i in rows]
         for pos in np.nonzero(admit)[0]:
             if texts[pos] is None:
                 raise ValueError(
                     f"admitted row {int(rows[pos])} has no response")
+        if self.feedback is not None:
+            self._observe_feedback(plan, rows, admit, texts)
+        req_texts = plan.request.texts
         vids = np.full(len(rows), -1, np.int64)
         for pos in np.nonzero(admit)[0]:
             vids[pos] = self._next_vid
             self.responses[self._next_vid] = texts[pos]
+            if req_texts is not None:
+                self._texts[self._next_vid] = str(req_texts[int(rows[pos])])
             self._next_vid += 1
         n_admit = int(admit.sum())
         row_tenants = plan.request.tenants[rows]
@@ -338,12 +479,18 @@ class CacheService:
             if n_ttl:
                 self._ttl_active = True
                 self._c_ttl_stamped.inc(n_ttl)
-            self.hot, evicted = tiers.hot_insert_batch(
-                self.hot, self._t(plan.request.embeddings[rows],
-                                  torch.float32),
-                self._t(vids, torch.int32),
-                self._t(plan.request.tenants[rows], torch.int32),
-                self._t(expires, torch.float32))
+            args = (self._t(plan.request.embeddings[rows], torch.float32),
+                    self._t(vids, torch.int32),
+                    self._t(plan.request.tenants[rows], torch.int32),
+                    self._t(expires, torch.float32))
+            if self.ens is not None:
+                # (B, E, D) rows: the base insert takes the pilot slice,
+                # the mirrored panels take the same slots (§13)
+                self.hot, self.ens, evicted = \
+                    tiers.ensemble_hot_insert_batch(self.hot, self.ens,
+                                                    *args)
+            else:
+                self.hot, evicted = tiers.hot_insert_batch(self.hot, *args)
             self._gc(evicted)
             self._maybe_flush()
         wall = time.perf_counter() - t0
@@ -352,17 +499,51 @@ class CacheService:
         return CommitReceipt(
             admitted=n_admit, skipped=int((~admit).sum()),
             evicted=self._n_evictions - evicted_before,
-            rebuild_due=False, commit_wall_s=wall,
-            trace_id=plan.request.trace_id,
-            embed_version=self._embed_version, ttl_stamped=n_ttl)
+            # a due policy refit is a maintenance obligation: the
+            # pipeline discharges it with one maintenance() call
+            rebuild_due=self.feedback is not None
+            and self.feedback.refit_due(),
+            commit_wall_s=wall, trace_id=plan.request.trace_id,
+            embed_version=self._embed_version,
+            stale_version_skipped=n_stale_ver, ttl_stamped=n_ttl)
 
     def maintenance(self, block: bool = False) -> MaintenanceReport:
-        """The idle tick (DESIGN.md §10.3): reap TTL-expired rows,
-        publish occupancy gauges, drain the health tracker.  Rebuilds
-        run inline at flush time in the port, so ``block`` has nothing
-        to join."""
+        """The idle tick (DESIGN.md §10.3): threshold refits (§9) and
+        mixture-weight refits (§13) from the feedback stream, reap
+        TTL-expired rows, publish occupancy gauges, drain the health
+        tracker.  Rebuilds run inline at flush time in the port, so
+        ``block`` has nothing to join."""
         del block
         t0 = time.perf_counter()
+        refits_applied = refits_checked = 0
+        if self.feedback is not None:
+            # republish every tenant policy whose reservoir survives the
+            # hysteresis guards — host-only work
+            reports = self.policies.refit(self.feedback)
+            refits_checked = len(reports)
+            refits_applied = sum(r.applied for r in reports)
+            for rep in reports:
+                record_refit(self.telemetry.registry, rep)
+        if self.feedback is not None and self.ens is not None:
+            # §13: an applied weight fit republishes the tenant's weights
+            # and its fused-score-recalibrated threshold together
+            wreps = self.policies.refit_weights(self.feedback,
+                                                self.n_embedders)
+            refits_checked += len(wreps)
+            refits_applied += sum(r.applied for r in wreps)
+            wc = self.telemetry.registry.counter(
+                "ensemble_weight_refits_total",
+                "per-tenant mixture-weight refit decisions by outcome "
+                "(§13)", labels=("tenant", "outcome"))
+            wg = self.telemetry.registry.gauge(
+                "ensemble_weight", "published per-tenant mixture weight",
+                labels=("tenant", "embedder"))
+            for rep in wreps:
+                wc.inc(1, tenant=rep.tenant,
+                       outcome="applied" if rep.applied else rep.reason)
+                if rep.applied:
+                    for e, w in enumerate(rep.new_weights):
+                        wg.set(float(w), tenant=rep.tenant, embedder=e)
         expired_reaped = 0
         if self._ttl_active:
             now = float(self._clock())
@@ -385,7 +566,9 @@ class CacheService:
             self.telemetry.health.drain(reg)
         host_wall = time.perf_counter() - t0
         self._stage_h.observe(host_wall, stage="maintenance", tenant="-")
-        return MaintenanceReport(wall_s=host_wall,
+        return MaintenanceReport(refits_applied=refits_applied,
+                                 refits_checked=refits_checked,
+                                 wall_s=host_wall,
                                  embed_version=self._embed_version,
                                  expired_reaped=expired_reaped)
 
@@ -421,6 +604,8 @@ class CacheService:
             "warm_shards": self.warm_shards,
             "warm_dtype": self.warm_dtype,
         }
+        if self.ens is not None:
+            tiers_d["ensemble"] = self.n_embedders
         if self._ttl_active:
             tiers_d["staleness"] = {
                 "default_ttl": self.default_ttl,
@@ -438,11 +623,17 @@ class CacheService:
             "last_wall_s": self._last_rebuild_s,
             "total_wall_s": self._rebuild_total_s,
         }
+        learning = None
+        if self.feedback is not None:
+            learning = dict(self.feedback.state())
+            learning["learned_policies"] = self.policies.learned_state()
+            if self.ens is not None:
+                learning["ensemble_weights"] = self.policies.weights_state()
         health = self.telemetry.health.snapshot() \
             if self.telemetry.health is not None else None
         return ServiceStats(schema=SCHEMA, traffic=traffic,
                             admission=admission, tiers=tiers_d,
-                            rebuild=rebuild, learning=None,
+                            rebuild=rebuild, learning=learning,
                             health=health, refresh=None)
 
     def evict_tenant(self, tenant: int) -> int:
@@ -456,12 +647,58 @@ class CacheService:
     # ------------------------------------------------------------------
     # internals
     # ------------------------------------------------------------------
+    def _observe_feedback(self, plan: CachePlan, rows: np.ndarray,
+                          admit: np.ndarray,
+                          texts: List[Optional[str]]) -> None:
+        """Label each committed miss against its stored neighbour and
+        feed the per-tenant reservoir (DESIGN.md §9): duplicate <=> the
+        generated response equals the best same-tenant neighbour's
+        stored response (the plan carried its id).  A row with no
+        same-tenant candidate is a definite non-duplicate; a row whose
+        neighbour string was GC'd between plan and commit is skipped.
+        Runs before commit mints fresh ids.  Under an ensemble the same
+        verdict, labeled with the candidate's per-embedder cosines, is
+        the mixture-weight learner's event (§13)."""
+        top = plan.top_value_ids
+        if top is None:
+            return
+        tenants = plan.request.tenants
+        req_texts = plan.request.texts
+        for pos, row in enumerate(rows):
+            text = texts[pos]
+            if text is None:
+                continue
+            vid = int(top[row])
+            if vid < 0:
+                dup = False
+                score = max(float(plan.scores[row]), -1.0)  # NEG sentinel
+                neigh_text = None
+            else:
+                neighbour = self.responses.get(vid)
+                if neighbour is None:
+                    continue
+                dup = text == neighbour
+                score = float(plan.scores[row])
+                neigh_text = self._texts.get(vid)
+            q_text = None if req_texts is None else req_texts[int(row)]
+            self.feedback.observe(int(tenants[row]), score, dup,
+                                  bool(admit[pos]), text=q_text,
+                                  neighbour_text=neigh_text)
+            if self.ens is not None and plan.panel_scores is not None \
+                    and vid >= 0:
+                self.feedback.observe_ensemble(
+                    int(tenants[row]), plan.panel_scores[row], dup)
+            if self.telemetry.health is not None:
+                self.telemetry.health.observe_admission(
+                    int(tenants[row]), dup, bool(admit[pos]))
+
     def _gc(self, evicted) -> int:
         """Free response strings whose ids a device op reported evicted."""
         ids = _np(evicted) if torch.is_tensor(evicted) \
             else np.asarray(evicted)
         n = 0
         for v in ids[ids >= 0]:
+            self._texts.pop(int(v), None)
             if self.responses.pop(int(v), None) is not None:
                 n += 1
         self._n_evictions += n
@@ -488,7 +725,17 @@ class CacheService:
         self._c_rebuilds.inc()
 
     def _do_flush(self, rebuild: bool) -> None:
+        pk = None
+        if self.ens is not None:
+            # the demoting rows' stacked panel keys, gathered before the
+            # demote flips their valid bits: `coldest_slots` is the exact
+            # selection `demote_coldest` pops (§13)
+            pk = self.ens.hot_keys[:, tiers.coldest_slots(self.hot,
+                                                          self.flush_size)]
         self.hot, dem = tiers.demote_coldest(self.hot, self.flush_size)
+        if self.ens is not None:
+            self.ens = tiers.ensemble_warm_append(self.ens, self.warm, dem,
+                                                  pk)
         self.warm, evicted = tiers.warm_append(self.warm, dem)
         self._c_ev_dropped.inc(self._gc(evicted))
         self._c_demotions.inc(int(dem.mask.sum()))

@@ -23,8 +23,12 @@ host.
 `cascade_query` selects between the four-op composition here
 (``fused=False``, the parity reference) and the fused cascade kernel
 (`kernels/cascade_lookup`: the hand-written CUDA kernel on a card, its
-plain torch version for CPU tensors).  The sharded warm tier and the
-multi-embedder ensemble arrive with later slices of the port.
+plain torch version for CPU tensors).
+
+The multi-embedder ensemble (DESIGN.md §13) keeps E row-aligned key
+panels beside the tiers (`EnsembleState`); `ensemble_cascade_query`
+scores all of them in one pass with per-query mixture weights.  The
+sharded warm tier arrives with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import torch
 
 from repro_torch.core import ivf as ivf_lib
 from repro_torch.kernels.cascade_lookup import ops as casc_ops
+from repro_torch.kernels.cascade_lookup import ref as casc_ref
 from repro_torch.kernels.cascade_lookup.ref import topk_stable
 
 NEG = -1e30
@@ -116,6 +121,11 @@ def warm_from_reference(state, device="cpu") -> WarmState:
     return _from_reference(WarmState, state, device)
 
 
+def ensemble_from_reference(state, device="cpu") -> "EnsembleState":
+    """A reference (unsharded) ``EnsembleState`` as the port's."""
+    return _from_reference(EnsembleState, state, device)
+
+
 # ---------------------------------------------------------------------------
 # hot tier
 # ---------------------------------------------------------------------------
@@ -134,14 +144,15 @@ def init_hot(capacity: int, dim: int, device="cpu") -> HotState:
 
 
 def _insert_chunk(state: HotState, embs, value_ids, tenants, expires
-                  ) -> Tuple[HotState, torch.Tensor]:
+                  ) -> Tuple[HotState, torch.Tensor, torch.Tensor]:
     """Insert up to ``capacity`` rows at once, with the sequential
     semantics of one-row-at-a-time `hot_insert`.  Row r (skipped when
     its value id is < 0) takes the next slot in the order the
     sequential loop would pick them: free slots by ascending index,
     then valid slots by (last_used, index) — within one chunk a freshly
     written slot carries the newest clock, so it is never picked twice.
-    """
+    Returns (state, evicted (M,), slots (M,) int64: the slot each row
+    took, -1 for skipped rows)."""
     cap = state.valid.shape[0]
     dev = state.keys.device
     idx = torch.arange(cap, device=dev, dtype=torch.int64)
@@ -169,7 +180,7 @@ def _insert_chunk(state: HotState, embs, value_ids, tenants, expires
     new.inserted_at[s] = clock_r[live]
     new.value_ids[s] = value_ids.to(_I32)[live]
     new.expires_at[s] = expires.float()[live]
-    return new, evicted
+    return new, evicted, torch.where(live, slot, -1)
 
 
 def hot_insert_batch(state: HotState, embs: torch.Tensor,
@@ -183,17 +194,26 @@ def hot_insert_batch(state: HotState, embs: torch.Tensor,
     M = embs.shape[0]
     if expires is None:
         expires = torch.full((M,), float("inf"), device=embs.device)
+    state, evicted, _ = _insert_chunks(state, embs, value_ids, tenants,
+                                       expires)
+    return state, evicted
+
+
+def _insert_chunks(state: HotState, embs, value_ids, tenants, expires):
+    """`_insert_chunk` over capacity-sized chunks, in order; returns
+    (state, evicted (M,), per-chunk [(lo, slots)])."""
     cap = state.valid.shape[0]
-    out = []
-    for lo in range(0, M, cap):
-        state, ev = _insert_chunk(state, embs[lo:lo + cap],
-                                  value_ids[lo:lo + cap],
-                                  tenants[lo:lo + cap],
-                                  expires[lo:lo + cap])
+    out, slots = [], []
+    for lo in range(0, embs.shape[0], cap):
+        state, ev, sl = _insert_chunk(state, embs[lo:lo + cap],
+                                      value_ids[lo:lo + cap],
+                                      tenants[lo:lo + cap],
+                                      expires[lo:lo + cap])
         out.append(ev)
+        slots.append((lo, sl))
     evicted = torch.cat(out) if out else torch.zeros(0, dtype=_I32,
                                                      device=embs.device)
-    return state, evicted
+    return state, evicted, slots
 
 
 def hot_insert(state: HotState, emb, value_id, tenant, expires=None
@@ -381,6 +401,20 @@ def _warm_candidates(state: WarmState, qn, q_tenants, n_probe: int,
     return safe, ok
 
 
+def publish_reembedded_keys(hot: HotState, warm: WarmState,
+                            hot_keys: torch.Tensor, warm_keys: torch.Tensor
+                            ) -> Tuple[HotState, WarmState]:
+    """Swap both tiers' key panels for re-embedded ones (DESIGN.md §11):
+    full-capacity (Nh, D) / (Nw, D) replacements, re-normalized here,
+    with the warm int8 mirror requantized in the same update.  Per-slot
+    metadata, ring counters and the IVF are untouched."""
+    hk = _unit(hot_keys.float())
+    wk = _unit(warm_keys.float())
+    q8, sc = quantize_rows(wk)
+    return (hot._replace(keys=hk),
+            warm._replace(keys=wk, keys_q=q8, scales=sc))
+
+
 def warm_query(state: WarmState, q: torch.Tensor, q_tenants: torch.Tensor,
                k: int = 1, n_probe: int = 8, tail: int = 0,
                quantized: bool = False):
@@ -509,6 +543,213 @@ def evict_tenant(hot: HotState, warm: WarmState, tenant
     w_ev = torch.where(w_kill, warm.value_ids, -1)
     return (hot._replace(valid=hot.valid & ~h_kill),
             warm._replace(valid=warm.valid & ~w_kill), h_ev, w_ev)
+
+
+# ---------------------------------------------------------------------------
+# multi-embedder ensemble: E stacked key panels over the shared tiers
+# ---------------------------------------------------------------------------
+
+class EnsembleState(NamedTuple):
+    """E row-aligned key panels over the base tiers (DESIGN.md §13).
+
+    The base ``HotState``/``WarmState`` keep every per-slot column, the
+    ring counters and the IVF; panel 0 (the *pilot*) duplicates the base
+    key panels, so routing and rebuilds stay single-embedder.  The other
+    panels are the same rows under the other embedders, kept aligned by
+    mirroring every slot decision of the base mutation
+    (`ensemble_hot_insert_batch`, `ensemble_warm_append`); `warm_rebuild`
+    never moves rows.
+    """
+    hot_keys: torch.Tensor     # (E, Nh, D) float32 unit-norm
+    warm_keys: torch.Tensor    # (E, Nw, D) float32 unit-norm
+    warm_keys_q: torch.Tensor  # (E, Nw, D) int8 per-row symmetric quant
+    warm_scales: torch.Tensor  # (E, Nw) float32 dequant scales
+
+
+class EnsembleResult(NamedTuple):
+    """`CascadeResult` plus the top-1 candidate's per-embedder cosines
+    (``panel_scores``, -1.0 on rows with no candidate): the feedback
+    loop's training signal for the per-tenant mixture weights."""
+    scores: torch.Tensor       # (Q, k) fused best-of-tiers, desc
+    value_ids: torch.Tensor    # (Q, k) -1 where no candidate
+    hot_slots: torch.Tensor    # (Q,)
+    hot_hit: torch.Tensor      # (Q,)
+    hit: torch.Tensor          # (Q,)
+    panel_scores: torch.Tensor  # (Q, E) unweighted per-panel cosines
+
+
+def init_ensemble(n_embedders: int, hot: HotState,
+                  warm: WarmState) -> EnsembleState:
+    """E copies of the base key panels (a fresh service starts
+    all-zero)."""
+    def exp(x):
+        return x[None].expand((n_embedders,) + x.shape).clone()
+
+    return EnsembleState(hot_keys=exp(hot.keys), warm_keys=exp(warm.keys),
+                         warm_keys_q=exp(warm.keys_q),
+                         warm_scales=exp(warm.scales).float())
+
+
+def make_ensemble(hot_panels: torch.Tensor,
+                  warm_panels: torch.Tensor) -> EnsembleState:
+    """An `EnsembleState` from raw stacked (E, Nh, D) / (E, Nw, D)
+    panels: unit-normalized and quantized (tests and benches)."""
+    hk = _unit(hot_panels.float())
+    wk = _unit(warm_panels.float())
+    q8, sc = quantize_rows(wk)
+    return EnsembleState(hot_keys=hk, warm_keys=wk, warm_keys_q=q8,
+                         warm_scales=sc)
+
+
+def ensemble_hot_insert_batch(hot: HotState, ens: EnsembleState,
+                              embs: torch.Tensor, value_ids: torch.Tensor,
+                              tenants: torch.Tensor,
+                              expires: Optional[torch.Tensor] = None
+                              ) -> Tuple[HotState, EnsembleState,
+                                         torch.Tensor]:
+    """`hot_insert_batch` with the E panels mirrored: embs is (B, E, D),
+    panel 0 the pilot.  The base insert reports the slot each row took
+    and every panel's row is written there, chunk by chunk in the base
+    insert's order, so the panels stay row-aligned with the base tier.
+    Each panel row is normalized exactly as the base insert normalizes
+    the pilot, so panel 0 stays bit-equal to ``hot.keys``.  Returns
+    (hot, ens, evicted (B,))."""
+    M, E, _ = embs.shape
+    if expires is None:
+        expires = torch.full((M,), float("inf"), device=embs.device)
+    hot, evicted, chunks = _insert_chunks(hot, embs[:, 0].contiguous(),
+                                          value_ids, tenants, expires)
+    cap = hot.valid.shape[0]
+    keys = ens.hot_keys.clone()
+    for lo, slots in chunks:
+        live = slots >= 0
+        for e in range(E):
+            kn = _unit(embs[lo:lo + cap, e].contiguous().float())
+            keys[e, slots[live]] = kn[live]
+    return hot, ens._replace(hot_keys=keys), evicted
+
+
+def ensemble_warm_append(ens: EnsembleState, warm: WarmState, dem: Demoted,
+                         panel_keys: torch.Tensor) -> EnsembleState:
+    """Mirror of `warm_append` for the stacked panels: the identical
+    ring arithmetic from the *pre-append* warm state, applied to the
+    (E, m, D) panel rows of the demoted batch (gathered by the caller
+    through `coldest_slots` before the demote).  Call `warm_append` on
+    the base state with the same ``dem`` alongside."""
+    cap = warm.valid.shape[0]
+    offs = torch.cumsum(dem.mask.to(_I32), 0, dtype=_I32) - 1
+    d = ((warm.cursor + offs) % cap)[dem.mask].long()
+    wk, wq = ens.warm_keys.clone(), ens.warm_keys_q.clone()
+    ws = ens.warm_scales.clone()
+    for e in range(panel_keys.shape[0]):
+        kn = _unit(panel_keys[e].contiguous().float())
+        k8, sc = quantize_rows(kn)
+        wk[e, d] = kn[dem.mask]
+        wq[e, d] = k8[dem.mask]
+        ws[e, d] = sc[dem.mask]
+    return ens._replace(warm_keys=wk, warm_keys_q=wq, warm_scales=ws)
+
+
+def publish_panel(ens: EnsembleState, e: int, hot_keys: torch.Tensor,
+                  warm_keys: torch.Tensor) -> EnsembleState:
+    """Swap ONE embedder's key panels — the E-panel generalization of
+    `publish_reembedded_keys`: rows re-normalize and the int8 mirror
+    requantizes in the same update; per-slot metadata and the
+    pilot-built IVF are untouched.  Publishing panel 0 must go through
+    `publish_reembedded_keys` on the base tiers as well (the pilot
+    panel duplicates them)."""
+    hk = _unit(hot_keys.float())
+    wk = _unit(warm_keys.float())
+    q8, sc = quantize_rows(wk)
+    out = []
+    for panel, new in zip(ens, (hk, wk, q8, sc)):
+        panel = panel.clone()
+        panel[e] = new
+        out.append(panel)
+    return EnsembleState(*out)
+
+
+def _rescore_exact_fused(qe, w, warm_panels, s, wslots):
+    """Exact fp32 re-score of int8-selected warm winners, per panel,
+    re-fused with the same stacked contraction the scan used: O(Q·k·E·D)
+    on the few selected rows."""
+    E = qe.shape[0]
+    safe = wslots.clamp(0, warm_panels.shape[1] - 1).long()
+    pans = [torch.einsum("qd,qkd->qk", qe[e], warm_panels[e][safe])
+            for e in range(E)]
+    exact = torch.einsum("qke,qe->qk", torch.stack(pans, -1), w)
+    return torch.where(wslots >= 0, exact, s)
+
+
+def _top1_panel_scores(qe, hot_panels, warm_winner_keys, wslot0, hslots,
+                       has):
+    """Per-embedder cosines of each query's merged top-1 candidate.
+    ``warm_winner_keys`` is the (Q, E, D) gather of the winning warm
+    rows; a hot winner is always the hot top-1, so it resolves through
+    ``hslots``."""
+    hsafe = hslots.clamp(0, hot_panels.shape[1] - 1).long()
+    hkeys = hot_panels[:, hsafe].transpose(0, 1)                # (Q, E, D)
+    keys = torch.where((wslot0 >= 0)[:, None, None], warm_winner_keys,
+                       hkeys)
+    ps = torch.einsum("eqd,qed->qe", qe, keys)
+    return torch.where(has[:, None], ps, -1.0)
+
+
+def _ensemble_ops(hot: HotState, warm: WarmState, ens: EnsembleState,
+                  qe, w, qt, thr, k, n_probe, tail, fused, quantized):
+    """The E-panel cascade: the kernel dispatch (``fused``: the CUDA
+    kernel on a card, its plain version for CPU tensors) or the four-op
+    plain version itself.  Returns the 6-tuple (scores, vids,
+    warm_slots, hot_slots, hot_hit, hit)."""
+    lookup = casc_ops.ensemble_lookup if fused else casc_ref.ensemble_lookup
+    return lookup(
+        qe, w, qt, thr, ens.hot_keys, hot.valid, hot.tenants, hot.value_ids,
+        ens.warm_keys, warm.valid, warm.tenants, warm.value_ids,
+        warm.write_seq, warm.centroids, warm.members, warm.cursor,
+        warm.indexed_total, ens.warm_keys_q, ens.warm_scales, k=k,
+        n_probe=n_probe, tail=tail, quantized=quantized)
+
+
+def ensemble_cascade_query(hot: HotState, warm: WarmState,
+                           ens: EnsembleState, q: torch.Tensor,
+                           weights: torch.Tensor, q_tenants: torch.Tensor,
+                           thresholds: torch.Tensor, k: int = 1,
+                           n_probe: int = 8, tail: int = 0,
+                           fused: bool = False, quantized: bool = False,
+                           warm_block_n: Optional[int] = None
+                           ) -> EnsembleResult:
+    """Fused multi-embedder cascade lookup (DESIGN.md §13).
+
+    q: (Q, E, D), one embedding per embedder per query, panel 0 the
+    pilot; weights: (Q, E) per-query mixture weights.  Paths and
+    quantization mirror `cascade_query` (``warm_block_n`` likewise has
+    no effect); scores are the weighted fused cosine, and routing runs
+    on the pilot against the base tier's IVF.  The result adds
+    ``panel_scores``, the top-1 candidate's unweighted per-embedder
+    cosines, which the feedback loop records to learn the weights.
+    """
+    del warm_block_n
+    qe = _unit(q.float()).transpose(0, 1).contiguous()        # (E, Q, D)
+    qt = q_tenants.to(_I32)
+    thr = thresholds.float()
+    w = weights.float().contiguous()
+    s, vids, wslots, hslots, hot_hit, hit = _ensemble_ops(
+        hot, warm, ens, qe, w, qt, thr, k, n_probe, tail, fused, quantized)
+    if quantized:
+        # the exact fused re-score may reorder the k selected candidates
+        s = _rescore_exact_fused(qe, w, ens.warm_keys, s, wslots)
+        s, idx = topk_stable(s, k)
+        vids = torch.gather(vids, 1, idx)
+        wslots = torch.gather(wslots, 1, idx)
+        hit = s[:, 0] >= thr
+        hot_hit = hit & (wslots[:, 0] < 0)
+    cap = ens.warm_keys.shape[1]
+    wsafe = wslots[:, 0].clamp(0, cap - 1).long()
+    wwin = ens.warm_keys[:, wsafe].transpose(0, 1)            # (Q, E, D)
+    ps = _top1_panel_scores(qe, ens.hot_keys, wwin, wslots[:, 0], hslots,
+                            vids[:, 0] >= 0)
+    return EnsembleResult(scores=s, value_ids=vids, hot_slots=hslots,
+                          hot_hit=hot_hit, hit=hit, panel_scores=ps)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,14 @@
 """The paper's primary contribution: the semantic cache — embedding
 model + vector store + threshold policy — plus its training objective
 (online contrastive loss), fine-tuning recipe, evaluation metrics and
-the synthetic data pipeline; the IVF index and threshold calibration
-of the tiered cache."""
+the synthetic data pipeline; the baseline embedders; the IVF index and
+threshold calibration of the tiered cache."""
 from repro_torch.core.cache import SemanticCache
 from repro_torch.core.calibration import (
     Calibration, calibrate_for_false_hit_budget, calibrate_for_precision,
+)
+from repro_torch.core.embedders import (
+    EncoderEmbedder, HashNgramEmbedder, RandomProjectionEmbedder,
 )
 from repro_torch.core.ivf import build_ivf, build_lists, kmeans
 from repro_torch.core.losses import (
@@ -27,7 +30,8 @@ from repro_torch.core.trainer import EmbedderTrainer, FinetuneConfig
 
 __all__ = [
     "SemanticCache", "Calibration", "calibrate_for_false_hit_budget",
-    "calibrate_for_precision", "build_ivf", "build_lists", "kmeans",
+    "calibrate_for_precision", "EncoderEmbedder", "HashNgramEmbedder",
+    "RandomProjectionEmbedder", "build_ivf", "build_lists", "kmeans",
     "contrastive_loss", "cosine_distance", "hard_pair_fractions",
     "online_contrastive_loss", "average_precision", "metrics_at_threshold",
     "pair_classification_metrics", "QueryResult", "StoreState",

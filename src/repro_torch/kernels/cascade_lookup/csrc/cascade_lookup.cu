@@ -1,31 +1,42 @@
-// Fused cascade lookup of the tiered semantic cache, for Hopper (sm_90a).
+// Fused cascade lookup of the tiered semantic cache, for Hopper (sm_90a),
+// over one key panel or an ensemble of E stacked panels.
 //
-// Replaces the TPU Pallas kernel repro/kernels/cascade_lookup/kernel.py::
-// cascade_lookup (body `_kernel`): one pass that scores the hot exact tier,
-// selects the IVF probes, gathers the probed buckets and the unindexed ring
-// tail of the warm tier, keeps a running top-k per tier and merges the two
-// (hot wins ties), then applies the per-query threshold.  It computes
-// exactly what the plain version in ../ref.py computes, including the
-// tie order of jax.lax.top_k: lowest hot row first in the hot tier, lowest
-// flat candidate position (probe-major, tail last) in the warm tier, hot
-// before warm in the merge.
+// Replaces two TPU Pallas kernels of repro/kernels/cascade_lookup/kernel.py:
+//   * cascade_lookup (body `_kernel`): one pass that scores the hot exact
+//     tier, selects the IVF probes, gathers the probed buckets and the
+//     unindexed ring tail of the warm tier, keeps a running top-k per tier
+//     and merges the two (hot wins ties), then applies the per-query
+//     threshold;
+//   * cascade_lookup_ensemble (body `_ens_kernel`): the same over E key
+//     panels, one per embedder (DESIGN.md §13).  A candidate's score is
+//     the fused sum_e w[q,e] * <q_e, key_e[row]>, masked after the sum;
+//     routing (probe selection) runs on panel 0, the pilot, alone.
+// It computes exactly what the plain versions in ../ref.py compute,
+// including the tie order of jax.lax.top_k: lowest hot row first in the
+// hot tier, lowest flat candidate position (probe-major, tail last) in the
+// warm tier, hot before warm in the merge.  The single cascade is E = 1
+// with no weights: the score is the one cosine itself.
 //
 // Design.  On the TPU a sequential grid carries the running top-k in VMEM
 // from step to step; CUDA blocks run in no order, so here one block owns
 // one query row and loops over everything that row needs:
-//   * the query row sits in shared memory;
-//   * hot phase: each warp strides over hot rows; a row's dot product is
-//     lane-strided over D (float4 loads when D % 4 == 0) with a shuffle
-//     reduction; every lane holds the same warp-private top-k in registers
+//   * the query's E panel rows and its E weights sit in shared memory;
+//   * hot phase: each warp strides over hot rows; a row's score is E
+//     lane-strided dot products over D (float4 loads when D % 4 == 0),
+//     each with a shuffle reduction, summed with the weights in panel
+//     order; every lane holds the same warp-private top-k in registers
 //     and the block merges the warp lists in shared memory;
-//   * probes: the K centroid scores go to shared memory, then warp 0 runs
-//     n_probe argmax rounds (lowest index on ties);
+//   * probes: the K centroid scores of the pilot query go to shared
+//     memory, then warp 0 runs n_probe argmax rounds (lowest index on
+//     ties);
 //   * warm phase: warps stride over the flat candidate positions
 //     f in [0, n_probe*bucket + tail), map f to its bucket slot or tail
-//     offset, mask (slot >= 0, valid, tenant, write epoch) and score in
-//     fp32 FMA; int8 rows are widened to fp32, multiplied by the fp32
-//     query and scaled by the row scale (the query is never quantized and
-//     no int8 MMA is used);
+//     offset and mask it (slot >= 0, valid, tenant, write epoch) once for
+//     all panels -- the candidate index stream is shared, which is the
+//     point of fusing the ensemble -- then score the row on every panel
+//     in fp32 FMA; int8 rows are widened to fp32, multiplied by the fp32
+//     query and scaled by the panel's row scale (the query is never
+//     quantized and no int8 MMA is used);
 //   * thread 0 merges the tiers and writes the outputs.
 // Arithmetic is fp32 end to end: no TF32, no bf16.  Masked candidates keep
 // the score NEG = -1e30 and still take part in the selection, so ties
@@ -34,11 +45,14 @@
 // Bound.  The work is gathers and dot products of a few thousand rows per
 // query: a few hundred MFLOP against tens of MB, far below the card's
 // operations-per-byte balance, so the kernel is bound by the bytes it
-// moves.  What this simple design leaves on the table: hot rows and
-// popular buckets are re-read by every query block (only L2 reuse saves
-// them), and a small batch (Q rows) fills only Q of the 132 SMs.  Splitting
-// the candidates of one query over several CTAs with a merge pass, and
-// staging rows through shared memory with cp.async/TMA, are the next steps.
+// moves; an ensemble reads E times the single cascade's key bytes with
+// the same index and metadata traffic.  What this simple design leaves on
+// the table: hot rows and popular buckets are re-read by every query
+// block (only L2 reuse saves them), a small batch (Q rows) fills only Q of
+// the 132 SMs, and each warp waits on one dependent row at a time.
+// Splitting the candidates of one query over several CTAs with a merge
+// pass, and staging rows through shared memory with cp.async/TMA, are the
+// next steps.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -47,6 +61,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxE = 8;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNeg = -1e30f;
 constexpr int kPosPad = 0x7fffffff;
@@ -137,7 +152,8 @@ __device__ __forceinline__ float dot_i8(const float* __restrict__ qs,
 }
 
 struct Args {
-  const float* q; const int* q_tenants; const float* thr;
+  const float* q; const float* weights; int E; int Q;
+  const int* q_tenants; const float* thr;
   const float* hot_keys; const uint8_t* hot_valid; const int* hot_tenants;
   const int* hot_vids; int n_hot;
   const float* warm_keys; const int8_t* warm_keys_q; const float* warm_scales;
@@ -149,6 +165,31 @@ struct Args {
   float* out_scores; int* out_vids; int* out_wslots; int* out_hslots;
   uint8_t* out_hot_hit; uint8_t* out_hit;
 };
+
+// The score of one row: sum_e w_e * <q_e, row_e> over the E panels in
+// panel order (panel e of the row at keys + e * panel_stride); without
+// weights (the single cascade) the one cosine itself.  `scales` (int8
+// panels) holds each panel's row scale at scales + e * scale_stride.
+__device__ __forceinline__ float fused_score(
+    const float* __restrict__ qs, int Dp, const float* __restrict__ wq,
+    bool weighted, int E, const float* __restrict__ keys,
+    const int8_t* __restrict__ keys_q, const float* __restrict__ scales,
+    size_t panel_stride, size_t scale_stride, int row, int D, bool vec4,
+    int lane) {
+  float s = 0.f;
+  for (int e = 0; e < E; ++e) {
+    float c;
+    if (keys_q != nullptr)
+      c = dot_i8(qs + e * Dp, keys_q + e * panel_stride + (size_t)row * D,
+                 D, vec4, lane) *
+          scales[e * scale_stride + row];
+    else
+      c = dot_f32(qs + e * Dp, keys + e * panel_stride + (size_t)row * D, D,
+                  vec4, lane);
+    s = !weighted ? c : e == 0 ? c * wq[0] : fmaf(c, wq[e], s);
+  }
+  return s;
+}
 
 // Block-wide merge of the per-warp lists into one list, written to
 // shared memory (res_*) by thread 0.
@@ -185,9 +226,11 @@ template <int KM>
 __global__ void __launch_bounds__(kThreads)
 cascade_lookup_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int D = a.D, k = a.k;
-  float* qs = reinterpret_cast<float*>(smem);                 // D
-  float* cs = qs + ((D + 3) & ~3);                            // n_clusters
+  const int D = a.D, k = a.k, E = a.E;
+  const int Dp = (D + 3) & ~3;
+  float* qs = reinterpret_cast<float*>(smem);                 // E * Dp
+  float* wq = qs + E * Dp;                                    // E, padded
+  float* cs = wq + ((E + 3) & ~3);                            // n_clusters
   int* probes = reinterpret_cast<int*>(cs + a.n_clusters);    // n_probe
   float* ws = reinterpret_cast<float*>(probes + a.n_probe);   // warps*KM
   int* wp = reinterpret_cast<int*>(ws + kWarps * KM);
@@ -205,22 +248,29 @@ cascade_lookup_kernel(Args a) {
   const bool vec4 = (D & 3) == 0;
   const int qt = a.q_tenants[row];
 
-  for (int d = threadIdx.x; d < D; d += kThreads)
-    qs[d] = a.q[(size_t)row * D + d];
+  for (int i = threadIdx.x; i < E * D; i += kThreads) {
+    const int e = i / D, d = i - e * D;
+    qs[e * Dp + d] = a.q[((size_t)e * a.Q + row) * D + d];
+  }
+  const bool weighted = a.weights != nullptr;
+  if (weighted && threadIdx.x < E)
+    wq[threadIdx.x] = a.weights[(size_t)row * E + threadIdx.x];
   __syncthreads();
 
   // ---- hot tier: tenant-masked exact top-k ------------------------------
+  const size_t hot_stride = (size_t)a.n_hot * D;
   TopK<KM> top;
   top.init();
   for (int r = warp; r < a.n_hot; r += kWarps) {
     float s = kNeg;
     if (a.hot_valid[r] && a.hot_tenants[r] == qt)
-      s = dot_f32(qs, a.hot_keys + (size_t)r * D, D, vec4, lane);
+      s = fused_score(qs, Dp, wq, weighted, E, a.hot_keys, nullptr, nullptr,
+                      hot_stride, 0, r, D, vec4, lane);
     top.push(s, r, r, k);
   }
   block_merge<KM>(top, ws, wp, wl, hs, hp, hl, k, warp, lane);
 
-  // ---- probe selection: centroid scores + n_probe argmax rounds ---------
+  // ---- probe selection on the pilot: centroid scores + argmax rounds ----
   for (int c = warp; c < a.n_clusters; c += kWarps) {
     float s = dot_f32(qs, a.centroids + (size_t)c * D, D, vec4, lane);
     if (lane == 0) cs[c] = s;
@@ -270,13 +320,10 @@ cascade_lookup_kernel(Args a) {
                     a.warm_tenants[safe] == qt &&
                     (is_tail || a.warm_seq[safe] <= indexed_total);
     float s = kNeg;
-    if (ok) {
-      if (a.quantized)
-        s = dot_i8(qs, a.warm_keys_q + (size_t)safe * D, D, vec4, lane) *
-            a.warm_scales[safe];
-      else
-        s = dot_f32(qs, a.warm_keys + (size_t)safe * D, D, vec4, lane);
-    }
+    if (ok)
+      s = fused_score(qs, Dp, wq, weighted, E, a.warm_keys,
+                      a.quantized ? a.warm_keys_q : nullptr, a.warm_scales,
+                      (size_t)a.cap * D, (size_t)a.cap, safe, D, vec4, lane);
     top.push(s, f, safe, k);
   }
   block_merge<KM>(top, ws, wp, wl, rs, rp, rl, k, warp, lane);
@@ -320,22 +367,26 @@ cudaError_t launch(const Args& a, int Q, size_t smem, cudaStream_t stream) {
 
 extern "C" {
 
-// Largest k the kernel takes (the wrapper refuses more).
+// Largest k and E the kernel takes (the wrapper refuses more).
 int cascade_lookup_max_k() { return 16; }
+int cascade_lookup_max_e() { return kMaxE; }
 
 // Shared memory bytes one block needs.
-size_t cascade_lookup_smem_bytes(int D, int n_clusters, int n_probe, int k) {
+size_t cascade_lookup_smem_bytes(int E, int D, int n_clusters, int n_probe,
+                                 int k) {
   const int KM = k <= 1 ? 1 : k <= 4 ? 4 : k <= 8 ? 8 : 16;
-  return sizeof(float) * (((D + 3) & ~3) + n_clusters) +
+  return sizeof(float) * (E * ((D + 3) & ~3) + ((E + 3) & ~3) + n_clusters) +
          sizeof(int) * n_probe + 12u * (kWarps * KM) + 24u * KM;
 }
 
 // Launches one block per query row on `stream`; returns cudaGetLastError()
-// after the launch (0 = launched).
+// after the launch (0 = launched).  `q` is (E, Q, D), the key panels are
+// (E, rows, D) and the int8 scales (E, cap); `weights` (Q, E) may be NULL
+// with E = 1 (the single cascade: scores are the cosines themselves).
 int cascade_lookup_launch(
-    const float* q, const int* q_tenants, const float* thr,
-    const float* hot_keys, const uint8_t* hot_valid, const int* hot_tenants,
-    const int* hot_vids, int n_hot,
+    const float* q, const float* weights, int E, const int* q_tenants,
+    const float* thr, const float* hot_keys, const uint8_t* hot_valid,
+    const int* hot_tenants, const int* hot_vids, int n_hot,
     const float* warm_keys, const int8_t* warm_keys_q,
     const float* warm_scales, const uint8_t* warm_valid,
     const int* warm_tenants, const int* warm_vids, const int* warm_seq,
@@ -344,13 +395,16 @@ int cascade_lookup_launch(
     int k, int n_probe, int tail, int quantized, float* out_scores,
     int* out_vids, int* out_wslots, int* out_hslots, uint8_t* out_hot_hit,
     uint8_t* out_hit, void* stream) {
-  Args a{q, q_tenants, thr, hot_keys, hot_valid, hot_tenants, hot_vids,
-         n_hot, warm_keys, warm_keys_q, warm_scales, warm_valid,
+  if (E < 1 || E > kMaxE || (weights == nullptr && E != 1))
+    return cudaErrorInvalidValue;
+  Args a{q, weights, E, Q, q_tenants, thr, hot_keys, hot_valid, hot_tenants,
+         hot_vids, n_hot, warm_keys, warm_keys_q, warm_scales, warm_valid,
          warm_tenants, warm_vids, warm_seq, cap, centroids, members,
          n_clusters, bucket, cursor, indexed_total, D, k, n_probe, tail,
          quantized, out_scores, out_vids, out_wslots, out_hslots,
          out_hot_hit, out_hit};
-  const size_t smem = cascade_lookup_smem_bytes(D, n_clusters, n_probe, k);
+  const size_t smem =
+      cascade_lookup_smem_bytes(E, D, n_clusters, n_probe, k);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k <= 1) return launch<1>(a, Q, smem, s);
   if (k <= 4) return launch<4>(a, Q, smem, s);

@@ -11,6 +11,10 @@ serving- and training-shape checks in ``chip_smoke.py`` do not.
   below the tail window, exact ties (dyadic keys: lowest hot row, lowest
   warm position, hot before warm), an empty warm tier, all-invalid
   tiers, a zero-row batch, and the refusals;
+* the ensemble cascade (E stacked key panels, weighted fused score):
+  E in {1, 3}, fp32 and int8, k in {1, 4}; E=1 equal to the single
+  cascade bit for bit; an empty warm tier, an all-invalid hot tier, a
+  zero-row batch; the refusals and a launch the card refuses;
 * cosine top-k: odd widths, k up to the maximum, ties (lowest index
   first), all-invalid and fewer-valid-than-k panels, an empty batch, a
   float64 recomputation and the refusals;
@@ -253,6 +257,138 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         ops.cascade_lookup(bad, *args[1:], k=1)
     with pytest.raises(ValueError, match="on cpu"):
         ops.cascade_lookup(q, qt.cpu(), *args[2:], k=1)
+
+
+# ---------------------------------------------------------------------------
+# ensemble cascade lookup (E stacked key panels)
+# ---------------------------------------------------------------------------
+
+def _ensemble(dev, g, hot, warm, q, E):
+    """E panels over the tiers (panel 0 the base keys, the others
+    random unit rows), E query rows per query and simplex weights."""
+    def more(x):
+        return [_unit(torch.randn(x.shape, generator=g, device=dev))
+                for _ in range(E - 1)]
+
+    ens = tiers.make_ensemble(torch.stack([hot.keys] + more(hot.keys)),
+                              torch.stack([warm.keys] + more(warm.keys)))
+    qe = torch.stack([q] + more(q)).contiguous()
+    w = torch.rand(q.shape[0], E, generator=g, device=dev) + 0.1
+    return ens, qe, w / w.sum(1, keepdim=True)
+
+
+def _ens_args(hot, warm, ens, qe, w, qt, thr):
+    return (qe, w, qt, thr, ens.hot_keys, hot.valid, hot.tenants,
+            hot.value_ids, ens.warm_keys, warm.valid, warm.tenants,
+            warm.value_ids, warm.write_seq, warm.centroids, warm.members,
+            warm.cursor, warm.indexed_total, ens.warm_keys_q,
+            ens.warm_scales)
+
+
+def _ens_check(args, **kw):
+    before = kernel.COUNTS["cascade_lookup_ensemble"]
+    a = ref.ensemble_lookup(*args, **kw)
+    b = ops.ensemble_lookup(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.COUNTS["cascade_lookup_ensemble"] \
+        == before + (args[0].shape[1] > 0)
+    for name, x, y in zip(("scores", "value_ids", "warm_slots",
+                           "hot_slots", "hot_hit", "hit"), a, b):
+        assert x.shape == y.shape and x.dtype == y.dtype, name
+        if name == "scores":
+            torch.testing.assert_close(y, x, rtol=0, atol=SCORE_ATOL)
+        else:
+            assert torch.equal(x, y), name
+    return b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [1, 3])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_ensemble_kernel_matches_plain_version(dev, E, k, quantized):
+    g = torch.Generator(device=dev).manual_seed(10 * E + k)
+    hot, warm = _states(dev, g)
+    q, qt, thr = _queries(dev, g, 17, 64)
+    # half the queries copy live rows on every panel, so some hit
+    ens, qe, w = _ensemble(dev, g, hot, warm, q, E)
+    src = torch.nonzero(warm.valid).squeeze(1)[:8]
+    qe[:, :8] = _unit(ens.warm_keys[:, src] + 0.02 * torch.randn(
+        E, 8, 64, generator=g, device=dev))
+    qt[:8] = warm.tenants[src]
+    out = _ens_check(_ens_args(hot, warm, ens, qe, w, qt, thr), k=k,
+                     n_probe=4, tail=48, quantized=quantized)
+    assert out[5].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+def test_ensemble_e1_equals_the_single_kernel(dev, quantized):
+    """E=1 at weight 1.0 launches the same arithmetic as the single
+    cascade: every output equal, scores bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    hot, warm = _states(dev, g)
+    q, qt, thr = _queries(dev, g, 17, 64)
+    ens = tiers.init_ensemble(1, hot, warm)      # the base keys, same bits
+    kw = dict(k=4, n_probe=4, tail=48, quantized=quantized)
+    one = torch.ones(17, 1, device=dev)
+    a = ops.cascade_lookup(*_args(hot, warm, q, qt, thr), **kw)
+    b = ops.ensemble_lookup(*_ens_args(hot, warm, ens, q[None], one, qt,
+                                       thr), **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_ensemble_empty_and_invalid_tiers(dev):
+    g = torch.Generator(device=dev).manual_seed(13)
+    hot, _ = _states(dev, g)
+    empty = tiers.init_warm(64, 64, 4, 8, dev)
+    q, qt, thr = _queries(dev, g, 5, 64)
+    ens, qe, w = _ensemble(dev, g, hot, empty, q, 3)
+    _ens_check(_ens_args(hot, empty, ens, qe, w, qt, thr), k=2, n_probe=4,
+               tail=4)
+    dead = tiers.init_hot(32, 64, dev)
+    ens, qe, w = _ensemble(dev, g, dead, empty, q, 3)
+    s, vids, _, hslots, hot_hit, hit = _ens_check(
+        _ens_args(dead, empty, ens, qe, w, qt, torch.zeros(5, device=dev)),
+        k=4, n_probe=2, tail=4, quantized=True)
+    assert float(s.max()) < -1e20 and not hit.any() and not hot_hit.any()
+    assert int(vids.max()) == -1 and int(hslots.max()) == 0
+    _ens_check(_ens_args(dead, empty, ens, qe[:, :0], w[:0], qt[:0],
+                         thr[:0]), k=1, n_probe=2, tail=4)
+
+
+@pytest.mark.cuda
+def test_ensemble_refusals_and_refused_launch(dev, monkeypatch):
+    """The wrapper refuses what the kernel does not take; a launch the
+    card refuses (here: more shared memory than a block may take without
+    opting in) raises and is not counted."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    hot, warm = _states(dev, g)
+    q, qt, thr = _queries(dev, g, 3, 64)
+    ens, qe, w = _ensemble(dev, g, hot, warm, q, 3)
+    args = _ens_args(hot, warm, ens, qe, w, qt, thr)
+    with pytest.raises(ValueError, match="E="):
+        ops.ensemble_lookup(torch.cat([qe] * 3), *args[1:], k=1)
+    with pytest.raises(ValueError, match="weights"):
+        ops.ensemble_lookup(qe, w[:, :2].contiguous(), *args[2:], k=1)
+    with pytest.raises(ValueError, match="hot_keys"):
+        ops.ensemble_lookup(*args[:4], hot.keys, *args[5:], k=1)
+    D, E = 2048, 8
+    big_hot = tiers.init_hot(8, D, dev)
+    big_warm = tiers.init_warm(16, D, 2, 4, dev)
+    big_q = _unit(torch.randn(2, D, generator=g, device=dev))
+    ens, qe, w = _ensemble(dev, g, big_hot, big_warm, big_q, E)
+    args = _ens_args(big_hot, big_warm, ens, qe, w, qt[:2], thr[:2])
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.ensemble_lookup(*args, k=1, n_probe=2, tail=4)
+    monkeypatch.setattr(kernel, "MAX_SMEM", 1 << 20)
+    before = kernel.COUNTS["cascade_lookup_ensemble"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops.ensemble_lookup(*args, k=1, n_probe=2, tail=4)
+    assert kernel.COUNTS["cascade_lookup_ensemble"] == before
 
 
 # ---------------------------------------------------------------------------

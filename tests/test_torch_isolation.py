@@ -40,6 +40,8 @@ def test_the_slice_modules_are_covered():
     names = {str(p.relative_to(PORT)) for p in STANDALONE if PORT in p.parents}
     for mod in ("core/losses.py", "core/store.py", "core/cache.py",
                 "core/metrics.py", "core/synth.py", "data/pairs.py",
+                "core/embedders.py", "cache_service/feedback.py",
+                "cache_service/tiers.py", "cache_service/service.py",
                 "training/optim.py", "kernels/_build.py",
                 *(f"kernels/{k}/{f}.py" for k in KERNELS
                   for f in ("kernel", "ref", "ops"))):
@@ -64,8 +66,10 @@ def test_plain_version_only_for_cpu_tensors(monkeypatch):
         raise AssertionError("plain version called for non-CPU tensors")
 
     monkeypatch.setattr(ref, "cascade_lookup", forbidden)
+    monkeypatch.setattr(ref, "ensemble_lookup", forbidden)
     hot, warm = tiers.init_hot(8, 4, "meta"), tiers.init_warm(16, 4, 2, 4,
                                                               "meta")
+    ens = tiers.init_ensemble(2, hot, warm)
     q = torch.zeros(3, 4, device="meta")
     qt = torch.zeros(3, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
@@ -74,6 +78,13 @@ def test_plain_version_only_for_cpu_tensors(monkeypatch):
             warm.keys, warm.valid, warm.tenants, warm.value_ids,
             warm.write_seq, warm.centroids, warm.members, warm.cursor,
             warm.indexed_total, warm.keys_q, warm.scales, k=1)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ops.ensemble_lookup(
+            torch.stack([q, q]), q[:, :2], qt, q[:, 0], ens.hot_keys,
+            hot.valid, hot.tenants, hot.value_ids, ens.warm_keys,
+            warm.valid, warm.tenants, warm.value_ids, warm.write_seq,
+            warm.centroids, warm.members, warm.cursor, warm.indexed_total,
+            ens.warm_keys_q, ens.warm_scales, k=1)
 
 
 @pytest.fixture
@@ -85,7 +96,9 @@ def test_entry_points_raise_without_a_card(no_card):
     from repro_torch import resolve_device
     from repro_torch.cache_service import CacheConfig, CacheService
     from repro_torch.configs import get_config
-    from repro_torch.core import EmbedderTrainer, SemanticCache
+    from repro_torch.core import (
+        EmbedderTrainer, EncoderEmbedder, SemanticCache,
+    )
     from repro_torch.models import Encoder
     cfg = get_config("modernbert-149m").reduced(n_layers=2)
     for make in (lambda: resolve_device("cuda"),
@@ -93,6 +106,7 @@ def test_entry_points_raise_without_a_card(no_card):
                  lambda: EmbedderTrainer(cfg),
                  lambda: CacheService(CacheConfig(dim=16)),
                  lambda: SemanticCache(capacity=8, dim=16),
+                 lambda: EncoderEmbedder(cfg),
                  lambda: CacheService(CacheConfig(dim=16), device="cuda:0")):
         with pytest.raises(RuntimeError, match="cuda"):
             make()

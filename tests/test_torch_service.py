@@ -174,13 +174,8 @@ def test_unported_features_are_refused():
     with pytest.raises(ValueError, match="cold-tier"):
         TieringConfig(cold_capacity=64)
     with pytest.raises(ValueError, match="learning-loops"):
-        LearningConfig(learned_admission=True)
-    with pytest.raises(ValueError, match="learning-loops"):
         LearningConfig(conformal=True)
     with pytest.raises(ValueError, match="embedder-refresh"):
         LearningConfig(learned_embedder=True)
     with pytest.raises(ValueError, match="sharded"):
         ShardingConfig(mesh=object())
-    from repro_torch.cache_service import EnsembleConfig
-    with pytest.raises(ValueError, match="ensemble"):
-        EnsembleConfig(embedders=2)
