@@ -30,6 +30,14 @@ or the port is not beside the script.  Phases, each fatal on failure:
      fp32 and int8, k in {1, 4}; ints and flags equal, scores within
      ``SCORE_ATOL``; and at E=1 every output equal to the single
      cascade kernel's;
+   * flash attention at Phi-3-mini's prefill (B=8, S=32, H=KV=32,
+     hd=96), a long prefill (B=1, S=2048), GQA with a window (H=40,
+     KV=8, hd=128, S=1024, W=256) and bidirectional (B=64, H=12, hd=64,
+     S=32); decode attention at Phi-3-mini's decode step (B=8, L=64), a
+     ring buffer (B=8, L=4096), GQA (H=40, KV=8, hd=128, L=32768) and
+     MQA (KV=1); bf16 and fp32, outputs within ``ATTN_TOL``, timed
+     beside ``F.scaled_dot_product_attention`` with the same mask (the
+     library yardstick, never on the port's path);
 3. serving: the full-width ``modernbert-149m`` encoder (seeded random
    weights) behind ``CacheService(fused=True)`` and
    ``CachedLLMService(engine=None)``, a 4096-query medical trace in
@@ -64,13 +72,29 @@ or the port is not beside the script.  Phases, each fatal on failure:
    paraphrases alike, so misses can be labeled duplicates): at least
    one weight refit and one threshold refit must apply, and launches
    must equal plans; each tenant's learned weights, threshold, hit rate
-   and false hits are printed.
+   and false hits are printed;
+7. decoder serving: full-width ``phi3-mini-3.8b`` (32 layers, d_model
+   3072, 32 heads of 96, vocab 32064; seeded random weights, float32
+   master weights, bf16 activations).  (a) ``ServeEngine`` generates 32
+   greedy tokens for 8 prompts of 32 tokens: the flash-attention kernel
+   must launch 32 times (one prefill, one per layer) and the
+   decode-attention kernel 32 times per decode step; prefill ms, decode
+   ms per token and tokens per second are printed.  (c)
+   ``CachedLLMService`` with the phase-4 tuned encoder, the tiered
+   ``CacheService`` and this engine over a medical trace: generations
+   must equal the miss-group leaders, hits never reach the engine, and
+   the kernels' launches must equal 32 per prefill and per decode step.
+   (b) The same weights with float32 activations, teacher-forced: every
+   decode step's logits must equal ``forward_lm``'s at the same position
+   within ``DECODE_ATOL`` — the two kernels held against each other at
+   full width.
 
 Prints the card's name and power limit, the stage latencies, a JSON
 line of per-kernel numbers and, last, ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -111,6 +135,31 @@ ENS_MARGIN = 1e-4
 CONTRASTIVE_B = (16, 4096)  # the paper's batch; a large one
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
+# attention kernels against their plain versions: fp32 as the reference's
+# kernel tests (sums in another order); bf16 outputs round once, at the
+# end, on both sides (the reference's bf16 tolerance)
+ATTN_TOL = {"float32": dict(atol=2e-5, rtol=1e-4),
+            "bfloat16": dict(atol=3e-2, rtol=0.0)}
+# (name, B, H, KV, S, hd, causal, window)
+FLASH_SHAPES = (("phi3 prefill", 8, 32, 32, 32, 96, True, 0),
+                ("long prefill", 1, 32, 32, 2048, 96, True, 0),
+                ("gqa window", 1, 40, 8, 1024, 128, True, 256),
+                ("bidirectional", 64, 12, 12, 32, 64, False, 0))
+# (name, B, H, KV, L, hd, cur, window): slot t holds the newest position
+# p <= cur with p % L == t; the step at position cur sees the filled
+# slots inside the window
+DECODE_SHAPES = (("phi3 decode", 8, 32, 32, 64, 96, 48, 0),
+                 ("phi3 ring", 8, 32, 32, 4096, 96, 5000, 3000),
+                 ("gqa long", 1, 40, 8, 32768, 128, 30000, 0),
+                 ("mqa", 8, 32, 1, 4096, 96, 3000, 0))
+DECODER = "phi3-mini-3.8b"
+GEN_B, GEN_PROMPT, GEN_NEW = 8, 32, 32
+LLM_REQUESTS = 1024        # phase 7(c) trace length
+LLM_NEW_TOKENS = 16        # CachedLLMService's default answer length
+# phase 7(b): float32 decode against forward_lm at full width; logits are
+# O(1) and both paths sum in float32 in another order through 32 layers
+DECODE_ATOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -1182,6 +1231,344 @@ def ensemble_learning_phase(dev, embed_fn, names, thr: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 2: the attention kernels
+# ---------------------------------------------------------------------------
+
+def attention_bound_ms(n_bytes: int, flops: float):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_case(dev, B, H, KV, S, hd, causal, window, dtype, seed):
+    """Model-layout q, k, v, the plain version's output, the live pairs
+    of the mask, and the SDPA call with KV heads expanded (prepared
+    outside its timing)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ref
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, S, H, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dtype)
+    mask = ref.position_mask(S, S, causal=causal, window=window, device=dev)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.transpose(1, 2).repeat_interleave(H // KV, 1).contiguous()
+    vt = v.transpose(1, 2).repeat_interleave(H // KV, 1).contiguous()
+    sdpa = dict(attn_mask=mask) if window else dict(is_causal=causal)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
+    return q, k, v, int(mask.sum()), library
+
+
+def decode_case(dev, B, H, KV, L, hd, cur, window, dtype, seed):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.attention import decode_mask
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, 1, H, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, L, KV, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, L, KV, hd, generator=g, device=dev).to(dtype)
+    slot = torch.arange(L, device=dev)
+    newest = cur - ((cur - slot) % L)         # newest position <= cur
+    pos = torch.where(newest >= 0, newest, -1).expand(B, L).contiguous()
+    valid = decode_mask(pos, cur, window)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.transpose(1, 2).repeat_interleave(H // KV, 1).contiguous()
+    vt = v.transpose(1, 2).repeat_interleave(H // KV, 1).contiguous()
+    am = valid[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+    return q, k, v, valid, library
+
+
+def attention_kernel_phase(dev):
+    """Flash and decode attention against their plain versions at the
+    decoder's shapes and beyond, bf16 and fp32, and the times of the
+    kernel, the plain version and SDPA (bf16 and fp32 each)."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    out = {"flash": {"max_abs_err": 0.0, "by_shape": {}},
+           "decode": {"max_abs_err": 0.0, "by_shape": {}}}
+
+    def check(got, want, dtype, what):
+        if got.shape != want.shape or got.dtype != want.dtype \
+                or not torch.isfinite(got).all():
+            fail(f"{what}: {tuple(got.shape)}/{got.dtype} vs plain "
+                 f"{tuple(want.shape)}/{want.dtype}")
+        tol = ATTN_TOL[str(dtype).split(".")[1]]
+        err = (got.float() - want.float()).abs()
+        bad = err > tol["atol"] + tol["rtol"] * want.float().abs()
+        if bad.any():
+            fail(f"{what}: {int(bad.sum())} outputs off, max |diff| "
+                 f"{float(err.max()):.3g}")
+        return float(err.max())
+
+    for i, (name, B, H, KV, S, hd, causal, window) in enumerate(
+            FLASH_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, live, library = flash_case(dev, B, H, KV, S, hd, causal,
+                                                window, dtype, 20 + i)
+            kw = dict(causal=causal, window=window)
+
+            def plain():
+                return fref.flash_attention(q.transpose(1, 2),
+                                            k.transpose(1, 2),
+                                            v.transpose(1, 2), **kw)
+
+            def kern():
+                return fops.flash_attention(q, k, v, **kw)
+            got, want = kern(), plain().transpose(1, 2)
+            torch.cuda.synchronize()
+            tag = f"{name} {str(dtype)[6:]}"
+            err = check(got, want, dtype, f"flash_attention {tag}")
+            out["flash"]["max_abs_err"] = max(out["flash"]["max_abs_err"],
+                                              err)
+            es = q.element_size()
+            n_bytes = es * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+            bound, by = attention_bound_ms(n_bytes, 4.0 * hd * live * B * H)
+            row = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=5),
+                       library_ms=cuda_ms(library), bound_ms=bound,
+                       bound_by=by, max_abs_err=err)
+            out["flash"]["by_shape"][tag] = row
+            print(f"  flash_attention {tag} (B={B} S={S} H={H} KV={KV} "
+                  f"hd={hd} causal={causal} W={window}): max |diff| "
+                  f"{err:.3g}; kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}, "
+                  f"bound {bound:.4f} ({by})")
+    for i, (name, B, H, KV, L, hd, cur, window) in enumerate(DECODE_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, valid, library = decode_case(dev, B, H, KV, L, hd, cur,
+                                                  window, dtype, 40 + i)
+
+            def plain():
+                return dref.decode_attention(q[:, 0], k, v, valid)
+
+            def kern():
+                return dops.decode_attention(q, k, v, valid)
+            got, want = kern()[:, 0], plain()
+            torch.cuda.synchronize()
+            tag = f"{name} {str(dtype)[6:]}"
+            err = check(got, want, dtype, f"decode_attention {tag}")
+            out["decode"]["max_abs_err"] = max(out["decode"]["max_abs_err"],
+                                               err)
+            es = q.element_size()
+            n_valid = int(valid.sum())          # rows the function needs
+            n_bytes = es * (2 * B * H * hd + 2 * n_valid * KV * hd) \
+                + B * L
+            bound, by = attention_bound_ms(n_bytes, 4.0 * hd * n_valid * H)
+            row = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=5),
+                       library_ms=cuda_ms(library), bound_ms=bound,
+                       bound_by=by, max_abs_err=err)
+            out["decode"]["by_shape"][tag] = row
+            print(f"  decode_attention {tag} (B={B} L={L} H={H} KV={KV} "
+                  f"hd={hd}, {n_valid // B} valid slots a row): max |diff| "
+                  f"{err:.3g}; kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}, "
+                  f"bound {bound:.4f} ({by})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: cache misses answered by the full-width decoder
+# ---------------------------------------------------------------------------
+
+def decoder_config():
+    from repro_torch.configs import get_config
+    cfg = get_config(DECODER)
+    widths = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+              cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.dtype)
+    if widths != (32, 3072, 32, 32, 96, 8192, 32064, "bfloat16"):
+        fail(f"{DECODER} is not at its published widths: {widths}")
+    return cfg
+
+
+def attention_counts(reset: bool = False) -> dict:
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    if reset:
+        fk.COUNTS["flash_attention"] = 0
+        dk.COUNTS["decode_attention"] = 0
+    return {"flash_attention": fk.COUNTS["flash_attention"],
+            "decode_attention": dk.COUNTS["decode_attention"]}
+
+
+def generation_phase(dev, cfg) -> dict:
+    """(a) 32 greedy tokens for 8 prompts through ``ServeEngine``."""
+    import numpy as np
+    import torch
+    from repro_torch.models import LM
+    from repro_torch.serving import ServeEngine
+    t0 = time.perf_counter()
+    lm = LM(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    print(f"  {cfg.name}: {n_params:,} params (float32 master weights, "
+          f"{cfg.dtype} activations), built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    engine = ServeEngine(lm, max_len=GEN_PROMPT + GEN_NEW)
+    prompts = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (GEN_B, GEN_PROMPT)).astype(np.int32)
+    engine.generate(prompts, 2)                         # warm
+    torch.cuda.synchronize()
+    attention_counts(reset=True)
+    t0 = time.perf_counter()
+    res = engine.generate(prompts, GEN_NEW)
+    wall = time.perf_counter() - t0
+    counts = attention_counts()
+    L = cfg.n_layers
+    if counts != {"flash_attention": L, "decode_attention": L * GEN_NEW}:
+        fail(f"generate: launches {counts}, expected {L} flash (one "
+             f"prefill) and {L * GEN_NEW} decode ({GEN_NEW} steps)")
+    if res.tokens.shape != (GEN_B, GEN_NEW) or res.tokens.min() < 0 \
+            or res.tokens.max() >= cfg.vocab_size:
+        fail(f"generate: bad tokens {res.tokens.shape}")
+
+    def prefill():
+        out = lm.prefill(prompts, GEN_PROMPT + GEN_NEW)
+        torch.cuda.synchronize()
+        return out
+    times = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        prefill()
+        times.append(time.perf_counter() - t1)
+    prefill_ms = 1e3 * statistics.median(times)
+    decode_ms = (1e3 * wall - prefill_ms) / GEN_NEW
+    tok_s = GEN_B * GEN_NEW / wall
+    print(f"  generate: {GEN_B} x {GEN_NEW} tokens in {wall * 1e3:.1f} ms "
+          f"({tok_s:.1f} tokens/s); prefill {prefill_ms:.3f} ms (B={GEN_B}, "
+          f"S={GEN_PROMPT}), decode {decode_ms:.3f} ms per step; launches "
+          f"{counts}; first row {res.tokens[0, :8].tolist()}")
+    _, state = prefill()
+    tok = torch.as_tensor(res.tokens[:, :1], device=dev)
+    prof = profile(lambda: lm.decode_step(state, tok), "decode step")
+    return {"lm": lm, "engine": engine, "launches": counts,
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "tokens_per_s": tok_s, "generate_ms": wall * 1e3,
+            "profile": prof}
+
+
+def llm_serving_phase(dev, engine, trainer, tok) -> dict:
+    """(c) The paper's deployment: the tuned encoder, the tiered cache
+    and the decoder answering each miss-group leader."""
+    from repro_torch.cache_service import (
+        CacheConfig, CacheService, TieringConfig,
+    )
+    from repro_torch.data import HashTokenizer, make_query_stream
+    from repro_torch.kernels.cascade_lookup import kernel as ck
+    from repro_torch.obs import Telemetry, Tracer
+    from repro_torch.serving import CachedLLMService
+    cfg = engine.cfg
+    generate = engine.generate
+    rows = []
+
+    def counting(ids, *a, **k):
+        rows.append(len(ids))
+        return generate(ids, *a, **k)
+
+    engine.generate = counting            # undone below: del
+    telemetry = Telemetry(tracer=Tracer(keep=LLM_REQUESTS))
+    cache = CacheService(CacheConfig(
+        dim=trainer.cfg.d_model, threshold=FLAT_THRESHOLD,
+        telemetry=telemetry, tiering=TieringConfig(fused=True)), device=dev)
+    # the decoder's own tokenizer: the encoder's ids (vocab 50368) would
+    # fall outside Phi-3-mini's 32064-row table
+    svc = CachedLLMService(trainer.make_embed_fn(tok), cache, engine,
+                           HashTokenizer(vocab_size=cfg.vocab_size),
+                           max_query_len=GEN_PROMPT,
+                           max_new_tokens=LLM_NEW_TOKENS)
+    texts = [x.text for x in make_query_stream("medical", LLM_REQUESTS,
+                                               seed=11, repeat_frac=0.4)]
+    attention_counts(reset=True)
+    ck.COUNTS["cascade_lookup"] = 0
+    t0 = time.perf_counter()
+    served = []
+    for i in range(0, LLM_REQUESTS, BATCH):
+        served += svc.handle(texts[i:i + BATCH], tenant=0)
+    wall = time.perf_counter() - t0
+    counts = attention_counts()
+    del engine.generate
+    st = svc.stats()
+    plans = st["backend"]["traffic"]["plans"]
+    L, calls = cfg.n_layers, len(rows)
+    want = {"flash_attention": L * calls,
+            "decode_attention": L * LLM_NEW_TOKENS * calls}
+    print(f"  served {len(served)} requests in {wall:.2f} s: hits "
+          f"{st['hits']}, misses {st['misses']} ({st['generations']} "
+          f"generations in {calls} engine calls, {st['coalesced_misses']} "
+          f"coalesced), hit rate {st['hit_rate']:.4f}; launches {counts}")
+    if counts != want:
+        fail(f"llm serving: launches {counts}, expected {want}")
+    if ck.COUNTS["cascade_lookup"] != plans:
+        fail(f"llm serving: cascade kernel launched "
+             f"{ck.COUNTS['cascade_lookup']} times for {plans} plans")
+    if sum(rows) != st["generations"] or \
+            st["generations"] + st["coalesced_misses"] != st["misses"]:
+        fail(f"llm serving: {sum(rows)} generated rows, {st['generations']} "
+             f"leaders, {st['misses']} misses")
+    if not (st["hits"] > 0 and st["misses"] > 0):
+        fail(f"llm serving: need hits and misses: {st['hits']} / "
+             f"{st['misses']}")
+    generated = {r.response for r in served if not r.cache_hit}
+    for r in served:
+        ids = r.response.split()
+        if len(ids) != LLM_NEW_TOKENS or not all(
+                0 <= int(x) < cfg.vocab_size for x in ids):
+            fail(f"llm serving: {r.query!r} answered {r.response!r}")
+        if r.cache_hit and r.response not in generated:
+            fail(f"llm serving: hit {r.query!r} answered with no "
+                 "generation of this run")
+    p50 = stage_p50(telemetry)
+    return {"launches": counts, "calls": calls, "p50_ms": p50,
+            "hits": st["hits"], "misses": st["misses"],
+            "generations": st["generations"], "hit_rate": st["hit_rate"],
+            "wall_s": wall}
+
+
+def decode_forward_phase(dev, cfg) -> dict:
+    """(b) float32 activations, the same seed: teacher-forced decode
+    logits against ``forward_lm`` at every position after the prompt."""
+    import numpy as np
+    import torch
+    from repro_torch.models import LM
+    cfg32 = cfg.replace(dtype="float32")
+    lm = LM(cfg32, seed=0, device=dev)
+    S, t0 = 48, 32
+    toks = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (2, S)), device=dev)
+    attention_counts(reset=True)
+    with torch.no_grad():
+        full, _ = lm.forward_lm(toks)
+        logits, state = lm.prefill(toks[:, :t0], S)
+        errs = [float((logits - full[:, t0 - 1]).abs().max())]
+        agree = [bool(torch.equal(logits.argmax(-1),
+                                  full[:, t0 - 1].argmax(-1)))]
+        for t in range(t0, S):
+            logits, state = lm.decode_step(state, toks[:, t:t + 1])
+            errs.append(float((logits - full[:, t]).abs().max()))
+            agree.append(bool(torch.equal(logits.argmax(-1),
+                                          full[:, t].argmax(-1))))
+    counts = attention_counts()
+    scale = float(full.abs().max())
+    print(f"  float32 decode vs forward_lm over {len(errs)} positions: max "
+          f"|dlogit| {max(errs):.3g} (logits up to {scale:.3f}); argmax "
+          f"equal at {sum(agree)} of {len(agree)}; launches {counts}")
+    if max(errs) > DECODE_ATOL:
+        fail(f"decode vs forward_lm: max |dlogit| {max(errs):.3g} > "
+             f"{DECODE_ATOL}")
+    if counts != {"flash_attention": 2 * cfg.n_layers,
+                  "decode_attention": (S - t0) * cfg.n_layers}:
+        fail(f"decode vs forward_lm: launches {counts}")
+    return {"max_abs_err": max(errs), "positions": len(errs)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1191,6 +1578,8 @@ def main() -> int:
     from repro_torch.kernels.cascade_lookup import kernel as cascade_kernel
     from repro_torch.kernels.contrastive import kernel as cl_kernel
     from repro_torch.kernels.cosine_topk import kernel as topk_kernel
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1205,7 +1594,9 @@ def main() -> int:
     t0 = time.perf_counter()
     builds = {"cascade_lookup": cascade_kernel.build,
               "cosine_topk": topk_kernel.build,
-              "contrastive": cl_kernel.build}
+              "contrastive": cl_kernel.build,
+              "flash_attention": fa_kernel.build,
+              "decode_attention": da_kernel.build}
     with ThreadPoolExecutor(len(builds)) as pool:
         futs = {n: pool.submit(b) for n, b in builds.items()}
         for n, f in futs.items():
@@ -1214,11 +1605,13 @@ def main() -> int:
 
     print("phase 2: kernel parity (cascade and ensemble cascade at serving "
           "shapes, cosine top-k at flat-cache shapes, contrastive at "
-          "training shapes)")
+          "training shapes, flash and decode attention at decoder "
+          "shapes)")
     kp = kernel_phase(dev)
     ep = ensemble_kernel_phase(dev)
     tp = topk_phase(dev)
     cp = contrastive_phase(dev)
+    ap = attention_kernel_phase(dev)
 
     print("phase 3: serving (full-width encoder, fused cascade)")
     sv = serving_phase(dev)
@@ -1248,6 +1641,20 @@ def main() -> int:
     print("  (b) learning the mixture weights (canonical answers, 2 "
           "tenants)")
     el = ensemble_learning_phase(dev, embed_fn, names, ens_thr)
+
+    print(f"phase 7: decoder serving (full-width {DECODER})")
+    dcfg = decoder_config()
+    print("  (a) generation through ServeEngine")
+    gn = generation_phase(dev, dcfg)
+    print("  (c) CachedLLMService: tuned encoder, tiered cache, decoder")
+    ls = llm_serving_phase(dev, gn["engine"], tr["trainer"], tr["tok"])
+    del gn["lm"], gn["engine"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("  (b) float32 decode against forward_lm (teacher-forced)")
+    df = decode_forward_phase(dev, dcfg)
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          " GB")
     print(f"  all phases in {time.perf_counter() - t_start:.1f} s")
 
     n_flat = FLAT_CAPACITY
@@ -1319,6 +1726,31 @@ def main() -> int:
         "serving_p50_ms": es["p50_ms"], "serving_hit_rate": es["hit_rate"],
         "card": card,
     }]
+    for name, key, main_shape, src, replaces in (
+            ("flash_attention", "flash", "phi3 prefill bfloat16",
+             "flash_attention/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:115"),
+            ("decode_attention", "decode", "phi3 decode bfloat16",
+             "decode_attention/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention/kernel.py:74")):
+        row = ap[key]["by_shape"][main_shape]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{src}", "replaces": replaces,
+            "launches": ls["launches"][name],
+            "max_abs_err": ap[key]["max_abs_err"],
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")},
+            "library": "F.scaled_dot_product_attention (KV heads expanded)",
+            "at": main_shape, "by_shape": ap[key]["by_shape"],
+            "generate_launches": gn["launches"][name],
+            "decode_vs_forward_max_abs_err": df["max_abs_err"],
+            "prefill_ms": gn["prefill_ms"], "decode_ms": gn["decode_ms"],
+            "tokens_per_s": gn["tokens_per_s"],
+            "llm_generate_p50_ms": ls["p50_ms"].get("generate"),
+            "llm_hit_rate": ls["hit_rate"], "card": card,
+        })
+    print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

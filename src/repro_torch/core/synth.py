@@ -15,8 +15,8 @@ template/synonyms; a distinct query keeps the entity but switches to a
 different aspect, or asks about another entity through the same aspect.
 This is the structural analogue of the paper's Qwen2.5-32B prompting,
 with the LLM replaced by the grammar that defines semantic equivalence
-in this repo.  ``LLMGenerator`` needs the decoder engine, which arrives
-with the decoder-zoo slice of the port; until then it raises.
+in this repo.  ``LLMGenerator`` runs the paper's two prompts through the
+port's decoder engine (`repro_torch.serving.ServeEngine`) instead.
 """
 from __future__ import annotations
 
@@ -29,6 +29,19 @@ import numpy as np
 
 from repro_torch.data.corpora import (
     DOMAINS, PairDataset, Query, render_query,
+)
+
+
+PARAPHRASE_PROMPT = (
+    "You are a helpful {domain} expert. Generate {n} unique paraphrases of "
+    "the given query. Original Query: '{query}' Each paraphrase should "
+    "preserve the original meaning but use different wording. Return JSON "
+    "with a key 'queries'."
+)
+DISTINCT_PROMPT = (
+    "You are a helpful {domain} expert. Given a query, generate {n} "
+    "distinct but related queries that explore different aspects of the "
+    "topic. They should not be rewordings. Return JSON with 'queries'."
 )
 
 
@@ -91,14 +104,38 @@ class TemplateGenerator:
 
 
 class LLMGenerator:
-    """LLM-driven backend over the serving engine.  The port has no
-    decoder engine yet (decoder-zoo slice), so constructing one raises."""
+    """LLM-driven backend over the serving engine (system-path demo):
+    each call encodes the prompt ``n`` times (48 tokens) with
+    ``tokenizer`` — whose vocab must fit the decoder's — samples
+    ``max_new_tokens`` at temperature 1 from ``seed`` and keeps the first
+    12 token ids of each row as the new query's text.  The engine's
+    sampler draws from a ``torch.Generator``, so the texts differ from
+    the reference's ``jax.random`` draws; the records' structure and
+    labels do not."""
 
     def __init__(self, engine, tokenizer, max_new_tokens: int = 24,
                  seed: int = 0):
-        raise NotImplementedError(
-            "LLMGenerator drives the decoder engine, which arrives with "
-            "the decoder-zoo slice of the port; use TemplateGenerator")
+        self.engine = engine
+        self.tok = tokenizer
+        self.max_new = max_new_tokens
+        self.seed = seed
+
+    def _gen(self, prompt_tpl: str, q: Query, n: int) -> List[Query]:
+        prompt = prompt_tpl.format(domain=q.domain, n=n, query=q.text)
+        ids, _ = self.tok.encode_batch([prompt] * n, 48)
+        res = self.engine.generate(ids, self.max_new, temperature=1.0,
+                                   seed=self.seed)
+        out = []
+        for row in res.tokens:
+            text = " ".join(f"tok{t}" for t in row[:12])
+            out.append(Query(text, q.domain, q.entity, q.aspect, -1))
+        return out
+
+    def paraphrases(self, q: Query, n: int) -> List[Query]:
+        return self._gen(PARAPHRASE_PROMPT, q, n)
+
+    def distinct(self, q: Query, n: int) -> List[Query]:
+        return self._gen(DISTINCT_PROMPT, q, n)
 
 
 @dataclass

@@ -1,0 +1,73 @@
+"""Launch of the hand-written CUDA flash-attention kernel.
+
+The source is ``csrc/flash_attention.cu`` (CUDA C++ for ``sm_90a``,
+plain C interface), built at first use by `repro_torch.kernels._build`
+and loaded with ``ctypes``; nothing is built or loaded at import.
+
+The kernel reads and writes through element strides, so `launch` takes
+(B, H, S, hd) *views* of any layout whose last axis is contiguous: the
+model's (B, S, H, hd) tensors go in as ``x.transpose(1, 2)``, with no
+copy.
+
+``COUNTS["flash_attention"]`` counts launches: `launch` adds one where
+it launches the kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+HEAD_DIMS = (32, 64, 96, 128)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+COUNTS = {"flash_attention": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.flash_attention_launch.argtypes = [
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+        _I, _I, ctypes.c_float, _P]
+    lib.flash_attention_launch.restype = ctypes.c_int
+
+
+def build() -> Path:
+    """Compile the kernel unless a library for this source exists;
+    returns its path."""
+    return _build.build(SOURCE)
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load(SOURCE, _declare)
+
+
+def launch(q, k, v, out, *, causal: bool, window: int, scale: float):
+    """q, out: (B, H, Sq, hd); k, v: (B, KV, Skv, hd) — checked CUDA
+    tensors of one dtype, last axis contiguous, any other strides (see
+    `ops.flash_attention`).  Writes ``out`` and returns it.  Launches on
+    the current stream, does not synchronise; raises if the launch is
+    refused."""
+    lib = _lib()
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    if B == 0 or Sq == 0:
+        return out
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV,
+        Sq, Skv, hd, DTYPES[q.dtype], *strides, int(causal), int(window),
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    COUNTS["flash_attention"] += 1
+    return out

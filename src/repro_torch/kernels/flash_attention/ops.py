@@ -1,0 +1,63 @@
+"""Dispatch for flash attention (model layout in and out).
+
+Tensors on the CPU go to the plain torch version (`ref.py`); tensors on
+a card go to the hand-written CUDA kernel (`kernel.py`) or raise — there
+is no fallback from the card.  The kernel takes float32 or bfloat16,
+head widths 32, 64, 96 and 128, and any layout whose head axis is
+contiguous: the (B, S, H, hd) tensors are read in place.  It refuses a
+window that leaves some query row with no key in reach (Sq >= Skv + W),
+where the plain version averages v over every key.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import kernel as _kernel
+from repro_torch.kernels.flash_attention import ref as _ref
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale=None):
+    """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) -> (B, Sq, H, hd); see
+    `ref.flash_attention` for the masks and ``scale``."""
+    dev = q.device
+    hd = q.shape[-1]
+    scale = hd ** -0.5 if scale is None else scale
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if dev.type == "cpu":
+        return _ref.flash_attention(qt, kt, vt, causal=causal, window=window,
+                                    scale=scale).transpose(1, 2)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda tensors, "
+                         f"got {dev}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)} must be (B, Sq, H, hd), k and "
+                         f"v {tuple(k.shape)}/{tuple(v.shape)} (B, Skv, KV, "
+                         "hd)")
+    B, Sq, H, _ = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"k {tuple(k.shape)} does not fit q "
+                         f"{tuple(q.shape)}")
+    if q.dtype not in _kernel.DTYPES:
+        raise ValueError(f"flash_attention kernel takes float32 or "
+                         f"bfloat16, got {q.dtype}")
+    if hd not in _kernel.HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim in "
+                         f"{_kernel.HEAD_DIMS}, got {hd}")
+    if KV == 0 or H % KV or Skv == 0:
+        raise ValueError(f"need Skv >= 1 and H={H} a multiple of KV={KV}")
+    if window > 0 and Sq >= Skv + window:
+        raise ValueError(f"window {window} leaves query rows past "
+                         f"{Skv + window - 1} with no key (Sq={Sq}, "
+                         f"Skv={Skv})")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev or t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}, expected "
+                             f"{q.dtype} on {dev}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}'s head axis is not contiguous")
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
+    _kernel.launch(qt, kt, vt, out.transpose(1, 2), causal=causal,
+                   window=window, scale=scale)
+    return out

@@ -1,0 +1,230 @@
+"""Serving launcher: batched generation for a decoder config, with an
+optional semantic cache in front (the paper's deployment) — the port of
+`repro/launch/serve.py` for the options the port has.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch phi3-mini-3.8b --requests 32 --batch 8 --cache      # card
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --cache --requests 16 --batch 8 --max-new-tokens 4         # CPU
+
+``--smoke`` is on, as in the reference (it cannot be turned off): the
+decoder and the encoder run at their reduced sizes.  The full-width
+decoder is driven by ``chip_smoke.py`` through the library's entry
+points.  ``--tiered`` swaps the flat SemanticCache for the tiered
+CacheService; ``--warm-dtype int8`` scans the warm panel from its
+quantized form, ``--learned-admission`` learns the per-tenant operating
+points online (DESIGN.md §9), ``--ensemble E`` serves E embedders
+through the fused ensemble cascade (the fine-tuned embedder as the
+pilot, random-projection panels beside it; §13) and ``--ttl`` stamps a
+default TTL on admitted entries (§14.2).  ``--metrics-json PATH`` dumps
+the telemetry registry as JSON-lines after the run, and
+``--metrics-interval N`` every N batches too.
+
+The prompts of cache misses are encoded with a tokenizer of the
+*decoder's* vocab, not the encoder's: the encoder's ids would fall
+outside the decoder's embedding table.  Options of the reference that
+the port lacks (``--cache-shards``, ``--cold-capacity``,
+``--warm-block``, ``--learned-embedder``, ``--conformal``,
+``--scenario``) are refused with the slice that brings them.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+from repro_torch.configs import get_config
+from repro_torch.core import EmbedderTrainer, FinetuneConfig, SemanticCache
+from repro_torch.data import HashTokenizer, make_pair_dataset, make_query_stream
+from repro_torch.models import LM
+from repro_torch.obs import Telemetry, write_jsonl
+from repro_torch.serving import CachedLLMService, ServeEngine
+
+# reference options the port does not run yet, with the slice that brings
+# each (ROADMAP.md queue A)
+_NOT_PORTED = {
+    "cache_shards": ("--cache-shards", "the sharded-warm-tier slice"),
+    "cold_capacity": ("--cold-capacity", "the cold-tier slice"),
+    "warm_block": ("--warm-block", "the cold-tier slice (blockwise warm "
+                                   "streaming)"),
+    "learned_embedder": ("--learned-embedder", "the embedder-refresh slice"),
+    "conformal": ("--conformal", "the service-learning-loops slice"),
+    "scenario": ("--scenario", "the benchmarks slice"),
+}
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="phi3-mini-3.8b")
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--requests", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--max-new-tokens", type=int, default=8)
+    ap.add_argument("--cache", action="store_true")
+    ap.add_argument("--threshold", type=float, default=0.93)
+    ap.add_argument("--tiered", action="store_true",
+                    help="tiered CacheService instead of the flat "
+                         "SemanticCache")
+    ap.add_argument("--warm-dtype", choices=("float32", "int8"),
+                    default="float32",
+                    help="warm-panel scan precision (implies --tiered)")
+    ap.add_argument("--learned-admission", action="store_true",
+                    help="learn per-tenant thresholds online (implies "
+                         "--tiered)")
+    ap.add_argument("--ensemble", type=int, default=0, metavar="E",
+                    help="serve E embedders through the fused ensemble "
+                         "cascade (implies --tiered)")
+    ap.add_argument("--ttl", type=float, default=0.0, metavar="SECONDS",
+                    help="default TTL of admitted entries (0 = never "
+                         "expire; implies --tiered)")
+    ap.add_argument("--metrics-json", default=None, metavar="PATH",
+                    help="write the telemetry registry as JSON-lines after "
+                         "the run (requires --cache)")
+    ap.add_argument("--metrics-interval", type=int, default=0, metavar="N",
+                    help="with --metrics-json: also a snapshot every N "
+                         "batches")
+    ap.add_argument("--cache-shards", type=int, default=0)
+    ap.add_argument("--cold-capacity", type=int, default=0)
+    ap.add_argument("--warm-block", type=int, default=0)
+    ap.add_argument("--learned-embedder", action="store_true")
+    ap.add_argument("--conformal", action="store_true")
+    ap.add_argument("--scenario", default=None)
+    args = ap.parse_args(argv)
+    for dest, (flag, slice_name) in _NOT_PORTED.items():
+        if getattr(args, dest):
+            ap.error(f"{flag} is not supported by the PyTorch port yet; it "
+                     f"arrives with {slice_name} (ROADMAP.md queue A)")
+    if args.metrics_json and not args.cache:
+        ap.error("--metrics-json instruments the cached serving path; "
+                 "add --cache")
+    if args.warm_dtype != "float32" or args.learned_admission \
+            or args.ensemble or args.ttl:
+        args.tiered = True
+    if args.ensemble == 1:
+        ap.error("--ensemble needs E >= 2 (a single embedder is the "
+                 "default cascade)")
+    return args
+
+
+def make_cache(args, dim: int, telemetry: Telemetry):
+    if not args.tiered:
+        return SemanticCache(capacity=4096, dim=dim,
+                             threshold=args.threshold, telemetry=telemetry,
+                             device=args.device)
+    from repro_torch.cache_service import (
+        CacheConfig, CacheService, EnsembleConfig, LearningConfig,
+        StalenessConfig, TieringConfig,
+    )
+    cache = CacheService(CacheConfig(
+        dim=dim, threshold=args.threshold, telemetry=telemetry,
+        tiering=TieringConfig(hot_capacity=512, warm_capacity=4096,
+                              n_clusters=32, bucket=256,
+                              warm_dtype=args.warm_dtype),
+        learning=LearningConfig(learned_admission=args.learned_admission),
+        ensemble=EnsembleConfig(embedders=args.ensemble or None),
+        staleness=StalenessConfig(default_ttl=args.ttl or None)),
+        device=args.device)
+    caps = cache.capabilities()
+    print(f"tiered cache: warm dtype {caps.warm_dtype}, learned admission "
+          f"{'on' if caps.learned_admission else 'off'}, ensemble "
+          f"{f'E={caps.ensemble}' if caps.ensemble else 'off'}, ttl "
+          f"{args.ttl or 'off'}")
+    return cache
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.reduced()
+    engine = ServeEngine(LM(cfg, seed=0, device=args.device), max_len=64)
+    print(f"serving {cfg.name} ({cfg.param_count():,} params) on "
+          f"{engine.model.device}")
+
+    if not args.cache:
+        rng = np.random.default_rng(0)
+        t0 = time.perf_counter()
+        for i in range(0, args.requests, args.batch):
+            prompts = rng.integers(0, cfg.vocab_size,
+                                   (args.batch, 16)).astype(np.int32)
+            res = engine.generate(prompts, args.max_new_tokens)
+            print(f"batch {i // args.batch}: generated "
+                  f"{res.tokens.shape[1]} tokens x {res.tokens.shape[0]}")
+        print(f"total {time.perf_counter() - t0:.1f}s")
+        return
+
+    enc_cfg = get_config("modernbert-149m").reduced(vocab_size=4096)
+    tok = HashTokenizer(vocab_size=enc_cfg.vocab_size)
+    trainer = EmbedderTrainer(enc_cfg, FinetuneConfig(
+        epochs=1, batch_size=32, lr=5e-4, max_len=24), device=args.device)
+    trainer.fit(make_pair_dataset("medical", 512, seed=0), tok)
+    telemetry = Telemetry()
+    cache = make_cache(args, enc_cfg.d_model, telemetry)
+    embed_fn = trainer.make_embed_fn(tok)
+    if args.ensemble:
+        from repro_torch.core import RandomProjectionEmbedder
+        extras = [RandomProjectionEmbedder(dim=enc_cfg.d_model, seed=101 + e)
+                  for e in range(args.ensemble - 1)]
+        pilot_fn = embed_fn
+
+        def embed_fn(texts):
+            panels = [pilot_fn(texts)] + [np.asarray(e.embed(texts))
+                                          for e in extras]
+            return np.stack(panels, axis=1)        # (B, E, D)
+    svc = CachedLLMService(embed_fn, cache, engine,
+                           HashTokenizer(vocab_size=cfg.vocab_size),
+                           max_new_tokens=args.max_new_tokens)
+
+    def dump_metrics(batch_idx, append):
+        write_jsonl(args.metrics_json, telemetry.registry.snapshot(),
+                    meta={"arch": cfg.name, "batch": batch_idx,
+                          "tiered": args.tiered}, append=append)
+
+    stream = [q.text for q in make_query_stream("medical", args.requests,
+                                                seed=1, repeat_frac=0.4)]
+    t0 = time.perf_counter()
+    wrote = False
+    for i in range(0, len(stream), args.batch):
+        svc.handle(stream[i:i + args.batch])
+        b = i // args.batch
+        if args.metrics_json and args.metrics_interval \
+                and (b + 1) % args.metrics_interval == 0:
+            dump_metrics(b, append=wrote)
+            wrote = True
+    cache.maintenance(block=True)     # final idle tick: drain SLO gauges
+    st = svc.stats()
+    print(f"{args.requests} requests in {time.perf_counter() - t0:.1f}s; "
+          f"hit rate {svc.hit_rate:.1%} ({st['hits']} LLM calls saved, "
+          f"{st['generations']} generations)")
+    stage_h = telemetry.stage_histogram()
+    for stage in ("embed", "plan", "generate", "commit", "maintenance"):
+        agg = stage_h.aggregate(stage=stage)
+        if agg.count:
+            print(f"  stage {stage:<12} p50 {agg.quantile(0.5) * 1e3:7.2f} "
+                  f"ms  mean {agg.mean * 1e3:7.2f} ms  x{agg.count}")
+    if args.ensemble:
+        ws = cache.policies.weights_state()
+        print(f"ensemble: {cache.capabilities().ensemble} embedders, "
+              f"{len(ws)} tenant(s) with learned mixture weights")
+    if args.learned_admission:
+        lrn = st["backend"]["learning"]
+        print(f"learned admission: {lrn['refits_applied']} refits from "
+              f"{lrn['feedback_events']} events "
+              f"({lrn['duplicate_events']} duplicates, "
+              f"{lrn['wasted_admissions']} wasted admissions); "
+              f"policies {lrn['learned_policies']}")
+    if args.ttl:
+        stl = cache.stats_snapshot().tiers["staleness"]
+        print(f"ttl: {stl['ttl_stamped']} stamped, "
+              f"{stl['expired_masked']} masked at plan time, "
+              f"{stl['expired_reaped']} reaped")
+    if args.metrics_json:
+        dump_metrics(args.requests // args.batch, append=wrote)
+        print(f"metrics -> {args.metrics_json}")
+    return svc
+
+
+if __name__ == "__main__":
+    main()

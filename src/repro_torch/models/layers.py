@@ -1,14 +1,18 @@
-"""Common layers: norms, RoPE, dense GeGLU/SwiGLU MLP, token embedding.
+"""Common layers: norms, RoPE, dense MLPs (GeGLU, SwiGLU, GELU with
+biases), token embedding and the unembedding.
 
 Numerics follow the reference (`repro/models/layers.py`): norms run in
 float32 with *population* variance and ``cfg.norm_eps`` (1e-6, not
 torch's 1e-5) and cast back; RoPE rotates the two *halves* of each head
 (not interleaved pairs) in float32; ``jax.nn.gelu`` defaults to the tanh
-approximation, so GeGLU uses ``approximate="tanh"``.  Weights stay in
-``cfg.param_dtype`` and are cast to the activation dtype per call, as
-the reference does.
+approximation, so GeGLU and the GELU MLP use ``approximate="tanh"``.
+Weights stay in ``cfg.param_dtype`` and are cast to the activation dtype
+per call, as the reference does; a bias is added after its matrix
+product, not fused into it, so bf16 rounds where the reference rounds.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -60,22 +64,31 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
 
 
 class MLP(nn.Module):
-    """Gated dense FFN (GeGLU for the encoder config, SwiGLU too)."""
+    """Dense FFN: gated (GeGLU for the encoder config, SwiGLU) or the
+    plain GELU MLP with biases (``mlp_type="gelu"``, StarCoder2)."""
 
     def __init__(self, ini: Initializer, cfg: ModelConfig):
         super().__init__()
-        if cfg.mlp_type not in ("geglu", "swiglu"):
-            raise NotImplementedError(
-                f"mlp_type {cfg.mlp_type!r} arrives with the decoder-zoo "
-                "slice of the port")
+        if cfg.mlp_type not in ("geglu", "swiglu", "gelu"):
+            raise ValueError(f"unknown mlp_type {cfg.mlp_type!r}")
         d, f = cfg.d_model, cfg.d_ff
         self.kind = cfg.mlp_type
+        if self.kind == "gelu":
+            self.w_up = ini.lecun((f, d), fan_in=d)
+            self.b_up = ini.zeros((f,))
+            self.w_down = ini.lecun((d, f), fan_in=f)
+            self.b_down = ini.zeros((d,))
+            return
         self.w_gate = ini.lecun((f, d), fan_in=d)
         self.w_up = ini.lecun((f, d), fan_in=d)
         self.w_down = ini.lecun((d, f), fan_in=f)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
+        if self.kind == "gelu":
+            h = F.gelu(F.linear(x, self.w_up.to(dt)) + self.b_up.to(dt),
+                       approximate="tanh")
+            return F.linear(h, self.w_down.to(dt)) + self.b_down.to(dt)
         g = F.linear(x, self.w_gate.to(dt))
         g = F.gelu(g, approximate="tanh") if self.kind == "geglu" \
             else F.silu(g)
@@ -83,14 +96,41 @@ class MLP(nn.Module):
         return F.linear(g * u, self.w_down.to(dt))
 
 
+def padded_vocab(cfg: ModelConfig) -> int:
+    """The vocab rounded up to a multiple of ``cfg.pad_vocab_to``."""
+    if cfg.pad_vocab_to:
+        m = cfg.pad_vocab_to
+        return -(-cfg.vocab_size // m) * m
+    return cfg.vocab_size
+
+
 class TokenEmbedding(nn.Module):
+    """The (padded vocab, d) table; rows past ``cfg.vocab_size`` are
+    padding that no token reaches."""
+
     def __init__(self, ini: Initializer, cfg: ModelConfig):
         super().__init__()
-        if cfg.pad_vocab_to:
-            raise NotImplementedError("pad_vocab_to arrives with the "
-                                      "decoder-zoo slice of the port")
-        self.table = ini.normal((cfg.vocab_size, cfg.d_model))
+        self.table = ini.normal((padded_vocab(cfg), cfg.d_model))
         self.dtype = getattr(torch, cfg.dtype)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.table[tokens.long()].to(self.dtype)
+
+
+def unembed(cfg: ModelConfig, table: torch.Tensor,
+            untied: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """Logits over the padded vocab in x's dtype: ``x`` times the tied
+    table, or the untied ``(padded vocab, d)`` table (the reference's
+    ``embed/unembed`` transposed); then the optional tanh soft-cap, and
+    the padding columns set to -1e30 so that no softmax, loss or argmax
+    picks them."""
+    w = table if cfg.tie_embeddings else untied
+    logits = F.linear(x, w.to(x.dtype))
+    if cfg.logit_softcap > 0:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    v = padded_vocab(cfg)
+    if v != cfg.vocab_size:
+        col = torch.arange(v, device=x.device)
+        logits = logits.masked_fill(col >= cfg.vocab_size, -1e30)
+    return logits

@@ -70,8 +70,8 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def state_dict_from_reference(tree: Mapping, cfg: ModelConfig
                               ) -> Dict[str, torch.Tensor]:
-    """The reference encoder's value tree (``split(init_lm(cfg))[0]``,
-    leaves as numpy arrays) -> this port's ``Encoder`` state dict.
+    """The reference model's value tree (``split(init_lm(cfg))[0]``,
+    leaves as numpy arrays) -> this port's ``Encoder`` or ``LM`` state dict.
 
     Layer ``j * len(cfg.period) + i`` of the port is period ``j`` of the
     reference's ``layers/pos{i}`` stack.  Transposed on the way (the
@@ -83,10 +83,14 @@ def state_dict_from_reference(tree: Mapping, cfg: ModelConfig
     * ``ffn/w_gate``, ``w_up``: ``(d, f)`` -> ``(f, d)``;
       ``ffn/w_down``: ``(f, d)`` -> ``(d, f)``
 
+    * ``embed/unembed`` (an untied decoder's): ``(d, vocab)`` ->
+      ``unembed`` ``(vocab, d)``; an encoder has no use for it, and it
+      is dropped there
+
     Not transposed: ``embed/table`` ``(vocab, d)``, every norm's
-    ``scale``/``bias`` and the attention biases (reshaped
-    ``(h, hd)`` -> ``(h*hd,)``).  The untied ``embed/unembed`` table
-    has no encoder use and is dropped.
+    ``scale``/``bias``, the attention biases (reshaped ``(h, hd)`` ->
+    ``(h*hd,)``) and the GELU MLP's ``b_up``/``b_down``.  The same
+    function carries an ``Encoder``'s and an ``LM``'s weights.
     """
     flat = _flatten(tree)
     P = len(cfg.period)
@@ -96,6 +100,8 @@ def state_dict_from_reference(tree: Mapping, cfg: ModelConfig
         return torch.from_numpy(np.array(a, copy=True))
 
     sd["embed.table"] = t(flat["embed/table"])
+    if "embed/unembed" in flat and not cfg.is_encoder:
+        sd["unembed"] = t(flat["embed/unembed"].T)
     for name in ("scale", "bias"):
         if f"final_norm/{name}" in flat:
             sd[f"final_norm.{name}"] = t(flat[f"final_norm/{name}"])

@@ -1,3 +1,6 @@
-from repro_torch.serving.engine import CachedLLMService, ServedRequest
+from repro_torch.serving.engine import (
+    CachedLLMService, GenerationResult, ServedRequest, ServeEngine,
+)
 
-__all__ = ["CachedLLMService", "ServedRequest"]
+__all__ = ["CachedLLMService", "GenerationResult", "ServedRequest",
+           "ServeEngine"]

@@ -1,9 +1,14 @@
-"""The paper's deployment: a semantic cache in front of an LLM.
+"""Serving engine: batched prefill + decode with carried state, and the
+paper's deployment — a semantic cache in front of it.
 
-The port of `repro/serving/engine.py` ``CachedLLMService`` with the
-echo backend only (``engine=None``: a miss is answered ``answer(<query>)``).
-The decoder zoo and ``ServeEngine`` arrive with the decoder-zoo slice of
-the port; until then an engine is refused.
+The port of `repro/serving/engine.py`.  ``ServeEngine`` is the
+host-side loop around ``LM.prefill`` / ``LM.decode_step``; PyTorch runs
+them eagerly, so there is nothing to compile per shape.  Sampling draws
+Gumbel noise from an explicit ``torch.Generator`` seeded per call; the
+port cannot reproduce ``jax.random``'s bits, so sampled tokens are
+compared with the reference by distribution, greedy tokens exactly.
+``CachedLLMService`` answers each miss-group leader with ``engine``
+(or, with ``engine=None``, the echo ``answer(<query>)``).
 """
 from __future__ import annotations
 
@@ -13,11 +18,78 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.cache_service.protocol import CacheBackend, CacheRequest
 from repro_torch.data.tokenizer import HashTokenizer
+from repro_torch.models.model import LM
 from repro_torch.obs import Telemetry
 from repro_torch.obs.registry import tenant_label
+
+
+@dataclass
+class GenerationResult:
+    tokens: np.ndarray          # (B, max_new) int32
+    n_prompt: int
+    n_generated: int
+    cache_hit: bool = False
+
+
+class ServeEngine:
+    """Batched autoregressive serving for a decoder ``LM``: the prompt's
+    prefill, then ``max_new_tokens`` decode steps, each feeding back the
+    token chosen from the last logits (argmax, or argmax of logits /
+    temperature + Gumbel noise).  The KV caches hold ``max_len`` slots,
+    which must cover prompt + new tokens unless the config has a window
+    (past them the ring wraps, as in the reference)."""
+
+    def __init__(self, model: LM, max_len: int = 512):
+        self.model = model
+        self.cfg = model.cfg
+        self.max_len = max_len
+
+    @torch.inference_mode()
+    def generate(self, prompts: np.ndarray, max_new_tokens: int = 32,
+                 temperature: float = 0.0, seed: int = 0,
+                 use_frontend: bool = False) -> GenerationResult:
+        """prompts: (B, S) int ids below the config's vocab.  Greedy
+        (temperature=0) or sampled."""
+        if use_frontend:
+            raise NotImplementedError(
+                "frontend embeddings arrive with the frontend slice of the "
+                "port")
+        prompts = np.asarray(prompts)
+        B, S = prompts.shape
+        if prompts.size and not 0 <= prompts.min() <= prompts.max() \
+                < self.cfg.vocab_size:
+            raise ValueError(
+                f"token ids in [{prompts.min()}, {prompts.max()}] outside "
+                f"{self.cfg.name}'s vocab of {self.cfg.vocab_size}: encode "
+                "prompts with HashTokenizer(vocab_size=cfg.vocab_size)")
+        dev = self.model.device
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        logits, state = self.model.prefill(
+            torch.as_tensor(prompts, dtype=torch.int32, device=dev),
+            self.max_len)
+        out = torch.empty((B, max_new_tokens), dtype=torch.int32,
+                          device=dev)
+        tok = self._select(logits, temperature, gen)
+        for t in range(max_new_tokens):
+            out[:, t] = tok[:, 0]
+            logits, state = self.model.decode_step(state, tok)
+            tok = self._select(logits, temperature, gen)
+        return GenerationResult(out.cpu().numpy(), n_prompt=S,
+                                n_generated=max_new_tokens)
+
+    @staticmethod
+    def _select(logits: torch.Tensor, temperature: float,
+                gen: torch.Generator) -> torch.Tensor:
+        if temperature <= 0.0:
+            return logits.argmax(-1).to(torch.int32)[:, None]
+        u = torch.rand(logits.shape, generator=gen, device=logits.device)
+        g = -torch.log(-torch.log(u.clamp_min(1e-20)))
+        return (logits.float() / temperature + g).argmax(-1).to(
+            torch.int32)[:, None]
 
 
 @dataclass
@@ -35,8 +107,9 @@ class CachedLLMService:
     per miss *group* leader -> ``commit`` -> ``maintenance()`` between
     batches when the receipt asks for it."""
 
-    def __init__(self, embed_fn, cache: CacheBackend, engine: None,
-                 tokenizer: HashTokenizer, max_query_len: int = 32,
+    def __init__(self, embed_fn, cache: CacheBackend,
+                 engine: Optional[ServeEngine], tokenizer: HashTokenizer,
+                 max_query_len: int = 32,
                  max_new_tokens: int = 16, fused: Optional[bool] = None,
                  coalesce: bool = True,
                  telemetry: Optional[Telemetry] = None):
@@ -45,11 +118,19 @@ class CachedLLMService:
         composition.  ``telemetry`` (None = adopt the backend's) wires
         the §10 spans and serving counters: each ``handle`` produces
         one span tree rooted at ``request`` with embed/plan/generate/
-        commit(/maintenance) children."""
-        if engine is not None:
-            raise NotImplementedError(
-                "the decoder engine arrives with the decoder-zoo slice of "
-                "the port; pass engine=None (misses answer 'answer(q)')")
+        commit(/maintenance) children.
+
+        ``tokenizer`` encodes the prompts for ``engine``, so its ids must
+        stay inside the decoder's vocab: pass
+        ``HashTokenizer(vocab_size=engine.cfg.vocab_size)``, not the
+        encoder's tokenizer (the full-width encoder's vocab is larger
+        than Phi-3-mini's); a larger one is refused."""
+        if engine is not None \
+                and tokenizer.vocab_size > engine.cfg.vocab_size:
+            raise ValueError(
+                f"tokenizer vocab {tokenizer.vocab_size} exceeds the "
+                f"decoder's {engine.cfg.vocab_size}: prompt ids would fall "
+                "outside its embedding table")
         self.embed_fn = embed_fn          # list[str] -> (B, D) unit vectors
         if not isinstance(cache, CacheBackend):
             raise TypeError(
@@ -94,7 +175,11 @@ class CachedLLMService:
                     "cascade path; use CacheService or drop fused=True")
 
     def _llm_answer(self, queries: List[str]) -> List[str]:
-        return [f"answer({q})" for q in queries]
+        if self.engine is None:  # degenerate echo backend
+            return [f"answer({q})" for q in queries]
+        ids, _ = self.tok.encode_batch(queries, self.max_query_len)
+        res = self.engine.generate(ids, self.max_new_tokens)
+        return [" ".join(map(str, row)) for row in res.tokens]
 
     def handle(self, queries: List[str],
                tenant: int = 0) -> List[ServedRequest]:

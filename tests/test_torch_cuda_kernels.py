@@ -20,12 +20,21 @@ serving- and training-shape checks in ``chip_smoke.py`` do not.
   float64 recomputation and the refusals;
 * contrastive forward and backward: mixed and one-class batches, B = 1,
   zero rows (the clamped denominator), large B, float64 recomputations
-  and the refusals.
+  and the refusals;
+* flash attention: float32 and bf16, head widths 32, 64, 96 and 128,
+  ragged sequences, Sq < Skv, causal, bidirectional and sliding-window
+  masks, MHA, GQA and MQA, strided (B, S, H, hd) views read in place,
+  the ``scale`` argument and the refusals;
+* decode attention: the same dtypes and widths, ragged cache lengths,
+  random, ring-buffer and fully masked validity, MHA, GQA and MQA, and
+  the refusals.
 
 Tolerances: scores ``atol 1e-5`` (fp32 sums in another order); ids,
 slots and flags exactly; contrastive components ``rtol 1e-5``, their
 extrema ``atol 1e-6``, gradients ``atol 1e-6`` against torch autograd of
-the plain version.
+the plain version; attention outputs ``atol 2e-5, rtol 1e-4`` in float32
+(the reference's kernel tests) and ``atol 3e-2`` in bf16 (both versions
+accumulate in float32 and round once; the reference's bf16 tolerance).
 """
 import pytest
 import torch
@@ -39,6 +48,12 @@ from repro_torch.kernels.contrastive import ref as cl_ref
 from repro_torch.kernels.cosine_topk import kernel as ct_kernel
 from repro_torch.kernels.cosine_topk import ops as ct_ops
 from repro_torch.kernels.cosine_topk import ref as ct_ref
+from repro_torch.kernels.decode_attention import kernel as da_kernel
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention import ref as da_ref
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 
 SCORE_ATOL = 1e-5
 
@@ -631,3 +646,145 @@ def test_contrastive_refuses_what_the_kernel_does_not_take(dev):
         cl_ops.contrastive_components(e1, e2, lab[:3])
     with pytest.raises(ValueError, match="on cpu"):
         cl_ops.contrastive_components(e1, e2, lab.cpu())
+
+
+# ---------------------------------------------------------------------------
+# flash attention and decode attention
+# ---------------------------------------------------------------------------
+
+ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
+            torch.bfloat16: dict(atol=3e-2, rtol=0)}
+
+
+def _flash_check(q, k, v, **kw):
+    """q: (B, Sq, H, hd) and k, v: (B, Skv, KV, hd), model layout."""
+    before = fa_kernel.COUNTS["flash_attention"]
+    want = fa_ref.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), **kw).transpose(1, 2)
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_kernel.COUNTS["flash_attention"] == before + 1
+    assert got.shape == want.shape and got.dtype == q.dtype
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[q.dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128])
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,causal,window", [
+    (2, 4, 2, 100, 100, True, 0),       # GQA, ragged sequence
+    (1, 4, 4, 64, 64, False, 0),        # bidirectional (encoder)
+    (1, 4, 2, 200, 200, True, 48),      # sliding window
+    (1, 2, 1, 130, 130, True, 0),       # MQA, ragged
+    (2, 4, 4, 70, 70, False, 20),       # bidirectional window
+    (1, 8, 2, 33, 80, True, 0),         # fewer queries than keys
+])
+def test_flash_attention_matches_plain_version(dev, dtype, hd, B, H, KV,
+                                               Sq, Skv, causal, window):
+    g = torch.Generator(device=dev).manual_seed(hd * 7 + Sq)
+    q = torch.randn(B, Sq, H, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, Skv, KV, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, Skv, KV, hd, generator=g, device=dev).to(dtype)
+    _flash_check(q, k, v, causal=causal, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_reads_strided_views_and_takes_a_scale(dev, dtype):
+    """q, k, v as slices of one (B, S, 3, H, hd) projection: no copy is
+    made, and ``scale`` replaces hd ** -0.5."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    qkv = torch.randn(2, 77, 3, 4, 96, generator=g, device=dev).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    _flash_check(q, k, v, causal=True, window=0)
+    _flash_check(q * 96 ** -0.5, k, v, causal=True, scale=1.0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_the_kernel_does_not_take(dev):
+    q = torch.randn(1, 8, 2, 48, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention(q, q, q)
+    q = torch.randn(1, 8, 2, 32, device=dev)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa_ops.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="no key"):
+        fa_ops.flash_attention(q, q[:, :4], q[:, :4], window=4)
+    with pytest.raises(ValueError, match="multiple"):
+        fa_ops.flash_attention(torch.randn(1, 8, 3, 32, device=dev), q, q)
+    with pytest.raises(ValueError, match="contiguous"):
+        x = torch.randn(1, 8, 2, 64, device=dev)[..., ::2]
+        fa_ops.flash_attention(x, x, x)
+
+
+def _decode_check(q, k, v, valid, **kw):
+    """q: (B, H, hd); k, v: (B, L, KV, hd); valid: (B, L)."""
+    before = da_kernel.COUNTS["decode_attention"]
+    want = da_ref.decode_attention(q, k, v, valid, **kw)
+    got = da_ops.decode_attention(q[:, None], k, v, valid, **kw)[:, 0]
+    torch.cuda.synchronize()
+    assert da_kernel.COUNTS["decode_attention"] == before + 1
+    assert got.shape == want.shape and got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[q.dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128])
+@pytest.mark.parametrize("B,H,KV,L", [
+    (2, 4, 2, 300),          # GQA, ragged L
+    (1, 8, 1, 1000),         # MQA, long cache
+    (3, 4, 4, 128),          # MHA
+    (2, 40, 8, 77),          # G = 5, ragged
+    (1, 32, 1, 64),          # MQA, G = 32
+])
+def test_decode_attention_matches_plain_version(dev, dtype, hd, B, H, KV, L):
+    g = torch.Generator(device=dev).manual_seed(hd * 13 + L)
+    q = torch.randn(B, H, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, L, KV, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, L, KV, hd, generator=g, device=dev).to(dtype)
+    valid = torch.rand(B, L, generator=g, device=dev) > 0.2
+    _decode_check(q, k, v, valid)
+    # a ring buffer holding the last W positions of a longer sequence
+    cur, W = L + 37, min(L, 50)
+    pos = torch.full((B, L), -1, device=dev)
+    tail = torch.arange(cur - min(L, cur) + 1, cur + 1, device=dev)
+    pos[:, tail % L] = tail
+    ring = (pos >= 0) & (pos <= cur) & ((cur - pos) < W)
+    _decode_check(q, k, v, ring, scale=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_fully_masked_row_follows_plain_version(dev, dtype):
+    """A row with no valid slot averages v over all L slots, as the
+    reference's plain version (not its Pallas kernel, which also
+    averages its padding)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(2, 4, 64, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, 100, 2, 64, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, 100, 2, 64, generator=g, device=dev).to(dtype)
+    valid = torch.ones(2, 100, dtype=torch.bool, device=dev)
+    valid[1] = False
+    _decode_check(q, k, v, valid)
+
+
+@pytest.mark.cuda
+def test_decode_attention_refuses_what_the_kernel_does_not_take(dev):
+    k = torch.randn(1, 16, 2, 48, device=dev)
+    valid = torch.ones(1, 16, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        da_ops.decode_attention(torch.randn(1, 1, 4, 48, device=dev), k, k,
+                                valid)
+    k = torch.randn(1, 16, 1, 128, device=dev)
+    with pytest.raises(ValueError, match="accumulator"):
+        da_ops.decode_attention(torch.randn(1, 1, 128, 128, device=dev), k,
+                                k, valid)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        da_ops.decode_attention(torch.randn(1, 1, 4, 128, device=dev).half(),
+                                k.half(), k.half(), valid)
+    with pytest.raises(ValueError, match="dtype"):
+        da_ops.decode_attention(torch.randn(1, 1, 4, 128, device=dev), k, k,
+                                valid.int())

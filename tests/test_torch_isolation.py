@@ -1,7 +1,8 @@
 """The port stands alone: nothing under ``src/repro_torch/``, nor
 ``chip_smoke.py`` or the port's example, imports JAX or the reference
-package; the entry points refuse to run on a card that is absent rather
-than continue on the CPU; the kernel wrapper has no fallback path."""
+package; the entry points (the decoder and its launcher included) refuse
+to run on a card that is absent rather than continue on the CPU; no
+kernel wrapper has a fallback path."""
 import ast
 import subprocess
 import sys
@@ -16,7 +17,8 @@ STANDALONE = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "serve_with_cache_torch.py",
     ROOT / "examples" / "finetune_embedder_torch.py",
     ROOT / "tests" / "test_torch_cuda_kernels.py"]     # runs on the card
-KERNELS = ("cascade_lookup", "cosine_topk", "contrastive")
+KERNELS = ("cascade_lookup", "cosine_topk", "contrastive",
+           "flash_attention", "decode_attention")
 
 
 def _imported_roots(path: Path):
@@ -43,6 +45,8 @@ def test_the_slice_modules_are_covered():
                 "core/embedders.py", "cache_service/feedback.py",
                 "cache_service/tiers.py", "cache_service/service.py",
                 "training/optim.py", "kernels/_build.py",
+                "models/attention.py", "models/model.py",
+                "serving/engine.py", "launch/serve.py",
                 *(f"kernels/{k}/{f}.py" for k in KERNELS
                   for f in ("kernel", "ref", "ops"))):
         assert mod in names, mod
@@ -78,6 +82,19 @@ def test_plain_version_only_for_cpu_tensors(monkeypatch):
             warm.keys, warm.valid, warm.tenants, warm.value_ids,
             warm.write_seq, warm.centroids, warm.members, warm.cursor,
             warm.indexed_total, warm.keys_q, warm.scales, k=1)
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    monkeypatch.setattr(fa_ref, "flash_attention", forbidden)
+    monkeypatch.setattr(da_ref, "decode_attention", forbidden)
+    x = torch.zeros(2, 5, 4, 32, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fa_ops.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        da_ops.decode_attention(x[:, :1], x, x,
+                                torch.ones(2, 5, dtype=torch.bool,
+                                           device="meta"))
     with pytest.raises(ValueError, match="cpu or cuda"):
         ops.ensemble_lookup(
             torch.stack([q, q]), q[:, :2], qt, q[:, 0], ens.hot_keys,
@@ -99,14 +116,18 @@ def test_entry_points_raise_without_a_card(no_card):
     from repro_torch.core import (
         EmbedderTrainer, EncoderEmbedder, SemanticCache,
     )
-    from repro_torch.models import Encoder
+    from repro_torch.launch import serve
+    from repro_torch.models import LM, Encoder
     cfg = get_config("modernbert-149m").reduced(n_layers=2)
+    dec = get_config("phi3-mini-3.8b").reduced()
     for make in (lambda: resolve_device("cuda"),
                  lambda: Encoder(cfg),
                  lambda: EmbedderTrainer(cfg),
                  lambda: CacheService(CacheConfig(dim=16)),
                  lambda: SemanticCache(capacity=8, dim=16),
                  lambda: EncoderEmbedder(cfg),
+                 lambda: LM(dec),
+                 lambda: serve.main(["--requests", "1"]),
                  lambda: CacheService(CacheConfig(dim=16), device="cuda:0")):
         with pytest.raises(RuntimeError, match="cuda"):
             make()

@@ -72,6 +72,35 @@ def test_real_plus_synthetic_training_set():
     assert syn.domain == train.domain == "medical"
 
 
-def test_llm_generator_waits_for_the_decoder_slice():
-    with pytest.raises(NotImplementedError, match="decoder-zoo"):
-        synth.LLMGenerator(engine=None, tokenizer=None)
+def test_llm_generator_yields_dual_labelled_records():
+    """The LLM backend over the port's (reduced) decoder engine: one
+    pass gives both paraphrase positives and distinct negatives, each
+    generated text the first 12 sampled token ids, as the reference's
+    ``LLMGenerator``; the same seed gives the same records."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import HashTokenizer
+    from repro_torch.models import LM
+    from repro_torch.serving import ServeEngine
+    cfg = get_config("phi3-mini-3.8b").reduced()
+    engine = ServeEngine(LM(cfg, seed=0, device="cpu"), max_len=64)
+    qs = _queries(sample_query, 3, 5, "medical")
+
+    def run():
+        gen = synth.LLMGenerator(engine, HashTokenizer(cfg.vocab_size),
+                                 max_new_tokens=12, seed=4)
+        return synth.generate_synthetic_pairs(qs, gen, n_pos=2, n_neg=1)
+
+    recs = run()
+    assert len(recs) == 3 * 3
+    assert [r.is_duplicate for r in recs] == [1, 1, 0] * 3
+    assert [r.kind for r in recs[:3]] == ["paraphrase", "paraphrase",
+                                         "distinct"]
+    for r, q in zip(recs, [q for q in qs for _ in range(3)]):
+        assert r.question1 == q.text and r.domain == "medical"
+        words = r.question2.split()
+        assert len(words) == 12 and all(
+            w.startswith("tok") and 0 <= int(w[3:]) < cfg.vocab_size
+            for w in words)
+    assert [r.__dict__ for r in run()] == [r.__dict__ for r in recs]
+    ds = synth.records_to_dataset(recs)
+    assert ds.labels.tolist() == [1, 1, 0] * 3
