@@ -8,10 +8,17 @@ Needs one NVIDIA card (the kernels target Hopper, ``sm_90a``) and
 or the port is not beside the script.  Phases, each fatal on failure:
 
 1. build every CUDA kernel of the port from the checkout's sources (one
-   ``nvcc`` per source, all started together);
+   ``nvcc`` per source, all started together), and read the built code
+   with ``cuobjdump --dump-sass``: every bf16 flash-attention kernel must
+   run on the tensor cores (``HMMA``) and the float32 one must not; the
+   cosine top-k kernels must be float32 FMA (``FFMA``) with no ``HMMA``;
 2. kernel parity, each kernel against its plain torch version on the
    same CUDA tensors, all timed with CUDA events (median of repeats
-   after warm-up):
+   after warm-up) over eager calls; cosine top-k and attention also over
+   replays of a captured CUDA graph, the device's time without the
+   host's launch overhead, and the two redesigned kernels at each launch
+   geometry their wrappers choose between (cosine top-k's 32- and 64-row
+   key tiles, bf16 flash attention's 2- and 4-warp blocks):
    * the cascade lookup at the serving shapes (``TieringConfig``
      defaults: D=768, Q=64, Nh=1024, warm ring 16384, K=64, bucket=256,
      n_probe=8, tail = flush_size * rebuild_every = 256) on a populated
@@ -19,8 +26,10 @@ or the port is not beside the script.  Phases, each fatal on failure:
      tenants, invalid rows and an unindexed tail, fp32 and int8, k in
      {1, 4}; ints and flags equal, scores within ``SCORE_ATOL``;
    * the cosine top-k at Q=64, D=768, N=4096 (the flat cache's
-     capacity) and N=65536, 25 % invalid rows, k in {1, 4}, and an
-     all-invalid panel; indices equal, scores within ``SCORE_ATOL``;
+     capacity) and N=65536, 25 % invalid rows, k in {1, 4}, a panel
+     ragged across the kernel's tiles (Q=33, N=4099, k up to its
+     maximum) and an all-invalid panel; indices equal, scores within
+     ``SCORE_ATOL``;
    * the contrastive forward and backward at B=16 (the paper's batch)
      and B=4096, D=768, on mixed, all-duplicate and all-distinct
      labels; components ``rtol 1e-5``, gradients within ``GRAD_ATOL``
@@ -32,8 +41,8 @@ or the port is not beside the script.  Phases, each fatal on failure:
      cascade kernel's;
    * flash attention at Phi-3-mini's prefill (B=8, S=32, H=KV=32,
      hd=96), a long prefill (B=1, S=2048), GQA with a window (H=40,
-     KV=8, hd=128, S=1024, W=256) and bidirectional (B=64, H=12, hd=64,
-     S=32); decode attention at Phi-3-mini's decode step (B=8, L=64), a
+     KV=8, hd=128, S=1024, W=256), bidirectional (B=64, H=12, hd=64,
+     S=32) and a ragged prefill (B=3, S=77); decode attention at Phi-3-mini's decode step (B=8, L=64), a
      ring buffer (B=8, L=4096), GQA (H=40, KV=8, hd=128, L=32768) and
      MQA (KV=1); bf16 and fp32, outputs within ``ATTN_TOL``, timed
      beside ``F.scaled_dot_product_attention`` with the same mask (the
@@ -145,7 +154,8 @@ ATTN_TOL = {"float32": dict(atol=2e-5, rtol=1e-4),
 FLASH_SHAPES = (("phi3 prefill", 8, 32, 32, 32, 96, True, 0),
                 ("long prefill", 1, 32, 32, 2048, 96, True, 0),
                 ("gqa window", 1, 40, 8, 1024, 128, True, 256),
-                ("bidirectional", 64, 12, 12, 32, 64, False, 0))
+                ("bidirectional", 64, 12, 12, 32, 64, False, 0),
+                ("ragged prefill", 3, 32, 32, 77, 96, True, 0))
 # (name, B, H, KV, L, hd, cur, window): slot t holds the newest position
 # p <= cur with p % L == t; the step at position cur sees the filled
 # slots inside the window
@@ -194,6 +204,53 @@ def cuda_ms(fn, iters: int = 20, reps: int = 7) -> float:
         b.synchronize()
         out.append(a.elapsed_time(b) / iters)
     return statistics.median(out)
+
+
+def graph_ms(fn, iters: int = 20, reps: int = 7) -> float:
+    """Median per-call device time of ``iters`` calls of ``fn`` captured
+    in one CUDA graph and replayed: the device's time alone.  `cuda_ms`
+    times eager calls, which for a small kernel is the host's launch
+    rate (the wrapper's checks, allocations and ``ctypes`` call)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / iters)
+    del graph
+    return statistics.median(out)
+
+
+class forced:
+    """Within the block, ``module.name(...)`` returns ``value``: times a
+    kernel at a launch geometry its wrapper would not pick here, to show
+    that the one it picks is the faster."""
+
+    def __init__(self, module, name: str, value):
+        self.module, self.name, self.value = module, name, value
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.name)
+        setattr(self.module, self.name, lambda *a: self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
 
 
 # ---------------------------------------------------------------------------
@@ -545,17 +602,47 @@ def topk_phase(dev):
         for k in (1, 4):
             err = check(q, keys, valid, k, f"N={N} k={k}")
             out["max_abs_err"] = max(out["max_abs_err"], err)
-        ms = cuda_ms(lambda: ops.cosine_topk(q, keys, valid, 1))
-        plain = cuda_ms(lambda: ref.cosine_topk(q, keys, valid, 1), iters=5)
-        lib = cuda_ms(lambda: torch.topk(
-            torch.where(valid, q @ keys.T, -1e30), 1))
+        def kern():
+            return ops.cosine_topk(q, keys, valid, 1)
+
+        def plain():
+            return ref.cosine_topk(q, keys, valid, 1)
+
+        def library():
+            return torch.topk(torch.where(valid, q @ keys.T, -1e30), 1)
         bound, by = topk_bound_ms(Q, N, D, 1)
-        out["by_n"][N] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                              bound_ms=bound, bound_by=by)
+        row = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=5),
+                   library_ms=cuda_ms(library), bound_ms=bound, bound_by=by,
+                   graph_ms=graph_ms(kern),
+                   plain_graph_ms=graph_ms(plain, iters=5),
+                   library_graph_ms=graph_ms(library))
+        kernel = ops._kernel
+        row["key_tile"] = kernel.key_tile(
+            Q, N, torch.cuda.get_device_properties(dev).multi_processor_count,
+            kernel.query_tile())
+        row["graph_ms_by_key_tile"] = {}
+        for kt in kernel.KEY_TILES:
+            with forced(kernel, "key_tile", kt):
+                row["graph_ms_by_key_tile"][kt] = graph_ms(kern)
+        out["by_n"][N] = row
         print(f"  cosine_topk N={N}: indices equal, max |dscore| "
-              f"{out['max_abs_err']:.3g}; k=1: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, library {lib:.4f} ms, bound {bound:.4f} ms "
-              f"({by})")
+              f"{out['max_abs_err']:.3g}; k=1 eager: kernel {row['ms']:.4f} "
+              f"ms, plain {row['plain_ms']:.4f}, library "
+              f"{row['library_ms']:.4f}; graph: kernel "
+              f"{row['graph_ms']:.4f}, plain {row['plain_graph_ms']:.4f}, "
+              f"library {row['library_graph_ms']:.4f}; bound {bound:.4f} "
+              f"({by}); key tile {row['key_tile']} (graph ms by key tile "
+              f"{row['graph_ms_by_key_tile']})")
+    # ragged across the kernel's query tiles and key tiles
+    keys = unit(torch.randn(4099, D, generator=g, device=dev))
+    valid = torch.rand(4099, generator=g, device=dev) >= 0.25
+    q33 = unit(keys[-33:] + 0.05 * torch.randn(33, D, generator=g,
+                                                device=dev))
+    for k in (1, ops._kernel.max_k()):
+        err = check(q33, keys, valid, k, f"Q=33 N=4099 k={k}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+    print(f"  cosine_topk Q=33 N=4099 k in (1, {ops._kernel.max_k()}): "
+          "indices equal")
     keys = unit(torch.randn(256, D, generator=g, device=dev))
     check(q, keys, torch.zeros(256, dtype=torch.bool, device=dev), 4,
           "all-invalid")
@@ -1292,6 +1379,7 @@ def attention_kernel_phase(dev):
     import torch
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.flash_attention import kernel as fkern
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
     out = {"flash": {"max_abs_err": 0.0, "by_shape": {}},
@@ -1335,13 +1423,27 @@ def attention_kernel_phase(dev):
             bound, by = attention_bound_ms(n_bytes, 4.0 * hd * live * B * H)
             row = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=5),
                        library_ms=cuda_ms(library), bound_ms=bound,
-                       bound_by=by, max_abs_err=err)
+                       bound_by=by, max_abs_err=err,
+                       graph_ms=graph_ms(kern),
+                       plain_graph_ms=graph_ms(plain, iters=5),
+                       library_graph_ms=graph_ms(library))
+            if dtype == torch.bfloat16:
+                row["warps"] = fkern.warps(S)
+                row["graph_ms_by_warps"] = {}
+                for w in (2, 4):
+                    with forced(fkern, "warps", w):
+                        row["graph_ms_by_warps"][w] = graph_ms(kern)
             out["flash"]["by_shape"][tag] = row
             print(f"  flash_attention {tag} (B={B} S={S} H={H} KV={KV} "
                   f"hd={hd} causal={causal} W={window}): max |diff| "
-                  f"{err:.3g}; kernel {row['ms']:.4f} ms, plain "
-                  f"{row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}, "
-                  f"bound {bound:.4f} ({by})")
+                  f"{err:.3g}; eager: kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}; "
+                  f"graph: kernel {row['graph_ms']:.4f}, plain "
+                  f"{row['plain_graph_ms']:.4f}, SDPA "
+                  f"{row['library_graph_ms']:.4f}; bound {bound:.4f} ({by})"
+                  + (f"; {row['warps']} warps (graph ms by warps "
+                     f"{row['graph_ms_by_warps']})" if "warps" in row
+                     else ""))
     for i, (name, B, H, KV, L, hd, cur, window) in enumerate(DECODE_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, valid, library = decode_case(dev, B, H, KV, L, hd, cur,
@@ -1365,13 +1467,18 @@ def attention_kernel_phase(dev):
             bound, by = attention_bound_ms(n_bytes, 4.0 * hd * n_valid * H)
             row = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=5),
                        library_ms=cuda_ms(library), bound_ms=bound,
-                       bound_by=by, max_abs_err=err)
+                       bound_by=by, max_abs_err=err,
+                       graph_ms=graph_ms(kern),
+                       plain_graph_ms=graph_ms(plain, iters=5),
+                       library_graph_ms=graph_ms(library))
             out["decode"]["by_shape"][tag] = row
             print(f"  decode_attention {tag} (B={B} L={L} H={H} KV={KV} "
                   f"hd={hd}, {n_valid // B} valid slots a row): max |diff| "
-                  f"{err:.3g}; kernel {row['ms']:.4f} ms, plain "
-                  f"{row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}, "
-                  f"bound {bound:.4f} ({by})")
+                  f"{err:.3g}; eager: kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}; "
+                  f"graph: kernel {row['graph_ms']:.4f}, plain "
+                  f"{row['plain_graph_ms']:.4f}, SDPA "
+                  f"{row['library_graph_ms']:.4f}; bound {bound:.4f} ({by})")
     return out
 
 
@@ -1569,6 +1676,56 @@ def decode_forward_phase(dev, cfg) -> dict:
     return {"max_abs_err": max(errs), "positions": len(errs)}
 
 
+def sass_counts(lib: str) -> dict:
+    """{kernel function (mangled): {"HMMA": n, "FFMA": n}} in a built
+    library, from ``cuobjdump --dump-sass`` (beside ``nvcc``)."""
+    from repro_torch.kernels import _build
+    exe = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    res = subprocess.run([exe, "--dump-sass", lib], capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump on {lib}: {res.stderr.strip()}")
+    out, name = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            out[name] = {"HMMA": 0, "FFMA": 0}
+        elif name is not None:
+            for op in ("HMMA", "FFMA"):
+                out[name][op] += f" {op}" in line
+    return out
+
+
+def sass_phase(libs: dict) -> dict:
+    """The bf16 flash kernels run on the tensor cores, the float32 one and
+    cosine top-k on the FMA units: counted in the built SASS."""
+    fa = sass_counts(libs["flash_attention"])
+    bf16 = {n: c for n, c in fa.items() if "flash_attention_bf16_kernel" in n}
+    f32 = {n: c for n, c in fa.items() if "flash_attention_kernel" in n}
+    if not bf16 or any(c["HMMA"] == 0 for c in bf16.values()):
+        fail(f"flash_attention: a bf16 kernel without HMMA: {bf16}")
+    if not f32 or any(c["HMMA"] for c in f32.values()):
+        fail(f"flash_attention: the float32 kernel has HMMA: {f32}")
+    ct = sass_counts(libs["cosine_topk"])
+    part = {n: c for n, c in ct.items() if "cosine_topk_partial_kernel" in n}
+    if any(c["HMMA"] for c in ct.values()) or not part \
+            or any(c["FFMA"] == 0 for c in part.values()):
+        fail(f"cosine_topk: HMMA present or FFMA missing: {ct}")
+    out = {
+        "flash_attention": {
+            "bf16_kernels": len(bf16),
+            "bf16_HMMA": sum(c["HMMA"] for c in bf16.values()),
+            "f32_kernels": len(f32),
+            "f32_FFMA": sum(c["FFMA"] for c in f32.values()),
+            "f32_HMMA": 0},
+        "cosine_topk": {
+            "kernels": len(ct),
+            "FFMA": sum(c["FFMA"] for c in ct.values()), "HMMA": 0}}
+    print(f"  SASS: flash_attention {out['flash_attention']}; "
+          f"cosine_topk {out['cosine_topk']}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1599,9 +1756,11 @@ def main() -> int:
               "decode_attention": da_kernel.build}
     with ThreadPoolExecutor(len(builds)) as pool:
         futs = {n: pool.submit(b) for n, b in builds.items()}
-        for n, f in futs.items():
-            print(f"  {n}: {os.path.relpath(f.result(), ROOT)}")
+        libs = {n: str(f.result()) for n, f in futs.items()}
+    for n, lib in libs.items():
+        print(f"  {n}: {os.path.relpath(lib, ROOT)}")
     print(f"  built in {time.perf_counter() - t0:.1f} s")
+    sass = sass_phase(libs)
 
     print("phase 2: kernel parity (cascade and ensemble cascade at serving "
           "shapes, cosine top-k at flat-cache shapes, contrastive at "
@@ -1680,7 +1839,8 @@ def main() -> int:
         **tp["by_n"][n_flat],
         "at": f"Q=64 D=768 N={n_flat} k=1",
         "by_n": tp["by_n"], "flat_p50_ms": fl["p50_ms"],
-        "flat_hit_rate": fl["hit_rate"], "card": card,
+        "flat_hit_rate": fl["hit_rate"], "sass": sass["cosine_topk"],
+        "card": card,
     }, {
         "name": "contrastive_components", "route": "cuda",
         "source": "src/repro_torch/kernels/contrastive/csrc/contrastive.cu",
@@ -1748,7 +1908,8 @@ def main() -> int:
             "prefill_ms": gn["prefill_ms"], "decode_ms": gn["decode_ms"],
             "tokens_per_s": gn["tokens_per_s"],
             "llm_generate_p50_ms": ls["p50_ms"].get("generate"),
-            "llm_hit_rate": ls["hit_rate"], "card": card,
+            "llm_hit_rate": ls["hit_rate"], "sass": sass.get(name),
+            "card": card,
         })
     print(card)
     print(json.dumps({"kernels": kernels}))

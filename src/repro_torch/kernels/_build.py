@@ -1,29 +1,34 @@
 """Build and load of the port's hand-written CUDA kernels.
 
 Each kernel package keeps its source under ``csrc/``: CUDA C++ for
-Hopper (``sm_90a``) with a plain C interface.  `build` compiles one
-source with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
--Xcompiler -fPIC`` into a shared library keyed by a hash of the source
-and flags, under ``build/repro_torch/`` at the repository root; `load`
-opens it with ``ctypes`` once per process.  Nothing is built or loaded
-at import: the kernel modules import on a machine without ``nvcc`` or a
-card.
+Hopper (``sm_90a``) with a plain C interface.  Headers the sources share
+(the PTX wrappers) live in ``kernels/csrc/``, passed to ``nvcc`` with
+``-I``.  `build` compiles one source with ``nvcc -gencode
+arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`` into a
+shared library keyed by a hash of the source, every header it includes
+with quotes (recursively) and the flags, under ``build/repro_torch/`` at
+the repository root; `load` opens it with ``ctypes`` once per process.
+Nothing is built or loaded at import: the kernel modules import on a
+machine without ``nvcc`` or a card.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
+INCLUDE_DIR = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _LIBS: Dict[Path, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -39,10 +44,35 @@ def _nvcc() -> str:
                        "CUDA kernels cannot be built")
 
 
+def included_files(source: Path) -> List[Path]:
+    """``source`` and every file it includes with quotes, recursively,
+    found beside the including file or in `INCLUDE_DIR` (as ``nvcc``
+    looks for them); each once, in the order first met."""
+    seen: List[Path] = []
+    todo = [source.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _INCLUDE.findall(path.read_text()):
+            for base in (path.parent, INCLUDE_DIR):
+                cand = (base / name).resolve()
+                if cand.exists():
+                    todo.append(cand)
+                    break
+            else:
+                raise FileNotFoundError(f"{path.name} includes {name!r}, "
+                                        f"found neither beside it nor in "
+                                        f"{INCLUDE_DIR}")
+    return seen
+
+
 def library_path(source: Path) -> Path:
-    key = hashlib.sha256(source.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{source.stem}-{key[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in included_files(source):
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(source: Path) -> Path:
@@ -55,7 +85,7 @@ def build(source: Path) -> Path:
     out.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
+    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{INCLUDE_DIR}", "-o", tmp, str(source)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         os.unlink(tmp)

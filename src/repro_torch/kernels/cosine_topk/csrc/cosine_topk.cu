@@ -11,38 +11,71 @@
 // k-round argmax can return one masked index twice there; the port follows
 // the reference's plain version, which the flat store runs off the TPU.)
 //
-// Design.  On the TPU the corpus streams through VMEM block by block with a
-// running top-k carried across the sequential grid.  Here the grid is
-// (query tiles, splits of N): a block holds a tile of kQT query rows in
-// shared memory and walks its share of the key rows, one warp per key row.
-// A lane loads its slice of the row once (float4 when D % 4 == 0) and
-// multiplies it into all kQT queries, so a key row is read once per query
-// tile, not once per query; the kQT dot products are reduced by shuffles
-// and lane j keeps query j's running top-k in registers.  The block merges
-// its warps' lists in shared memory and writes one partial list per
-// (query, split); a second launch merges the splits.  Splitting N keeps
-// several blocks per SM busy at the serving batch (Q = 64 is 8 tiles).
-// Arithmetic is fp32 FMA: no TF32, no bf16, no MMA.
+// Design: a register-tiled float32 GEMM with the top-k fused.  On the TPU
+// the corpus streams through VMEM block by block with a running top-k
+// carried across the sequential grid.  Here the grid is (query tiles of
+// kBQ = 64, splits of N); a block walks its split in key tiles of 8 TN
+// rows (32, or 64 for panels large enough to fill the card with fewer,
+// longer blocks: the wrapper picks).  Each tile's score block is computed
+// by kGroups groups of 128 threads, each thread holding a 4 x TN register
+// patch (queries ty + 16 i, keys tx + 8 j), the groups splitting every
+// chunk of kDC columns of D between them (a split-K inside the block, for
+// twice the warps at the flat cache's 4096 rows).  Each chunk's q slice
+// and key slice are staged in shared memory with cp.async, 2 or 3 deep,
+// so the copies of the next chunks are in flight while this one is
+// multiplied; (4 + TN) 16-byte shared loads feed 16 TN FMAs.  Rows are
+// padded to an odd count of 16-byte chunks, so the key loads are free of
+// bank conflicts and the query loads are broadcasts.  Ragged Q, N and D
+// are zero-filled by the copies (src-size 0) and masked.  After each key
+// tile the groups' partial scores meet in shared memory, and kFold threads
+// per query fold them into that query's register top-k, keyed (score
+// desc, index asc); at the end the block merges its kFold lists per query
+// and writes one partial list per (query, split).  A second launch, one
+// warp per query, merges the splits.  Arithmetic is float32 FMA: no TF32, no
+// bf16, no MMA (the flat cache's threshold sits in the 4th decimal).
 //
 // Bound.  One lookup reads the keys once (N D 4 bytes) and does 2 Q N D
-// flops; at Q = 64, D = 768 that is 96 flops per byte, above the fp32
-// balance of the card (67 TFLOP/s over 3.35 TB/s = 20), so the fp32 rate
-// bounds it.  What this simple design leaves on the table: each key element
-// is multiplied by query values read from shared memory (one 4-byte shared
-// load per FMA), so shared-memory bandwidth, not the FMA units, caps it; a
-// register-tiled outer product (several keys per lane) is the next step.
+// flops; at Q = 64, D = 768 that is ~32 flops per byte, above the float32
+// balance of the card (67 TFLOP/s over 3.35 TB/s = 20), so the float32
+// FMA rate bounds it.  On this card the kernel reaches about 45 % of that
+// rate at N = 65536: the query tile is re-read from L2 for every key tile
+// (the key tile trades that traffic against the number of blocks at N =
+// 4096), and at N = 4096 the merge is a second launch.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kQT = 8;               // query rows per block
+constexpr int kBQ = 64;               // query rows per block
+constexpr int kGroups = 2;            // thread groups sharing each D chunk
+constexpr int kGroupThreads = 128;    // 16 (queries) x 8 (keys) patches
+constexpr int kThreads = kGroups * kGroupThreads;      // 256
+constexpr int kDG = 32;               // D columns per group per chunk
+constexpr int kDC = kGroups * kDG;    // D columns per chunk
+constexpr int kPitch = kDC + 4;       // floats per staged row (17 x 16 B)
+constexpr int kFold = kThreads / kBQ; // threads folding one query's scores
 constexpr float kNeg = -1e30f;
 constexpr int kPosPad = 0x7fffffff;
+
+// A thread's patch is 4 queries (ty + 16 i) x TN keys (tx + 8 j), so a
+// key tile is 8 TN rows: 32 at TN = 4 (more blocks, for the flat cache's
+// 4096 rows) or 64 at TN = 8 (half the re-reads of the query tile from
+// L2, and 12 shared loads per 128 FMAs, for large panels).
+template <int TN>
+struct Tile {
+  static constexpr int kBN = 8 * TN;                  // key rows per tile
+  static constexpr int kStages = TN == 4 ? 3 : 2;     // cp.async depth
+  static constexpr int kStageFloats = (kBQ + kBN) * kPitch;
+  static constexpr int kSPitch = kBN + 1;             // score-plane row
+  static constexpr int kPlaneFloats = kBQ * kSPitch;
+  static constexpr size_t kSmemBytes =
+      sizeof(float) * (kStages * kStageFloats + kGroups * kPlaneFloats);
+  static_assert(kBN % kFold == 0, "each fold thread takes kBN / kFold keys");
+};
 
 __device__ __forceinline__ bool better(float s1, int p1, float s2, int p2) {
   return s1 > s2 || (s1 == s2 && p1 < p2);
@@ -71,96 +104,172 @@ struct TopK {
       }
     }
   }
+
+  // drop the head (the best entry)
+  __device__ __forceinline__ void pop() {
+#pragma unroll
+    for (int i = 0; i + 1 < KM; ++i) {
+      s[i] = s[i + 1];
+      p[i] = p[i + 1];
+    }
+    s[KM - 1] = -CUDART_INF_F;
+    p[KM - 1] = kPosPad;
+  }
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <int KM>
-__global__ void __launch_bounds__(kThreads)
+template <int KM, int TN, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
 cosine_topk_partial_kernel(const float* __restrict__ q,
                            const float* __restrict__ keys,
                            const uint8_t* __restrict__ valid, int Q, int N,
-                           int D, int k, int vec4, int rows_per_split,
+                           int D, int k, int rows_per_split,
                            float* __restrict__ part_s,
                            int* __restrict__ part_i) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int Dp = (D + 3) & ~3;
-  float* qs = reinterpret_cast<float*>(smem);                 // kQT * Dp
-  float* ws = qs + kQT * Dp;                                  // lists
-  int* wi = reinterpret_cast<int*>(ws + kWarps * kQT * KM);
+  using T = Tile<TN>;
+  constexpr int kBN = T::kBN;
+  constexpr int kStages = T::kStages;
+  extern __shared__ __align__(16) float smem[];
+  float* planes = smem + kStages * T::kStageFloats;   // kGroups planes
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int q0 = blockIdx.x * kQT;
+  const int tid = threadIdx.x;
+  const int grp = tid / kGroupThreads;
+  const int gt = tid - grp * kGroupThreads;
+  const int tx = gt & 7;              // keys tx + 8 j
+  const int ty = gt >> 3;             // queries ty + 16 i
+  const int fq = tid / kFold;         // fold: query fq, keys fs + kFold m
+  const int fs = tid - fq * kFold;
+  const int q0 = blockIdx.x * kBQ;
   const int split = blockIdx.y;
   const int S = gridDim.y;
   const int r0 = split * rows_per_split;
   const int r1 = min(N, r0 + rows_per_split);
+  const int n_tiles = r1 > r0 ? (r1 - r0 + kBN - 1) / kBN : 0;
+  const int n_chunks = max(1, (D + kDC - 1) / kDC);   // D = 0: zeros
+  const int n_steps = n_tiles * n_chunks;
 
-  for (int i = threadIdx.x; i < kQT * Dp; i += kThreads) {
-    const int j = i / Dp, d = i - j * Dp;
-    qs[i] = (q0 + j < Q && d < D) ? q[(size_t)(q0 + j) * D + d] : 0.f;
-  }
-  __syncthreads();
+  // stage step `it` (key tile it / n_chunks, D chunk it % n_chunks): rows
+  // 0..kBQ-1 the query slice, then kBN key rows; zeros past Q, r1 and D
+  auto load = [&](int it) {
+    const int t = it / n_chunks;
+    const int d0 = (it - t * n_chunks) * kDC;
+    const int kr0 = r0 + t * kBN;
+    float* st = smem + (it % kStages) * T::kStageFloats;
+    if (VEC) {
+      constexpr int kC4 = kDC / 4;
+      for (int i = tid; i < (kBQ + kBN) * kC4; i += kThreads) {
+        const int r = i / kC4, c = i - r * kC4;
+        const int d = d0 + c * 4;
+        const bool isq = r < kBQ;
+        const int row = isq ? q0 + r : kr0 + r - kBQ;
+        const bool in = d < D && row < (isq ? Q : r1);
+        const float* src = isq ? q : keys;
+        ptx::cp_async_16(st + r * kPitch + c * 4,
+                         src + (in ? (size_t)row * D + d : 0), in);
+      }
+    } else {
+      for (int i = tid; i < (kBQ + kBN) * kDC; i += kThreads) {
+        const int r = i / kDC, c = i - r * kDC;
+        const int d = d0 + c;
+        const bool isq = r < kBQ;
+        const int row = isq ? q0 + r : kr0 + r - kBQ;
+        const bool in = d < D && row < (isq ? Q : r1);
+        const float* src = isq ? q : keys;
+        ptx::cp_async_4(st + r * kPitch + c,
+                        src + (in ? (size_t)row * D + d : 0), in);
+      }
+    }
+    ptx::cp_async_commit();
+  };
 
   TopK<KM> top;
   top.init();
-  for (int r = r0 + warp; r < r1; r += kWarps) {
-    float acc[kQT];
+  float acc[4][TN];
+
+  for (int it = 0; it < kStages - 1 && it < n_steps; ++it) load(it);
+  for (int it = 0; it < n_steps; ++it) {
+    if (it + kStages - 1 < n_steps) {
+      load(it + kStages - 1);
+      ptx::cp_async_wait<kStages - 1>();
+    } else if (kStages > 2 && it + 1 < n_steps) {
+      ptx::cp_async_wait<1>();
+    } else {
+      ptx::cp_async_wait<0>();
+    }
+    __syncthreads();                  // step it landed for every thread
+    const int t = it / n_chunks;
+    const int c = it - t * n_chunks;
+    if (c == 0) {
 #pragma unroll
-    for (int j = 0; j < kQT; ++j) acc[j] = 0.f;
-    if (vec4) {
-      const float4* k4 = reinterpret_cast<const float4*>(keys) +
-                         (size_t)r * (D >> 2);
-      const float4* q4 = reinterpret_cast<const float4*>(qs);
-      for (int c = lane; c < (D >> 2); c += 32) {
-        const float4 kv = __ldg(k4 + c);
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < kQT; ++j) {
-          const float4 qv = q4[j * (Dp >> 2) + c];
-          acc[j] = fmaf(qv.x, kv.x, acc[j]);
-          acc[j] = fmaf(qv.y, kv.y, acc[j]);
-          acc[j] = fmaf(qv.z, kv.z, acc[j]);
-          acc[j] = fmaf(qv.w, kv.w, acc[j]);
+        for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    }
+    const float* qs = smem + (it % kStages) * T::kStageFloats + grp * kDG;
+    const float* ks = qs + kBQ * kPitch;
+#pragma unroll
+    for (int d = 0; d < kDG; d += 4) {
+      float4 a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * kPitch +
+                                                d);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float4 b =
+            *reinterpret_cast<const float4*>(ks + (tx + 8 * j) * kPitch + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+          acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+          acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+          acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
         }
       }
-    } else {
-      const float* kr = keys + (size_t)r * D;
-      for (int d = lane; d < D; d += 32) {
-        const float kv = __ldg(kr + d);
+    }
+    if (c == n_chunks - 1) {
+      // the tile's scores: both groups' partial sums meet in the planes,
+      // then each query's kFold threads fold its kBN scores
+      float* pl = planes + grp * T::kPlaneFloats;
 #pragma unroll
-        for (int j = 0; j < kQT; ++j) acc[j] = fmaf(qs[j * Dp + d], kv, acc[j]);
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          pl[(ty + 16 * i) * T::kSPitch + tx + 8 * j] = acc[i][j];
+      __syncthreads();
+      const int kr0 = r0 + t * kBN;
+#pragma unroll
+      for (int m = 0; m < kBN / kFold; ++m) {
+        const int key = fs + kFold * m;
+        const int r = kr0 + key;
+        if (r < r1) {
+          float sc = planes[fq * T::kSPitch + key];
+#pragma unroll
+          for (int gg = 1; gg < kGroups; ++gg)
+            sc += planes[gg * T::kPlaneFloats + fq * T::kSPitch + key];
+          top.push(valid[r] ? sc : kNeg, r, k);
+        }
       }
     }
-    float mine = 0.f;
-#pragma unroll
-    for (int j = 0; j < kQT; ++j) {
-      const float s = warp_sum(acc[j]);
-      if (lane == j) mine = s;
-    }
-    top.push(valid[r] ? mine : kNeg, r, k);     // lane j: query q0 + j
-  }
+    __syncthreads();                  // stage it % kStages and the planes
+  }                                   // are free again
 
-  if (lane < kQT) {
+  // the kFold lists of each query, through the (now idle) stage buffers
+  float* ls = smem;
+  int* li = reinterpret_cast<int*>(smem + kBQ * kFold * KM);
 #pragma unroll
-    for (int i = 0; i < KM; ++i) {
-      ws[(warp * kQT + lane) * KM + i] = top.s[i];
-      wi[(warp * kQT + lane) * KM + i] = top.p[i];
-    }
+  for (int i = 0; i < KM; ++i) {
+    ls[tid * KM + i] = top.s[i];
+    li[tid * KM + i] = top.p[i];
   }
   __syncthreads();
-  if (threadIdx.x < kQT && q0 + threadIdx.x < Q) {
-    const int j = threadIdx.x;
+  if (tid < kBQ && q0 + tid < Q) {
     TopK<KM> all;
     all.init();
-    for (int w = 0; w < kWarps; ++w)
+    for (int f = 0; f < kFold; ++f)
       for (int i = 0; i < k; ++i)
-        all.push(ws[(w * kQT + j) * KM + i], wi[(w * kQT + j) * KM + i], k);
-    const size_t base = ((size_t)(q0 + j) * S + split) * k;
+        all.push(ls[(tid * kFold + f) * KM + i],
+                 li[(tid * kFold + f) * KM + i], k);
+    const size_t base = ((size_t)(q0 + tid) * S + split) * k;
     for (int i = 0; i < k; ++i) {
       part_s[base + i] = all.s[i];
       part_i[base + i] = all.p[i];
@@ -168,39 +277,89 @@ cosine_topk_partial_kernel(const float* __restrict__ q,
   }
 }
 
-// One thread per query row: merge its S partial lists of k.
+// One warp per query row: each lane keeps a top-k of its share of the S
+// partial lists, then k rounds of a warp-wide (score, index) argmax over
+// the lanes' heads, the winning lane dropping its head.  Indices are
+// distinct across splits, so exactly one lane holds each winner.
 template <int KM>
 __global__ void cosine_topk_merge_kernel(const float* __restrict__ part_s,
                                          const int* __restrict__ part_i,
                                          int Q, int S, int k,
                                          float* __restrict__ out_s,
                                          int* __restrict__ out_i) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= Q) return;
-  TopK<KM> all;
-  all.init();
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= Q) return;               // the whole warp
+  TopK<KM> mine;
+  mine.init();
   const size_t base = (size_t)row * S * k;
-  for (int c = 0; c < S * k; ++c) all.push(part_s[base + c], part_i[base + c],
-                                          k);
+  for (int c = lane; c < S * k; c += 32)
+    mine.push(part_s[base + c], part_i[base + c], k);
   for (int i = 0; i < k; ++i) {
-    out_s[(size_t)row * k + i] = all.s[i];
-    out_i[(size_t)row * k + i] = all.p[i];
+    float bs = mine.s[0];
+    int bp = mine.p[0];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float os = __shfl_xor_sync(0xffffffffu, bs, o);
+      const int op = __shfl_xor_sync(0xffffffffu, bp, o);
+      if (better(os, op, bs, bp)) {
+        bs = os;
+        bp = op;
+      }
+    }
+    if (mine.p[0] == bp) mine.pop();
+    if (lane == 0) {
+      out_s[(size_t)row * k + i] = bs;
+      out_i[(size_t)row * k + i] = bp;
+    }
   }
+}
+
+constexpr int kMergeThreads = 128;    // 4 query rows per block
+
+template <int KM, int TN, bool VEC>
+cudaError_t launch_partial(const float* q, const float* keys,
+                           const uint8_t* valid, int Q, int N, int D, int k,
+                           int S, int rows_per_split, float* part_s,
+                           int* part_i, cudaStream_t stream) {
+  auto kern = cosine_topk_partial_kernel<KM, TN, VEC>;
+  constexpr size_t smem = Tile<TN>::kSmemBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Q + kBQ - 1) / kBQ, S);
+  kern<<<grid, kThreads, smem, stream>>>(q, keys, valid, Q, N, D, k,
+                                         rows_per_split, part_s, part_i);
+  return cudaGetLastError();
 }
 
 template <int KM>
 cudaError_t launch(const float* q, const float* keys, const uint8_t* valid,
-                   int Q, int N, int D, int k, int vec4, int S,
-                   float* part_s, int* part_i, float* out_s, int* out_i,
-                   size_t smem, cudaStream_t stream) {
-  const int rows_per_split = (N + S - 1) / S;
-  dim3 grid((Q + kQT - 1) / kQT, S);
-  cosine_topk_partial_kernel<KM><<<grid, kThreads, smem, stream>>>(
-      q, keys, valid, Q, N, D, k, vec4, rows_per_split, part_s, part_i);
-  cudaError_t err = cudaGetLastError();
+                   int Q, int N, int D, int k, int vec4, int key_tile, int S,
+                   int rows_per_split, float* part_s, int* part_i,
+                   float* out_s, int* out_i, cudaStream_t stream) {
+  cudaError_t err;
+  if (key_tile == 32)
+    err = vec4 ? launch_partial<KM, 4, true>(q, keys, valid, Q, N, D, k, S,
+                                             rows_per_split, part_s, part_i,
+                                             stream)
+               : launch_partial<KM, 4, false>(q, keys, valid, Q, N, D, k, S,
+                                              rows_per_split, part_s, part_i,
+                                              stream);
+  else if (key_tile == 64)
+    err = vec4 ? launch_partial<KM, 8, true>(q, keys, valid, Q, N, D, k, S,
+                                             rows_per_split, part_s, part_i,
+                                             stream)
+               : launch_partial<KM, 8, false>(q, keys, valid, Q, N, D, k, S,
+                                              rows_per_split, part_s, part_i,
+                                              stream);
+  else
+    return cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;
-  cosine_topk_merge_kernel<KM><<<(Q + 127) / 128, 128, 0, stream>>>(
-      part_s, part_i, Q, S, k, out_s, out_i);
+  const int rows_per_block = kMergeThreads / 32;
+  cosine_topk_merge_kernel<KM>
+      <<<(Q + rows_per_block - 1) / rows_per_block, kMergeThreads, 0,
+         stream>>>(part_s, part_i, Q, S, k, out_s, out_i);
   return cudaGetLastError();
 }
 
@@ -211,32 +370,33 @@ extern "C" {
 // Largest k the kernel takes (the wrapper refuses more).
 int cosine_topk_max_k() { return 16; }
 
-// Query rows per block (the wrapper sizes the split count with it).
-int cosine_topk_query_tile() { return kQT; }
+// Query rows per block of the partial pass (the wrapper sizes the splits
+// of N with it and with the key tile it picks, 32 or 64 rows).
+int cosine_topk_query_tile() { return kBQ; }
 
-// Shared memory bytes one block of the partial pass needs.
-size_t cosine_topk_smem_bytes(int D, int k) {
-  const int KM = k <= 1 ? 1 : k <= 4 ? 4 : k <= 8 ? 8 : 16;
-  return sizeof(float) * kQT * ((D + 3) & ~3) + 8u * kWarps * kQT * KM;
-}
-
-// Two launches on `stream`: the partial top-k of every (query tile, split)
-// into part_s/part_i (Q * S * k each), then the merge into out_s/out_i
-// (Q * k each).  Returns cudaGetLastError() after them (0 = launched).
+// Two launches on `stream`: the partial top-k of every (query tile, split
+// of rows_per_split key rows, a multiple of key_tile) into part_s/part_i
+// (Q * S * k each), then the merge into out_s/out_i (Q * k each).  vec4:
+// q and keys 16-byte aligned with D % 4 == 0 (16-byte copies; else 4-byte
+// ones).  Returns cudaGetLastError() after them (0 = launched), or
+// cudaErrorInvalidValue for a key tile other than 32 or 64.
 int cosine_topk_launch(const float* q, const float* keys,
                        const uint8_t* valid, int Q, int N, int D, int k,
-                       int vec4, int S, float* part_s, int* part_i,
-                       float* out_s, int* out_i, void* stream) {
-  const size_t smem = cosine_topk_smem_bytes(D, k);
+                       int vec4, int key_tile, int S, int rows_per_split,
+                       float* part_s, int* part_i, float* out_s, int* out_i,
+                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= 1) return launch<1>(q, keys, valid, Q, N, D, k, vec4, S, part_s,
-                               part_i, out_s, out_i, smem, s);
-  if (k <= 4) return launch<4>(q, keys, valid, Q, N, D, k, vec4, S, part_s,
-                               part_i, out_s, out_i, smem, s);
-  if (k <= 8) return launch<8>(q, keys, valid, Q, N, D, k, vec4, S, part_s,
-                               part_i, out_s, out_i, smem, s);
-  return launch<16>(q, keys, valid, Q, N, D, k, vec4, S, part_s, part_i,
-                    out_s, out_i, smem, s);
+  if (k <= 1) return launch<1>(q, keys, valid, Q, N, D, k, vec4, key_tile, S,
+                               rows_per_split, part_s, part_i, out_s, out_i,
+                               s);
+  if (k <= 4) return launch<4>(q, keys, valid, Q, N, D, k, vec4, key_tile, S,
+                               rows_per_split, part_s, part_i, out_s, out_i,
+                               s);
+  if (k <= 8) return launch<8>(q, keys, valid, Q, N, D, k, vec4, key_tile, S,
+                               rows_per_split, part_s, part_i, out_s, out_i,
+                               s);
+  return launch<16>(q, keys, valid, Q, N, D, k, vec4, key_tile, S,
+                    rows_per_split, part_s, part_i, out_s, out_i, s);
 }
 
 }  // extern "C"

@@ -18,9 +18,8 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "cosine_topk.cu"
-MAX_SMEM = 48 * 1024
-BLOCKS_PER_SM = 4          # blocks of the partial pass to aim for per SM
-MIN_ROWS_PER_SPLIT = 64
+BLOCKS_PER_SM = 2          # partial-pass blocks resident per SM (smem)
+KEY_TILES = (32, 64)       # key rows per tile the kernel is built for
 
 COUNTS = {"cosine_topk": 0}
 
@@ -30,14 +29,11 @@ _I = ctypes.c_int
 
 def _declare(lib: ctypes.CDLL) -> None:
     lib.cosine_topk_launch.argtypes = [
-        _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
     lib.cosine_topk_launch.restype = ctypes.c_int
-    lib.cosine_topk_smem_bytes.argtypes = [_I, _I]
-    lib.cosine_topk_smem_bytes.restype = ctypes.c_size_t
-    lib.cosine_topk_max_k.argtypes = []
-    lib.cosine_topk_max_k.restype = ctypes.c_int
-    lib.cosine_topk_query_tile.argtypes = []
-    lib.cosine_topk_query_tile.restype = ctypes.c_int
+    for fn in (lib.cosine_topk_max_k, lib.cosine_topk_query_tile):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
 
 
 def build() -> Path:
@@ -54,13 +50,28 @@ def max_k() -> int:
     return int(_lib().cosine_topk_max_k())
 
 
-def splits(Q: int, N: int, n_sm: int, tile: int) -> int:
-    """How many blocks share one query tile's key rows: enough for
-    ``BLOCKS_PER_SM`` blocks per SM, at least ``MIN_ROWS_PER_SPLIT`` rows
-    each."""
-    tiles = -(-Q // tile)
-    want = -(-BLOCKS_PER_SM * n_sm // tiles)
-    return max(1, min(want, -(-N // MIN_ROWS_PER_SPLIT)))
+def query_tile() -> int:
+    """Query rows per block of the partial pass."""
+    return int(_lib().cosine_topk_query_tile())
+
+
+def key_tile(Q: int, N: int, n_sm: int, q_tile: int) -> int:
+    """Key rows per tile: 64 (half the query-tile re-reads) when the
+    panel has enough 64-row tiles for ``BLOCKS_PER_SM`` blocks per SM,
+    else 32 (twice the blocks: the flat cache's 4096 rows)."""
+    want = -(-BLOCKS_PER_SM * n_sm // -(-Q // q_tile))
+    return KEY_TILES[1] if -(-N // KEY_TILES[1]) >= want else KEY_TILES[0]
+
+
+def splits(Q: int, N: int, n_sm: int, q_tile: int, k_tile: int):
+    """(S, rows): how many blocks share one query tile's N key rows, and
+    the rows each takes — a whole number of ``k_tile`` key tiles, as few
+    as give ``BLOCKS_PER_SM`` blocks per SM, every split non-empty."""
+    q_tiles = -(-Q // q_tile)
+    key_tiles = -(-N // k_tile)
+    want = max(1, -(-BLOCKS_PER_SM * n_sm // q_tiles))
+    rows = k_tile * -(-key_tiles // min(key_tiles, want))
+    return -(-N // rows), rows
 
 
 def launch(q, keys, valid, k: int):
@@ -73,22 +84,20 @@ def launch(q, keys, valid, k: int):
     Q, D = q.shape
     N = keys.shape[0]
     dev = q.device
-    smem = lib.cosine_topk_smem_bytes(D, k)
-    if smem > MAX_SMEM:
-        raise ValueError(f"cosine_topk needs {smem} B of shared memory "
-                         f"(D={D}, k={k}); at most {MAX_SMEM} B supported")
     out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0:
         return out_s, out_i
-    S = splits(Q, N, torch.cuda.get_device_properties(dev)
-               .multi_processor_count, lib.cosine_topk_query_tile())
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    kt = key_tile(Q, N, n_sm, query_tile())
+    S, rows = splits(Q, N, n_sm, query_tile(), kt)
     part_s = torch.empty((Q, S, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((Q, S, k), dtype=torch.int32, device=dev)
-    vec4 = D % 4 == 0 and keys.data_ptr() % 16 == 0
+    vec4 = D % 4 == 0 and q.data_ptr() % 16 == 0 \
+        and keys.data_ptr() % 16 == 0
     err = lib.cosine_topk_launch(
         q.data_ptr(), keys.data_ptr(), valid.data_ptr(), Q, N, D, k,
-        int(vec4), S, part_s.data_ptr(), part_i.data_ptr(),
+        int(vec4), kt, S, rows, part_s.data_ptr(), part_i.data_ptr(),
         out_s.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -7,7 +7,8 @@ and loaded with ``ctypes``; nothing is built or loaded at import.
 The kernel reads and writes through element strides, so `launch` takes
 (B, H, S, hd) *views* of any layout whose last axis is contiguous: the
 model's (B, S, H, hd) tensors go in as ``x.transpose(1, 2)``, with no
-copy.
+copy.  bfloat16 runs on the tensor cores in blocks of `warps` warps of
+16 query rows each; float32 on the FMA kernel (64 query rows a block).
 
 ``COUNTS["flash_attention"]`` counts launches: `launch` adds one where
 it launches the kernel, and nowhere else.
@@ -24,6 +25,7 @@ from repro_torch.kernels import _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (32, 64, 96, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ALIGN = 16                 # bytes: the bf16 kernel's cp.async copies
 
 COUNTS = {"flash_attention": 0}
 
@@ -36,7 +38,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_launch.argtypes = [
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
         _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-        _I, _I, ctypes.c_float, _P]
+        _I, _I, ctypes.c_float, _I, _P]
     lib.flash_attention_launch.restype = ctypes.c_int
 
 
@@ -48,6 +50,12 @@ def build() -> Path:
 
 def _lib() -> ctypes.CDLL:
     return _build.load(SOURCE, _declare)
+
+
+def warps(Sq: int) -> int:
+    """Warps (16 query rows each) per block of the bf16 kernel: 2 when
+    the sequence fits 32 rows (the decoder's prefill), else 4."""
+    return 2 if Sq <= 32 else 4
 
 
 def launch(q, k, v, out, *, causal: bool, window: int, scale: float):
@@ -65,7 +73,8 @@ def launch(q, k, v, out, *, causal: bool, window: int, scale: float):
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV,
         Sq, Skv, hd, DTYPES[q.dtype], *strides, int(causal), int(window),
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        float(scale), warps(Sq),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -4,9 +4,12 @@ Tensors on the CPU go to the plain torch version (`ref.py`); tensors on
 a card go to the hand-written CUDA kernel (`kernel.py`) or raise — there
 is no fallback from the card.  The kernel takes float32 or bfloat16,
 head widths 32, 64, 96 and 128, and any layout whose head axis is
-contiguous: the (B, S, H, hd) tensors are read in place.  It refuses a
-window that leaves some query row with no key in reach (Sq >= Skv + W),
-where the plain version averages v over every key.
+contiguous: the (B, S, H, hd) tensors are read in place.  bfloat16
+tensors also need 16-byte aligned base pointers and (b, s, h) strides
+(its tensor-core kernel copies rows with 16-byte ``cp.async``); the
+model's separate q, k and v projections are.  It refuses a window that
+leaves some query row with no key in reach (Sq >= Skv + W), where the
+plain version averages v over every key.
 """
 from __future__ import annotations
 
@@ -57,6 +60,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                              f"{q.dtype} on {dev}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head axis is not contiguous")
+        es = t.element_size()
+        if t.dtype == torch.bfloat16 and (
+                t.data_ptr() % _kernel.ALIGN
+                or any(st * es % _kernel.ALIGN for st, n in
+                       zip(t.stride()[:3], t.shape[:3]) if n > 1)):
+            raise ValueError(
+                f"{name} (bfloat16) is not {_kernel.ALIGN}-byte aligned: "
+                f"base pointer {t.data_ptr()} and strides "
+                f"{tuple(t.stride()[:3])} (elements) must be multiples of "
+                f"{_kernel.ALIGN} bytes")
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
     _kernel.launch(qt, kt, vt, out.transpose(1, 2), causal=causal,
                    window=window, scale=scale)

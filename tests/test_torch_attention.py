@@ -12,6 +12,12 @@ decoder's use of them.
   decode; both round where the reference's model rounds, so they agree
   to bf16's last place (``atol 1e-2, rtol 1e-2``: one bf16 step is
   2^-7 of the value).
+* The bf16 flash kernel's numerics in plain torch (q, k, v in bf16,
+  float32 scores and sums, the softmax weights rounded to bf16 before
+  P V, as its tensor cores take them) against the float32-weight plain
+  version, at ``chip_smoke.py``'s flash shapes scaled down: within its
+  ``ATTN_TOL["bfloat16"]`` (each weight moves by at most 2^-9 of itself,
+  so an output by at most ~2^-9 max|v|).
 * A fully masked decode row against the reference's plain version (a
   mean over all slots), not its Pallas kernel (which also weighs in its
   padding).
@@ -19,6 +25,9 @@ decoder's use of them.
   reference's ``_mask_logits`` applies, on caches both filled by their
   own prefill and decode steps, with a ring buffer and a window.
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,6 +53,10 @@ from repro_torch.models.attention import decode_mask
 
 F32 = dict(atol=2e-5, rtol=1e-4)
 BF16_LAST = dict(atol=1e-2, rtol=1e-2)
+_SMOKE = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_SMOKE)
+_SMOKE.loader.exec_module(chip_smoke)
 
 
 def _t(x):
@@ -94,6 +107,45 @@ def test_flash_attention_bf16():
     for want in (want_ref, want_kernel):
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(want, np.float32), atol=3e-2)
+
+
+def _flash_bf16_weights(q, k, v, *, causal, window, scale):
+    """What the bf16 tensor-core kernel computes, in plain torch: q, k, v
+    (B, H|KV, S, hd) as bf16, float32 scores times ``scale``, weights
+    exp(s - row max) rounded to bf16 for P V, float32 row sums."""
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    qg = q.bfloat16().float().reshape(B, KV, H // KV, Sq, hd)
+    s = torch.einsum("bkgqh,bksh->bkgqs", qg, k.bfloat16().float()) * scale
+    ok = fa_ref.position_mask(Sq, Skv, causal=causal, window=window)
+    s = torch.where(ok, s, fa_ref.NEG_INF)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bkgqs,bksh->bkgqh", e.bfloat16().float(),
+                     v.bfloat16().float()) / e.sum(-1, keepdim=True)
+    return o.reshape(B, H, Sq, hd).bfloat16()
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window", [
+    (2, 4, 4, 32, 96, True, 0),      # Phi-3-mini prefill (B=8, H=32)
+    (1, 4, 4, 256, 96, True, 0),     # long prefill (S=2048)
+    (1, 5, 1, 256, 128, True, 64),   # GQA window (H=40, KV=8, S=1024, W=256)
+    (4, 3, 3, 32, 64, False, 0),     # bidirectional (B=64, H=12)
+    (1, 4, 4, 77, 96, True, 0),      # ragged (B=3, S=77, H=32)
+])
+def test_bf16_softmax_weights_stay_within_the_bf16_tolerance(
+        B, H, KV, S, hd, causal, window):
+    rng = np.random.default_rng(S + hd + H)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+               .bfloat16() for s in ((B, H, S, hd), (B, KV, S, hd),
+                                     (B, KV, S, hd)))
+    kw = dict(causal=causal, window=window)
+    want = fa_ref.flash_attention(q, k, v, **kw)
+    got = _flash_bf16_weights(q, k, v, scale=hd ** -0.5, **kw)
+    tol = chip_smoke.ATTN_TOL["bfloat16"]
+    err = (got.float() - want.float()).abs()
+    assert (err <= tol["atol"] + tol["rtol"] * want.float().abs()).all(), \
+        float(err.max())
+    assert float(err.max()) > 0         # the rounding is there to see
 
 
 @pytest.mark.parametrize("B,H,KV,L,hd,bl", [

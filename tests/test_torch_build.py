@@ -1,0 +1,114 @@
+"""The port's kernel build and launch geometry, on the CPU (no nvcc, no
+card: nothing is compiled here).
+
+* `_build.library_path` keys a library by its source, every header the
+  source includes with quotes (the shared PTX wrappers in
+  ``kernels/csrc/``) and the flags, so an edited header never loads a
+  stale library; a missing header is an error, not a silent key.
+* The cosine top-k kernel's splits of N cover every key row with
+  non-empty splits of whole key tiles.
+* The flash kernel's bf16 block size (2 warps of 16 query rows up to
+  Sq = 32, else 4).
+"""
+import pytest
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.cosine_topk import kernel as ct_kernel
+from repro_torch.kernels.cosine_topk.kernel import SOURCE as CT_SOURCE
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+PTX = _build.INCLUDE_DIR / "ptx.cuh"
+
+
+@pytest.fixture
+def tree(tmp_path, monkeypatch):
+    """A source including ``common.cuh`` from a private include
+    directory, which itself includes ``leaf.cuh`` beside it."""
+    inc = tmp_path / "include"
+    inc.mkdir()
+    (inc / "common.cuh").write_text('#pragma once\n#include "leaf.cuh"\n')
+    (inc / "leaf.cuh").write_text("// leaf v1\n")
+    src = tmp_path / "kern" / "kern.cu"
+    src.parent.mkdir()
+    src.write_text('#include <stdint.h>\n  #include "common.cuh"\n'
+                   '// #include "not_a_file.cuh" is only a comment\n')
+    monkeypatch.setattr(_build, "INCLUDE_DIR", inc)
+    return src, inc
+
+
+def test_library_path_changes_with_an_included_header(tree):
+    src, inc = tree
+    assert [p.name for p in _build.included_files(src)] == [
+        "kern.cu", "common.cuh", "leaf.cuh"]
+    before = _build.library_path(src)
+    assert before.name.startswith("kern-") and before.suffix == ".so"
+    assert _build.library_path(src) == before
+    (inc / "leaf.cuh").write_text("// leaf v2\n")
+    after = _build.library_path(src)
+    assert after != before
+    (inc / "unrelated.cuh").write_text("// not included\n")
+    assert _build.library_path(src) == after
+
+
+def test_a_header_beside_the_source_shadows_the_include_dir(tree):
+    src, inc = tree
+    (src.parent / "common.cuh").write_text("// local\n")
+    assert [p.parent for p in _build.included_files(src)][1] == src.parent
+    assert len(_build.included_files(src)) == 2
+
+
+def test_a_missing_header_is_an_error(tree):
+    src, _ = tree
+    src.write_text('#include "nowhere.cuh"\n')
+    with pytest.raises(FileNotFoundError, match="nowhere.cuh"):
+        _build.library_path(src)
+
+
+@pytest.mark.parametrize("source", [fa_kernel.SOURCE, CT_SOURCE],
+                         ids=lambda p: p.stem)
+def test_redesigned_kernels_hash_the_shared_ptx_header(source):
+    """Both Hopper kernels include the shared wrappers, so editing them
+    rebuilds both."""
+    assert PTX.resolve() in _build.included_files(source)
+
+
+@pytest.mark.parametrize("Q,N", [(64, 4096), (64, 65536), (33, 4099),
+                                 (1, 1), (130, 31), (64, 5), (1000, 10 ** 6)])
+@pytest.mark.parametrize("n_sm", [132, 8])
+def test_cosine_topk_splits_cover_n(Q, N, n_sm):
+    q_tile = 64
+    k_tile = ct_kernel.key_tile(Q, N, n_sm, q_tile)
+    S, rows = ct_kernel.splits(Q, N, n_sm, q_tile, k_tile)
+    assert rows % k_tile == 0 and rows > 0
+    assert (S - 1) * rows < N <= S * rows       # every split non-empty
+    assert S <= -(-N // k_tile)
+    blocks = -(-Q // q_tile) * S
+    # enough blocks to fill the card, unless N has too few key tiles
+    assert blocks >= min(ct_kernel.BLOCKS_PER_SM * n_sm,
+                         -(-Q // q_tile) * -(-N // k_tile)) // 2
+
+
+def test_cosine_topk_splits_at_the_flat_cache():
+    """Q = 64 at the flat cache's 4096 rows on 132 SMs: one 32-row key
+    tile per block, 128 blocks; at 65536 rows four 64-row tiles a block,
+    256 blocks."""
+    assert ct_kernel.splits(64, 4096, 132, 64, 32) == (128, 32)
+    assert ct_kernel.splits(64, 65536, 132, 64, 64) == (256, 256)
+
+
+@pytest.mark.parametrize("Q,N,n_sm,tile", [
+    (64, 4096, 132, 32),     # the flat cache: 32-row tiles, 128 blocks
+    (64, 65536, 132, 64),    # a large panel: 64-row tiles
+    (33, 4099, 132, 32),
+    (256, 16384, 132, 64),   # four query tiles share the card
+    (256, 2048, 132, 32),
+    (64, 4096, 8, 64),       # a small card
+])
+def test_cosine_topk_key_tile(Q, N, n_sm, tile):
+    assert ct_kernel.key_tile(Q, N, n_sm, 64) == tile
+    assert tile in ct_kernel.KEY_TILES
+
+
+@pytest.mark.parametrize("Sq,warps", [(1, 2), (32, 2), (33, 4), (2048, 4)])
+def test_flash_bf16_block_size(Sq, warps):
+    assert fa_kernel.warps(Sq) == warps

@@ -17,14 +17,19 @@ serving- and training-shape checks in ``chip_smoke.py`` do not.
   zero-row batch; the refusals and a launch the card refuses;
 * cosine top-k: odd widths, k up to the maximum, ties (lowest index
   first), all-invalid and fewer-valid-than-k panels, an empty batch, a
-  float64 recomputation and the refusals;
+  float64 recomputation and the refusals; Q, N and D ragged across the
+  register-tiled kernel's query tiles, key tiles and D chunks, and a
+  split of N with no valid row;
 * contrastive forward and backward: mixed and one-class batches, B = 1,
   zero rows (the clamped denominator), large B, float64 recomputations
   and the refusals;
 * flash attention: float32 and bf16, head widths 32, 64, 96 and 128,
   ragged sequences, Sq < Skv, causal, bidirectional and sliding-window
   masks, MHA, GQA and MQA, strided (B, S, H, hd) views read in place,
-  the ``scale`` argument and the refusals;
+  the ``scale`` argument and the refusals; for the bf16 tensor-core
+  kernel, Sq of 1, 17, 33 and 100 (2- and 4-warp blocks, ragged 16-row
+  warp tiles), Skv off the 64-row K/V tiles, and misaligned views
+  refused (float32 takes them);
 * decode attention: the same dtypes and widths, ragged cache lengths,
   random, ring-buffer and fully masked validity, MHA, GQA and MQA, and
   the refusals.
@@ -33,8 +38,10 @@ Tolerances: scores ``atol 1e-5`` (fp32 sums in another order); ids,
 slots and flags exactly; contrastive components ``rtol 1e-5``, their
 extrema ``atol 1e-6``, gradients ``atol 1e-6`` against torch autograd of
 the plain version; attention outputs ``atol 2e-5, rtol 1e-4`` in float32
-(the reference's kernel tests) and ``atol 3e-2`` in bf16 (both versions
-accumulate in float32 and round once; the reference's bf16 tolerance).
+(the reference's kernel tests) and ``atol 3e-2`` in bf16 (the reference's
+bf16 tolerance: both versions accumulate in float32; the kernel also
+rounds the softmax weights to bf16 before P V, within 2^-9 of each,
+which ``tests/test_torch_attention.py`` shows stays inside it).
 """
 import pytest
 import torch
@@ -501,6 +508,44 @@ def test_cosine_topk_scores_are_fp32_exact(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Q,N,D", [
+    (1, 31, 768),        # one query, less than one key tile
+    (33, 4099, 768),     # a ragged query tile and key tile
+    (65, 97, 37),        # two query tiles, D neither % 4 nor one chunk
+    (130, 2050, 64),     # three query tiles, D one full chunk
+    (64, 65536, 100),    # many key tiles a split, D % 64 != 0
+])
+def test_cosine_topk_ragged_across_tiles(dev, Q, N, D):
+    g = torch.Generator(device=dev).manual_seed(Q + N + D)
+    q, keys, valid = _panel(dev, g, Q, N, D)
+    n = min(4, Q)                       # near-copies of the last rows
+    q[:n] = _unit(keys[-n:] + 0.05 * torch.randn(n, D, generator=g,
+                                                  device=dev))
+    _topk_check(q, keys, valid, ct_kernel.max_k())
+    _topk_check(q, keys, valid, 1)
+
+
+@pytest.mark.cuda
+def test_cosine_topk_split_with_no_valid_row(dev):
+    """One split's rows are all invalid, and queries copy some of them:
+    those rows score -1e30 and never beat a valid one."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    Q, N, D = 64, 4096, 768
+    q, keys, _ = _panel(dev, g, Q, N, D)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    qt = ct_kernel.query_tile()
+    S, rows = ct_kernel.splits(Q, N, n_sm, qt,
+                               ct_kernel.key_tile(Q, N, n_sm, qt))
+    assert S > 2
+    valid = torch.ones(N, dtype=torch.bool, device=dev)
+    valid[rows:2 * rows] = False
+    q[:8] = keys[rows:rows + 8]
+    s, i = _topk_check(q, keys, valid, 4)
+    assert not ((i >= rows) & (i < 2 * rows)).any()
+    assert (s > -1.0).all()
+
+
+@pytest.mark.cuda
 def test_cosine_topk_refuses_what_the_kernel_does_not_take(dev):
     g = torch.Generator(device=dev).manual_seed(14)
     q, keys, valid = _panel(dev, g, 3, 20, 16)
@@ -700,6 +745,51 @@ def test_flash_attention_reads_strided_views_and_takes_a_scale(dev, dtype):
     assert not q.is_contiguous()
     _flash_check(q, k, v, causal=True, window=0)
     _flash_check(q * 96 ** -0.5, k, v, causal=True, scale=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 96, 128])
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,causal,window", [
+    (2, 4, 4, 1, 1, True, 0),           # one row: a 2-warp block
+    (3, 4, 2, 17, 17, True, 0),         # a ragged 16-row warp tile
+    (1, 8, 2, 33, 97, True, 0),         # 4 warps; Skv off the 64-row tile
+    (1, 4, 1, 100, 100, True, 40),      # MQA, a window across tiles
+    (2, 4, 4, 17, 130, False, 0),       # bidirectional, Sq < Skv
+    (1, 6, 2, 33, 33, False, 9),        # bidirectional window
+])
+def test_flash_attention_bf16_tensor_core_edges(dev, hd, B, H, KV, Sq, Skv,
+                                                causal, window):
+    g = torch.Generator(device=dev).manual_seed(hd * 13 + Sq + Skv)
+    q = torch.randn(B, Sq, H, hd, generator=g, device=dev).bfloat16()
+    k = torch.randn(B, Skv, KV, hd, generator=g, device=dev).bfloat16()
+    v = torch.randn(B, Skv, KV, hd, generator=g, device=dev).bfloat16()
+    _flash_check(q, k, v, causal=causal, window=window)
+    _flash_check(q, k, v, causal=causal, window=window, scale=0.3)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_refuses_misaligned_views(dev):
+    """bf16 rows are copied 16 bytes at a time: a view whose strides or
+    base pointer break that is refused, never sent to another kernel;
+    the float32 kernel takes the same views."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    wide = torch.randn(1, 8, 2, 66, generator=g, device=dev)
+    flat = torch.randn(1 + 8 * 2 * 64, generator=g, device=dev)
+    for x in (wide[..., :64], flat[1:].view(1, 8, 2, 64)):
+        xb = _bf16_view(x)
+        before = fa_kernel.COUNTS["flash_attention"]
+        with pytest.raises(ValueError, match="aligned"):
+            fa_ops.flash_attention(xb, xb, xb)
+        assert fa_kernel.COUNTS["flash_attention"] == before
+        _flash_check(x, x, x, causal=True)
+
+
+def _bf16_view(x):
+    """A bf16 tensor with ``x``'s strides and element offset (a view of a
+    bf16 copy of ``x``'s storage)."""
+    base = torch.empty(x.untyped_storage().nbytes() // x.element_size(),
+                       dtype=torch.bfloat16, device=x.device)
+    return base.as_strided(x.shape, x.stride(), x.storage_offset())
 
 
 @pytest.mark.cuda
