@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --kernels-only   # phases 1 and 2, then a JSON
+                                           # line of phase 2's numbers
 
 Needs one NVIDIA card (the kernels target Hopper, ``sm_90a``) and
 ``nvcc``.  Exits non-zero, printing no result, when CUDA is unavailable
@@ -12,13 +14,18 @@ or the port is not beside the script.  Phases, each fatal on failure:
    with ``cuobjdump --dump-sass``: every bf16 flash-attention kernel must
    run on the tensor cores (``HMMA``) and the float32 one must not; the
    cosine top-k kernels must be float32 FMA (``FFMA``) with no ``HMMA``;
+   the bf16 decode-attention kernels of the mma path must have ``HMMA``
+   and the others none; the cascade kernels must be ``FFMA`` with no
+   ``HMMA``; and ``cuobjdump --dump-resource-usage`` must show no stack
+   or local memory (no spill) in the decode and cascade kernels;
 2. kernel parity, each kernel against its plain torch version on the
    same CUDA tensors, all timed with CUDA events (median of repeats
-   after warm-up) over eager calls; cosine top-k and attention also over
-   replays of a captured CUDA graph, the device's time without the
-   host's launch overhead, and the two redesigned kernels at each launch
-   geometry their wrappers choose between (cosine top-k's 32- and 64-row
-   key tiles, bf16 flash attention's 2- and 4-warp blocks):
+   after warm-up) over eager calls and over replays of a captured CUDA
+   graph (the device's time without the host's launch overhead), with
+   the device kernels one call issues read with ``torch.profiler``;
+   the PR 15 kernels also at each launch geometry their wrappers choose
+   between (cosine top-k's 32- and 64-row key tiles, bf16 flash
+   attention's 2- and 4-warp blocks):
    * the cascade lookup at the serving shapes (``TieringConfig``
      defaults: D=768, Q=64, Nh=1024, warm ring 16384, K=64, bucket=256,
      n_probe=8, tail = flush_size * rebuild_every = 256) on a populated
@@ -46,7 +53,9 @@ or the port is not beside the script.  Phases, each fatal on failure:
      ring buffer (B=8, L=4096), GQA (H=40, KV=8, hd=128, L=32768) and
      MQA (KV=1); bf16 and fp32, outputs within ``ATTN_TOL``, timed
      beside ``F.scaled_dot_product_attention`` with the same mask (the
-     library yardstick, never on the port's path);
+     library yardstick, never on the port's path); and, untimed, the
+     decode kernel's split edges: a cache of L=30001 (ragged in its
+     last split and tile) and a split whose every slot is masked;
 3. serving: the full-width ``modernbert-149m`` encoder (seeded random
    weights) behind ``CacheService(fused=True)`` and
    ``CachedLLMService(engine=None)``, a 4096-query medical trace in
@@ -163,6 +172,11 @@ DECODE_SHAPES = (("phi3 decode", 8, 32, 32, 64, 96, 48, 0),
                  ("phi3 ring", 8, 32, 32, 4096, 96, 5000, 3000),
                  ("gqa long", 1, 40, 8, 32768, 128, 30000, 0),
                  ("mqa", 8, 32, 1, 4096, 96, 3000, 0))
+# (name, B, H, KV, L, hd, cur, window, slots all masked): bf16 MQA cuts
+# L = 4096 into 16 splits of 256 rows, so slots 256..511 are split 1
+DECODE_EDGES = (("gqa ragged", 1, 40, 8, 30001, 128, 29000, 0, None),
+                ("mqa masked split", 8, 32, 1, 4096, 96, 3000, 0,
+                 (256, 512)))
 DECODER = "phi3-mini-3.8b"
 GEN_B, GEN_PROMPT, GEN_NEW = 8, 32, 32
 LLM_REQUESTS = 1024        # phase 7(c) trace length
@@ -235,6 +249,34 @@ def graph_ms(fn, iters: int = 20, reps: int = 7) -> float:
         out.append(a.elapsed_time(b) / iters)
     del graph
     return statistics.median(out)
+
+
+def device_kernels(fn, calls: int = 3) -> dict:
+    """{device kernel name: [launches, device µs]} per call of ``fn``,
+    read with ``torch.profiler`` over ``calls`` calls after a warm-up
+    step of the profiler's schedule (events of the first traced call can
+    be lost): what a wrapper call issues on the card (a wrapper's count
+    adds one per call, however many kernels the call issues), and where
+    its device time goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from torch.profiler import schedule
+    got = {}
+    for _ in range(3):            # a trace now and then comes back empty
+        with tprofile(activities=[ProfilerActivity.CUDA],
+                      schedule=schedule(wait=0, warmup=1, active=calls,
+                                        repeat=1)) as prof:
+            for _ in range(1 + calls):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        got = {e.key[:64]: [round(e.count / calls, 2),
+                            round(e.self_device_time_total / calls, 3)]
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+        if got:
+            break
+    return got
 
 
 class forced:
@@ -424,15 +466,21 @@ def kernel_phase(dev):
                   f"{err:.3g}; hits {int(b[5].sum())}/{s['Q']} "
                   f"(hot {int(b[4].sum())})")
         tag = "int8_" if quantized else ""
-        out[f"{tag}ms"] = cuda_ms(lambda: ops.cascade_lookup(
-            *args, k=1, quantized=quantized, **kw))
+
+        def kern():
+            return ops.cascade_lookup(*args, k=1, quantized=quantized, **kw)
+        out[f"{tag}ms"] = cuda_ms(kern)
+        out[f"{tag}graph_ms"] = graph_ms(kern)
+        out[f"{tag}device_kernels"] = device_kernels(kern)
         out[f"{tag}plain_ms"] = cuda_ms(lambda: ref.cascade_lookup(
             *args, k=1, quantized=quantized, **kw), iters=5)
         out[f"{tag}bound_ms"], out[f"{tag}bound_by"] = work_bound_ms(
             hot, warm, q, qt, 1, quantized)
-        print(f"  {tag or 'fp32_'}k=1: kernel {out[f'{tag}ms']:.4f} ms, "
-              f"plain {out[f'{tag}plain_ms']:.4f} ms, bound "
-              f"{out[f'{tag}bound_ms']:.4f} ms ({out[f'{tag}bound_by']})")
+        print(f"  {tag or 'fp32_'}k=1: kernel {out[f'{tag}ms']:.4f} ms "
+              f"(graph {out[f'{tag}graph_ms']:.4f}), plain "
+              f"{out[f'{tag}plain_ms']:.4f} ms, bound "
+              f"{out[f'{tag}bound_ms']:.4f} ms ({out[f'{tag}bound_by']}); "
+              f"device kernels per call {out[f'{tag}device_kernels']}")
     return out
 
 
@@ -503,16 +551,21 @@ def ensemble_kernel_phase(dev):
                 fail(f"ensemble E=1 differs from the single cascade "
                      f"(quantized={quantized}, k={k})")
         tag = "int8_" if quantized else ""
-        out[f"{tag}ms"] = cuda_ms(lambda: ops.ensemble_lookup(
-            *args, k=1, quantized=quantized, **kw))
+
+        def kern():
+            return ops.ensemble_lookup(*args, k=1, quantized=quantized, **kw)
+        out[f"{tag}ms"] = cuda_ms(kern)
+        out[f"{tag}graph_ms"] = graph_ms(kern)
+        out[f"{tag}device_kernels"] = device_kernels(kern)
         out[f"{tag}plain_ms"] = cuda_ms(lambda: ref.ensemble_lookup(
             *args, k=1, quantized=quantized, **kw), iters=5)
         out[f"{tag}bound_ms"], out[f"{tag}bound_by"] = work_bound_ms(
             hot, warm, q, qt, 1, quantized, E=ENS_E)
         print(f"  ensemble {tag or 'fp32_'}k=1: kernel "
-              f"{out[f'{tag}ms']:.4f} ms, plain {out[f'{tag}plain_ms']:.4f}"
-              f" ms, bound {out[f'{tag}bound_ms']:.4f} ms "
-              f"({out[f'{tag}bound_by']})")
+              f"{out[f'{tag}ms']:.4f} ms (graph {out[f'{tag}graph_ms']:.4f})"
+              f", plain {out[f'{tag}plain_ms']:.4f} ms, bound "
+              f"{out[f'{tag}bound_ms']:.4f} ms ({out[f'{tag}bound_by']}); "
+              f"device kernels per call {out[f'{tag}device_kernels']}")
     print("  ensemble E=1: every output equal to the single cascade "
           "kernel's (fp32, int8; k=1, 4)")
     return out
@@ -710,8 +763,15 @@ def contrastive_phase(dev):
         a, b, lab = mixed
         _, _, rows, coef = kernel.forward(a, b, lab, 0.5)
         up = torch.ones((), device=dev)
-        fwd = cuda_ms(lambda: kernel.forward(a, b, lab, 0.5))
-        bwd = cuda_ms(lambda: kernel.backward(a, b, rows, coef, up))
+
+        def kfwd():
+            return kernel.forward(a, b, lab, 0.5)
+
+        def kbwd():
+            return kernel.backward(a, b, rows, coef, up)
+        fwd, bwd = cuda_ms(kfwd), cuda_ms(kbwd)
+        fwd_graph, bwd_graph = graph_ms(kfwd), graph_ms(kbwd)
+        fwd_kernels, bwd_kernels = device_kernels(kfwd), device_kernels(kbwd)
         a1, a2 = a.clone().requires_grad_(), b.clone().requires_grad_()
         plain_fwd = cuda_ms(lambda: losses.online_contrastive_loss(
             a1, a2, lab))
@@ -720,14 +780,18 @@ def contrastive_phase(dev):
         fb, fby = contrastive_bound_ms(B, D, False)
         bb, bby = contrastive_bound_ms(B, D, True)
         out["by_b"][B] = dict(
-            fwd_ms=fwd, bwd_ms=bwd, plain_fwd_ms=plain_fwd,
+            fwd_ms=fwd, bwd_ms=bwd, fwd_graph_ms=fwd_graph,
+            bwd_graph_ms=bwd_graph, fwd_device_kernels=fwd_kernels,
+            bwd_device_kernels=bwd_kernels, plain_fwd_ms=plain_fwd,
             plain_bwd_ms=plain_both - plain_fwd, fwd_bound_ms=fb,
             fwd_bound_by=fby, bwd_bound_ms=bb, bwd_bound_by=bby)
         print(f"  contrastive B={B}: components, loss and gradients equal "
               f"the plain version's (max |dgrad| {out['max_abs_err']:.3g});"
-              f" forward {fwd:.4f} ms (plain {plain_fwd:.4f}), backward "
-              f"{bwd:.4f} ms (plain {plain_both - plain_fwd:.4f}), bounds "
-              f"{fb:.6f} / {bb:.6f} ms ({fby})")
+              f" forward {fwd:.4f} ms (graph {fwd_graph:.4f}, plain "
+              f"{plain_fwd:.4f}), backward {bwd:.4f} ms (graph "
+              f"{bwd_graph:.4f}, plain {plain_both - plain_fwd:.4f}), bounds "
+              f"{fb:.6f} / {bb:.6f} ms ({fby}); device kernels per call "
+              f"{fwd_kernels} / {bwd_kernels}")
     return out
 
 
@@ -1470,7 +1534,8 @@ def attention_kernel_phase(dev):
                        bound_by=by, max_abs_err=err,
                        graph_ms=graph_ms(kern),
                        plain_graph_ms=graph_ms(plain, iters=5),
-                       library_graph_ms=graph_ms(library))
+                       library_graph_ms=graph_ms(library),
+                       device_kernels=device_kernels(kern))
             out["decode"]["by_shape"][tag] = row
             print(f"  decode_attention {tag} (B={B} L={L} H={H} KV={KV} "
                   f"hd={hd}, {n_valid // B} valid slots a row): max |diff| "
@@ -1478,8 +1543,46 @@ def attention_kernel_phase(dev):
                   f"{row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}; "
                   f"graph: kernel {row['graph_ms']:.4f}, plain "
                   f"{row['plain_graph_ms']:.4f}, SDPA "
-                  f"{row['library_graph_ms']:.4f}; bound {bound:.4f} ({by})")
+                  f"{row['library_graph_ms']:.4f}; bound {bound:.4f} ({by})"
+                  f"; device kernels per call {row['device_kernels']}, "
+                  f"splits {decode_splits(dev, q, k)}")
+    # split edges, held to the plain version (not timed): a cache whose
+    # length is a multiple of neither the split nor the 64-row tile, and
+    # a split whose every slot is masked
+    for i, (name, B, H, KV, L, hd, cur, window, dead) in enumerate(
+            DECODE_EDGES):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, valid, _ = decode_case(dev, B, H, KV, L, hd, cur,
+                                            window, dtype, 60 + i)
+            S, rows = decode_splits(dev, q, k)
+            if dead is not None:
+                valid[:, dead[0]:dead[1]] = False
+            got = dops.decode_attention(q, k, v, valid)[:, 0]
+            want = dref.decode_attention(q[:, 0], k, v, valid)
+            torch.cuda.synchronize()
+            tag = f"{name} {str(dtype)[6:]}"
+            err = check(got, want, dtype, f"decode_attention {tag}")
+            out["decode"]["max_abs_err"] = max(out["decode"]["max_abs_err"],
+                                               err)
+            print(f"  decode_attention {tag} (B={B} L={L} H={H} KV={KV} "
+                  f"hd={hd}; {S} splits of {rows} rows, the last "
+                  f"{L - (S - 1) * rows}"
+                  + (f"; slots {dead[0]}..{dead[1] - 1} masked"
+                     + (" (a whole split)" if S > 1 and dead[0] % rows == 0
+                        and dead[1] - dead[0] == rows else "")
+                     if dead is not None else "")
+                  + f"): max |diff| {err:.3g}")
     return out
+
+
+def decode_splits(dev, q, k):
+    """(S, rows) the decode wrapper picks for these inputs on this card."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel
+    H, KV = q.shape[2], k.shape[2]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    return kernel.splits(q.shape[0], kernel.units(
+        H, KV, kernel.uses_mma(q.dtype, H // KV)), k.shape[1], n_sm)
 
 
 # ---------------------------------------------------------------------------
@@ -1696,9 +1799,34 @@ def sass_counts(lib: str) -> dict:
     return out
 
 
+def resource_usage(lib: str) -> dict:
+    """{kernel function (mangled): {"REG": n, "STACK": n, "LOCAL": n}}
+    from ``cuobjdump --dump-resource-usage``: a spill shows as stack or
+    local memory."""
+    from repro_torch.kernels import _build
+    exe = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    res = subprocess.run([exe, "--dump-resource-usage", lib],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump on {lib}: {res.stderr.strip()}")
+    out, name = {}, None
+    for line in res.stdout.splitlines():
+        if "Function " in line:
+            name = line.split("Function ", 1)[1].strip().rstrip(":")
+        elif name is not None and "REG:" in line:
+            out[name] = {f: int(line.split(f + ":", 1)[1].split()[0])
+                         for f in ("REG", "STACK", "LOCAL")
+                         if f + ":" in line}
+            name = None
+    return out
+
+
 def sass_phase(libs: dict) -> dict:
     """The bf16 flash kernels run on the tensor cores, the float32 one and
-    cosine top-k on the FMA units: counted in the built SASS."""
+    cosine top-k on the FMA units: counted in the built SASS.  The bf16
+    decode kernels of the mma path run on the tensor cores and the
+    cascade kernels on the FMA units, and neither redesigned source
+    spills."""
     fa = sass_counts(libs["flash_attention"])
     bf16 = {n: c for n, c in fa.items() if "flash_attention_bf16_kernel" in n}
     f32 = {n: c for n, c in fa.items() if "flash_attention_kernel" in n}
@@ -1711,7 +1839,37 @@ def sass_phase(libs: dict) -> dict:
     if any(c["HMMA"] for c in ct.values()) or not part \
             or any(c["FFMA"] == 0 for c in part.values()):
         fail(f"cosine_topk: HMMA present or FFMA missing: {ct}")
+    da = sass_counts(libs["decode_attention"])
+    mma = {n: c for n, c in da.items() if "decode_mma_kernel" in n}
+    if not mma or any(c["HMMA"] == 0 for c in mma.values()):
+        fail(f"decode_attention: an mma kernel without HMMA: {da}")
+    if any(c["HMMA"] for n, c in da.items() if n not in mma):
+        fail(f"decode_attention: HMMA outside the mma kernels: {da}")
+    cl = sass_counts(libs["cascade_lookup"])
+    if any(c["HMMA"] for c in cl.values()) or not any(
+            c["FFMA"] for n, c in cl.items() if "cascade_score_kernel" in n):
+        fail(f"cascade_lookup: HMMA present or FFMA missing: {cl}")
+    usage = {}
+    for name in ("decode_attention", "cascade_lookup"):
+        usage[name] = resource_usage(libs[name])
+        spills = {n: u for n, u in usage[name].items()
+                  if u.get("STACK", 0) or u.get("LOCAL", 0)}
+        if not usage[name] or spills:
+            fail(f"{name}: spills (stack or local memory) or no resource "
+                 f"usage read: {spills or usage[name]}")
     out = {
+        "decode_attention": {
+            "kernels": len(da), "mma_kernels": len(mma),
+            "mma_HMMA": sum(c["HMMA"] for c in mma.values()),
+            "max_registers": max(u["REG"] for u in
+                                 usage["decode_attention"].values()),
+            "spills": 0},
+        "cascade_lookup": {
+            "kernels": len(cl), "FFMA": sum(c["FFMA"] for c in cl.values()),
+            "HMMA": 0,
+            "max_registers": max(u["REG"] for u in
+                                 usage["cascade_lookup"].values()),
+            "spills": 0},
         "flash_attention": {
             "bf16_kernels": len(bf16),
             "bf16_HMMA": sum(c["HMMA"] for c in bf16.values()),
@@ -1722,7 +1880,12 @@ def sass_phase(libs: dict) -> dict:
             "kernels": len(ct),
             "FFMA": sum(c["FFMA"] for c in ct.values()), "HMMA": 0}}
     print(f"  SASS: flash_attention {out['flash_attention']}; "
-          f"cosine_topk {out['cosine_topk']}")
+          f"cosine_topk {out['cosine_topk']}; decode_attention "
+          f"{out['decode_attention']}; cascade_lookup "
+          f"{out['cascade_lookup']}")
+    for name in ("decode_attention", "cascade_lookup"):
+        print(f"  registers per thread, {name}: " + "; ".join(
+            f"{n[:60]} {u['REG']}" for n, u in usage[name].items()))
     return out
 
 
@@ -1771,6 +1934,13 @@ def main() -> int:
     tp = topk_phase(dev)
     cp = contrastive_phase(dev)
     ap = attention_kernel_phase(dev)
+    if "--kernels-only" in sys.argv[1:]:
+        print(card)
+        print(json.dumps({"phase2": {"cascade_lookup": kp,
+                                     "cascade_lookup_ensemble": ep,
+                                     "cosine_topk": tp, "contrastive": cp,
+                                     "attention": ap}}, default=str))
+        return 0
 
     print("phase 3: serving (full-width encoder, fused cascade)")
     sv = serving_phase(dev)
@@ -1827,10 +1997,12 @@ def main() -> int:
         "ms": kp["ms"], "plain_ms": kp["plain_ms"],
         "bound_ms": kp["bound_ms"], "bound_by": kp["bound_by"],
         "library_ms": None,
-        "int8_ms": kp["int8_ms"], "int8_plain_ms": kp["int8_plain_ms"],
+        "graph_ms": kp["graph_ms"], "device_kernels": kp["device_kernels"],
+        "int8_ms": kp["int8_ms"], "int8_graph_ms": kp["int8_graph_ms"],
+        "int8_plain_ms": kp["int8_plain_ms"],
         "int8_bound_ms": kp["int8_bound_ms"],
         "serving_p50_ms": sv["p50_ms"], "serving_hit_rate": sv["hit_rate"],
-        "card": card,
+        "sass": sass["cascade_lookup"], "card": card,
     }, {
         "name": "cosine_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/cosine_topk/csrc/cosine_topk.cu",
@@ -1848,6 +2020,8 @@ def main() -> int:
         "launches": tr["launches"]["contrastive_components"],
         "max_abs_err": cp["max_abs_err"],
         "ms": cp["by_b"][b_train]["fwd_ms"],
+        "graph_ms": cp["by_b"][b_train]["fwd_graph_ms"],
+        "device_kernels": cp["by_b"][b_train]["fwd_device_kernels"],
         "plain_ms": cp["by_b"][b_train]["plain_fwd_ms"],
         "bound_ms": cp["by_b"][b_train]["fwd_bound_ms"],
         "bound_by": cp["by_b"][b_train]["fwd_bound_by"],
@@ -1863,6 +2037,8 @@ def main() -> int:
         "launches": tr["launches"]["contrastive_backward"],
         "max_abs_err": cp["max_abs_err"],
         "ms": cp["by_b"][b_train]["bwd_ms"],
+        "graph_ms": cp["by_b"][b_train]["bwd_graph_ms"],
+        "device_kernels": cp["by_b"][b_train]["bwd_device_kernels"],
         "plain_ms": cp["by_b"][b_train]["plain_bwd_ms"],
         "bound_ms": cp["by_b"][b_train]["bwd_bound_ms"],
         "bound_by": cp["by_b"][b_train]["bwd_bound_by"],
@@ -1880,11 +2056,13 @@ def main() -> int:
         "ms": ep["ms"], "plain_ms": ep["plain_ms"],
         "bound_ms": ep["bound_ms"], "bound_by": ep["bound_by"],
         "library_ms": None, "at": f"E={ENS_E} Q=64 D=768 k=1",
-        "int8_ms": ep["int8_ms"], "int8_plain_ms": ep["int8_plain_ms"],
+        "graph_ms": ep["graph_ms"], "device_kernels": ep["device_kernels"],
+        "int8_ms": ep["int8_ms"], "int8_graph_ms": ep["int8_graph_ms"],
+        "int8_plain_ms": ep["int8_plain_ms"],
         "int8_bound_ms": ep["int8_bound_ms"],
         "learning_launches": el["launches"],
         "serving_p50_ms": es["p50_ms"], "serving_hit_rate": es["hit_rate"],
-        "card": card,
+        "sass": sass["cascade_lookup"], "card": card,
     }]
     for name, key, main_shape, src, replaces in (
             ("flash_attention", "flash", "phi3 prefill bfloat16",
@@ -1900,7 +2078,8 @@ def main() -> int:
             "launches": ls["launches"][name],
             "max_abs_err": ap[key]["max_abs_err"],
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms")},
+                                   "bound_by", "library_ms", "graph_ms",
+                                   "library_graph_ms")},
             "library": "F.scaled_dot_product_attention (KV heads expanded)",
             "at": main_shape, "by_shape": ap[key]["by_shape"],
             "generate_launches": gn["launches"][name],

@@ -32,7 +32,9 @@ from repro_torch.cache_service.policy import ColdRoutingPolicy, EmbedderRefreshP
 
 # Features of the reference service that this port does not run yet,
 # each with the ROADMAP.md slice that brings it.  They are refused at
-# construction, never accepted and then ignored.
+# construction, never accepted and then ignored.  (``warm_block`` is not
+# one of them: the reference's warm-panel streaming block never changes
+# results, so the port accepts it and its CUDA kernel has no use for it.)
 _LOOPS = "the service-learning-loops slice"
 _NOT_PORTED = {
     "background_rebuild": _LOOPS,

@@ -10,9 +10,11 @@ same 6-tuple, so `tiers.cascade_query` and
 selects the int8 warm-panel variant in both; callers re-score the
 returned ``warm_slots`` exactly from the fp32 panel.
 
-The reference's ``warm_block_n`` (stream the warm panel through TPU
-VMEM in blocks) never changes results and has no counterpart here: the
-CUDA kernel gathers warm rows straight from device memory.
+The reference's ``warm_block_n`` (``TieringConfig.warm_block``,
+``launch/serve.py --warm-block``: stream the warm panel through TPU VMEM
+in blocks) does not change results and has no counterpart in the CUDA
+kernel, which stages rows in its own 64-row tiles: it is accepted and
+not passed here.
 """
 from __future__ import annotations
 

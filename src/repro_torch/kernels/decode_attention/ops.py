@@ -2,8 +2,10 @@
 
 Tensors on the CPU go to the plain torch version (`ref.py`); tensors on
 a card go to the hand-written CUDA kernel (`kernel.py`) or raise — there
-is no fallback from the card.  The kernel takes float32 or bfloat16 and
-head widths 32, 64, 96 and 128.
+is no fallback from the card.  The kernel takes float32 or bfloat16,
+head widths 32, 64, 96 and 128, any number of query heads per KV head,
+and 16-byte aligned q, k and v (the decoder's caches and projections
+are whole allocations).
 """
 from __future__ import annotations
 
@@ -40,13 +42,13 @@ def decode_attention(q, k, v, kv_valid, *, scale=None):
                          f"{_kernel.HEAD_DIMS}, got {hd}")
     if KV == 0 or H % KV or L == 0:
         raise ValueError(f"need L >= 1 and H={H} a multiple of KV={KV}")
-    if (H // KV) * hd > _kernel.max_group_width():
-        raise ValueError(f"{H // KV} query heads per KV head at hd={hd} "
-                         f"exceed the kernel's {_kernel.max_group_width()} "
-                         "accumulator columns")
     for name, t, dt, shape in (("q", q3, q.dtype, (B, H, hd)),
                                ("k", k, q.dtype, (B, L, KV, hd)),
                                ("v", v, q.dtype, (B, L, KV, hd)),
                                ("kv_valid", kv_valid, torch.bool, (B, L))):
         check_tensor(name, t, dt, shape, dev)
+    for name, t in (("q", q3), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned: the kernel "
+                             "copies cache rows in 16-byte chunks")
     return _kernel.launch(q3, k, v, kv_valid, scale)[:, None]

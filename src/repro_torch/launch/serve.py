@@ -13,7 +13,9 @@ decoder is driven by ``chip_smoke.py`` through the library's entry
 points.  ``--tiered`` swaps the flat SemanticCache for the tiered
 CacheService; ``--warm-dtype int8`` scans the warm panel from its
 quantized form, ``--learned-admission`` learns the per-tenant operating
-points online (DESIGN.md §9), ``--ensemble E`` serves E embedders
+points online (DESIGN.md §9), ``--warm-block N`` is accepted as in the
+reference and changes nothing (a TPU streaming knob with no counterpart
+in the CUDA kernel), ``--ensemble E`` serves E embedders
 through the fused ensemble cascade (the fine-tuned embedder as the
 pilot, random-projection panels beside it; §13) and ``--ttl`` stamps a
 default TTL on admitted entries (§14.2).  ``--metrics-json PATH`` dumps
@@ -24,8 +26,8 @@ The prompts of cache misses are encoded with a tokenizer of the
 *decoder's* vocab, not the encoder's: the encoder's ids would fall
 outside the decoder's embedding table.  Options of the reference that
 the port lacks (``--cache-shards``, ``--cold-capacity``,
-``--warm-block``, ``--learned-embedder``, ``--conformal``,
-``--scenario``) are refused with the slice that brings them.
+``--learned-embedder``, ``--conformal``, ``--scenario``) are refused
+with the slice that brings them.
 """
 from __future__ import annotations
 
@@ -46,8 +48,6 @@ from repro_torch.serving import CachedLLMService, ServeEngine
 _NOT_PORTED = {
     "cache_shards": ("--cache-shards", "the sharded-warm-tier slice"),
     "cold_capacity": ("--cold-capacity", "the cold-tier slice"),
-    "warm_block": ("--warm-block", "the cold-tier slice (blockwise warm "
-                                   "streaming)"),
     "learned_embedder": ("--learned-embedder", "the embedder-refresh slice"),
     "conformal": ("--conformal", "the service-learning-loops slice"),
     "scenario": ("--scenario", "the benchmarks slice"),
@@ -87,7 +87,12 @@ def parse_args(argv=None):
                          "batches")
     ap.add_argument("--cache-shards", type=int, default=0)
     ap.add_argument("--cold-capacity", type=int, default=0)
-    ap.add_argument("--warm-block", type=int, default=0)
+    ap.add_argument("--warm-block", type=int, default=0,
+                    help="the reference's warm-panel streaming block "
+                         "(rows; implies --tiered).  Accepted for the "
+                         "reference's command line: it does not change "
+                         "results, and the CUDA kernel has no counterpart "
+                         "(it stages rows in its own tiles)")
     ap.add_argument("--learned-embedder", action="store_true")
     ap.add_argument("--conformal", action="store_true")
     ap.add_argument("--scenario", default=None)
@@ -100,7 +105,7 @@ def parse_args(argv=None):
         ap.error("--metrics-json instruments the cached serving path; "
                  "add --cache")
     if args.warm_dtype != "float32" or args.learned_admission \
-            or args.ensemble or args.ttl:
+            or args.ensemble or args.ttl or args.warm_block:
         args.tiered = True
     if args.ensemble == 1:
         ap.error("--ensemble needs E >= 2 (a single embedder is the "
@@ -121,7 +126,8 @@ def make_cache(args, dim: int, telemetry: Telemetry):
         dim=dim, threshold=args.threshold, telemetry=telemetry,
         tiering=TieringConfig(hot_capacity=512, warm_capacity=4096,
                               n_clusters=32, bucket=256,
-                              warm_dtype=args.warm_dtype),
+                              warm_dtype=args.warm_dtype,
+                              warm_block=args.warm_block or None),
         learning=LearningConfig(learned_admission=args.learned_admission),
         ensemble=EnsembleConfig(embedders=args.ensemble or None),
         staleness=StalenessConfig(default_ttl=args.ttl or None)),

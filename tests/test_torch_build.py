@@ -9,10 +9,19 @@ card: nothing is compiled here).
   non-empty splits of whole key tiles.
 * The flash kernel's bf16 block size (2 warps of 16 query rows up to
   Sq = 32, else 4).
+* The decode kernel's splits of the cache cover L exactly with whole
+  64-row tiles and keep one split (one launch) when the units alone fill
+  the card; which kernel (row or mma) a dtype and group width take.
+* The cascade's scoring partition: the CTAs' chunks cover every hot row
+  and every flat warm candidate position (probe-major, tail last) once,
+  each into its own partial list.
 """
 import pytest
+import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.cascade_lookup import kernel as cl_kernel
+from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.cosine_topk import kernel as ct_kernel
 from repro_torch.kernels.cosine_topk.kernel import SOURCE as CT_SOURCE
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -64,11 +73,12 @@ def test_a_missing_header_is_an_error(tree):
         _build.library_path(src)
 
 
-@pytest.mark.parametrize("source", [fa_kernel.SOURCE, CT_SOURCE],
+@pytest.mark.parametrize("source", [fa_kernel.SOURCE, CT_SOURCE,
+                                    da_kernel.SOURCE, cl_kernel.SOURCE],
                          ids=lambda p: p.stem)
 def test_redesigned_kernels_hash_the_shared_ptx_header(source):
-    """Both Hopper kernels include the shared wrappers, so editing them
-    rebuilds both."""
+    """The redesigned Hopper kernels include the shared wrappers, so
+    editing them rebuilds every one."""
     assert PTX.resolve() in _build.included_files(source)
 
 
@@ -112,3 +122,77 @@ def test_cosine_topk_key_tile(Q, N, n_sm, tile):
 @pytest.mark.parametrize("Sq,warps", [(1, 2), (32, 2), (33, 4), (2048, 4)])
 def test_flash_bf16_block_size(Sq, warps):
     assert fa_kernel.warps(Sq) == warps
+
+
+@pytest.mark.parametrize("B,KV,L", [(8, 32, 64), (8, 32, 4096),
+                                    (1, 8, 32768), (8, 2, 4096), (2, 40, 77),
+                                    (1, 1, 1), (3, 4, 300), (1, 8, 65),
+                                    (1, 1, 10 ** 6)])
+@pytest.mark.parametrize("n_sm", [132, 8])
+def test_decode_splits_cover_l(B, KV, L, n_sm):
+    S, rows = da_kernel.splits(B, KV, L, n_sm)
+    assert rows > 0 and rows % da_kernel.TILE == 0
+    assert (S - 1) * rows < L <= S * rows       # every split non-empty
+    if B * KV >= n_sm:
+        assert S == 1
+    else:      # enough CTAs to fill the card, unless L has too few tiles
+        assert B * KV * S >= min(da_kernel.BLOCKS_PER_SM * n_sm,
+                                 B * KV * -(-L // da_kernel.TILE)) // 2
+
+
+def test_decode_splits_at_the_decoders_shapes():
+    """Phi-3-mini's decode step (B=8, H=KV=32): 256 row-kernel CTAs, one
+    split, one launch; a ring of L=4096 likewise.  GQA at batch 1 (H=40,
+    KV=8) and MQA at batch 8 (H=32, KV=1: two 16-head mma tiles) split
+    L to reach 256 CTAs."""
+    assert da_kernel.units(32, 32, False) == 32
+    assert da_kernel.splits(8, 32, 64, 132) == (1, 64)
+    assert da_kernel.splits(8, 32, 4096, 132) == (1, 4096)
+    assert da_kernel.units(40, 8, True) == 8
+    assert da_kernel.splits(1, 8, 32768, 132) == (32, 1024)
+    assert da_kernel.units(32, 1, True) == 2
+    assert da_kernel.splits(8, 2, 4096, 132) == (16, 256)
+
+
+@pytest.mark.parametrize("dtype,G,mma", [
+    (torch.bfloat16, 1, False), (torch.bfloat16, 3, False),
+    (torch.bfloat16, 4, True), (torch.bfloat16, 32, True),
+    (torch.float32, 1, False), (torch.float32, 32, False)])
+def test_decode_kernel_choice(dtype, G, mma):
+    assert da_kernel.uses_mma(dtype, G) == mma
+
+
+@pytest.mark.parametrize("Q,Nh,K,n_probe,bucket,tail", [
+    (64, 1024, 64, 8, 256, 256),    # the serving shapes
+    (17, 300, 8, 4, 96, 48),        # the card tests' tiers
+    (5, 8, 2, 2, 8, 3),
+    (1, 1, 1, 1, 1, 0),             # no tail
+    (33, 65, 3, 3, 130, 200),       # ragged everywhere
+])
+def test_cascade_partition_covers_every_candidate_once(Q, Nh, K, n_probe,
+                                                       bucket, tail):
+    g = cl_kernel.geometry(Q, Nh, K, n_probe, bucket, tail)
+    hot = cl_kernel.hot_spans(g, Nh)
+    warm = cl_kernel.warm_spans(g, bucket, tail)
+    for spans, n in ((hot, Nh), (warm, n_probe * bucket + tail)):
+        covered = [p for _, first, m in spans
+                   for p in range(first, first + m)]
+        assert all(m > 0 for _, _, m in spans)
+        assert covered == list(range(n))
+    lists = [i for i, _, _ in hot + warm]
+    assert sorted(lists) == list(range(g.n_part))
+    assert (g.q_tiles - 1) * cl_kernel.QUERY_TILE < Q \
+        <= g.q_tiles * cl_kernel.QUERY_TILE
+    assert g.ctas == g.q_tiles * (g.hot_chunks + g.tail_chunks
+                                  + K * g.bucket_chunks)
+
+
+def test_cascade_partition_at_the_serving_shapes():
+    """Q=64, Nh=1024, K=64, n_probe=8, bucket=256, tail=256: 4 query
+    tiles; 16 hot, 4 bucket and 4 tail chunks of 64 rows; 52 partial
+    lists per query; 1104 CTAs, of which those of unprobed buckets (and
+    query tiles past a bucket's queries) return at once."""
+    g = cl_kernel.geometry(64, 1024, 64, 8, 256, 256)
+    assert (g.q_tiles, g.hot_chunks, g.bucket_chunks, g.tail_chunks) \
+        == (4, 16, 4, 4)
+    assert g.n_part == 52 and g.ctas == 1104

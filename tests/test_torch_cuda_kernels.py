@@ -13,8 +13,13 @@ serving- and training-shape checks in ``chip_smoke.py`` do not.
   tiers, a zero-row batch, and the refusals;
 * the ensemble cascade (E stacked key panels, weighted fused score):
   E in {1, 3}, fp32 and int8, k in {1, 4}; E=1 equal to the single
-  cascade bit for bit; an empty warm tier, an all-invalid hot tier, a
-  zero-row batch; the refusals and a launch the card refuses;
+  cascade bit for bit, also over several 16-query tiles; an empty warm
+  tier, an all-invalid hot tier, a zero-row batch; D=2048 at E=8; the
+  refusals and a launch the kernel refuses;
+* the cascade's partition over CTAs: exact duplicates of one key in
+  different hot chunks, bucket chunks and the tail (ties keep the plain
+  version's order across CTAs), buckets probed by more than one
+  16-query tile of queries, Q not a multiple of the tile;
 * cosine top-k: odd widths, k up to the maximum, ties (lowest index
   first), all-invalid and fewer-valid-than-k panels, an empty batch, a
   float64 recomputation and the refusals; Q, N and D ragged across the
@@ -31,8 +36,11 @@ serving- and training-shape checks in ``chip_smoke.py`` do not.
   warp tiles), Skv off the 64-row K/V tiles, and misaligned views
   refused (float32 takes them);
 * decode attention: the same dtypes and widths, ragged cache lengths,
-  random, ring-buffer and fully masked validity, MHA, GQA and MQA, and
-  the refusals.
+  random, ring-buffer and fully masked validity, MHA, GQA and MQA, 128
+  query heads on one KV head, and the refusals (misaligned caches);
+  split-L edges with the wrapper made to split a short cache (a ragged
+  last split, a split whose every slot is masked, a fully masked row,
+  G = 1, 5 and 32 at hd 96 and 128), and one split against many.
 
 Tolerances: scores ``atol 1e-5`` (fp32 sums in another order); ids,
 slots and flags exactly; contrastive components ``rtol 1e-5``, their
@@ -385,8 +393,8 @@ def test_ensemble_empty_and_invalid_tiers(dev):
 @pytest.mark.cuda
 def test_ensemble_refusals_and_refused_launch(dev, monkeypatch):
     """The wrapper refuses what the kernel does not take; a launch the
-    card refuses (here: more shared memory than a block may take without
-    opting in) raises and is not counted."""
+    kernel refuses (here: a partition with other tiles than its own)
+    raises and is not counted."""
     g = torch.Generator(device=dev).manual_seed(14)
     hot, warm = _states(dev, g)
     q, qt, thr = _queries(dev, g, 3, 64)
@@ -398,19 +406,122 @@ def test_ensemble_refusals_and_refused_launch(dev, monkeypatch):
         ops.ensemble_lookup(qe, w[:, :2].contiguous(), *args[2:], k=1)
     with pytest.raises(ValueError, match="hot_keys"):
         ops.ensemble_lookup(*args[:4], hot.keys, *args[5:], k=1)
+    # the widest panels at the most panels: the scoring kernel stages D
+    # in chunks, so its shared memory no longer grows with D or E
     D, E = 2048, 8
     big_hot = tiers.init_hot(8, D, dev)
     big_warm = tiers.init_warm(16, D, 2, 4, dev)
     big_q = _unit(torch.randn(2, D, generator=g, device=dev))
     ens, qe, w = _ensemble(dev, g, big_hot, big_warm, big_q, E)
     args = _ens_args(big_hot, big_warm, ens, qe, w, qt[:2], thr[:2])
-    with pytest.raises(ValueError, match="shared memory"):
-        ops.ensemble_lookup(*args, k=1, n_probe=2, tail=4)
-    monkeypatch.setattr(kernel, "MAX_SMEM", 1 << 20)
+    _ens_check(args, k=1, n_probe=2, tail=4)
+    # a launch geometry the kernel does not take is refused on the card
+    monkeypatch.setattr(kernel, "ROW_TILE", 32)
     before = kernel.COUNTS["cascade_lookup_ensemble"]
     with pytest.raises(RuntimeError, match="launch failed"):
         ops.ensemble_lookup(*args, k=1, n_probe=2, tail=4)
     assert kernel.COUNTS["cascade_lookup_ensemble"] == before
+
+
+def _dyadic(dev, g, n, D):
+    """Rows of multiples of 1/4 in [-1/2, 1/2]: every dot product of two
+    of them is exact in float32 whatever the order of the sum, so equal
+    rows tie exactly on both sides."""
+    return torch.randint(-2, 3, (n, D), generator=g, device=dev).float() / 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+def test_ties_across_cta_boundaries(dev, quantized):
+    """One key X duplicated in three hot chunks (rows 5, 70, 150) and in
+    four warm bucket chunks of two probed buckets plus the tail: the
+    duplicates fall into different scoring CTAs and must still come out
+    in the plain version's order (hot rows ascending, then warm flat
+    positions ascending), with every other row scoring below X . X."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    D, Nh, cap, bucket = 64, 200, 512, 256
+    x = torch.full((D,), 0.5, device=dev)         # X . X = 16 > any other
+    hot_keys = _dyadic(dev, g, Nh, D)
+    hot_keys[[5, 70, 150]] = x
+    hot = tiers.init_hot(Nh, D, dev)._replace(
+        keys=hot_keys, valid=torch.ones(Nh, dtype=torch.bool, device=dev),
+        tenants=torch.zeros(Nh, dtype=torch.int32, device=dev),
+        value_ids=torch.arange(Nh, dtype=torch.int32, device=dev))
+    keys = _dyadic(dev, g, cap, D)
+    keys[[3, 100, 300, 450, 505]] = x             # 505: in the tail
+    members = torch.arange(cap, dtype=torch.int32,
+                           device=dev).reshape(2, bucket)
+    warm = tiers.init_warm(cap, D, 2, bucket, dev)._replace(
+        keys=keys, valid=torch.ones(cap, dtype=torch.bool, device=dev),
+        tenants=torch.zeros(cap, dtype=torch.int32, device=dev),
+        value_ids=torch.arange(1000, 1000 + cap, dtype=torch.int32,
+                               device=dev),
+        write_seq=torch.arange(1, cap + 1, dtype=torch.int32, device=dev),
+        total=torch.tensor(cap, dtype=torch.int32, device=dev),
+        cursor=torch.tensor(0, dtype=torch.int32, device=dev),
+        centroids=torch.stack([x, -x]), members=members,
+        indexed_total=torch.tensor(cap - 10, dtype=torch.int32,
+                                   device=dev))
+    warm = tiers.requantize(warm)
+    q = torch.stack([x, x, hot_keys[0]])
+    qt = torch.zeros(3, dtype=torch.int32, device=dev)
+    qt[1] = 1                                      # no row of its tenant
+    thr = torch.full((3,), 0.5, device=dev)
+    s, vids, wslots, hslots, hot_hit, hit = _check(
+        _args(hot, warm, q, qt, thr), k=8, n_probe=2, tail=12,
+        quantized=quantized)
+    assert vids[0, :3].tolist() == [5, 70, 150]
+    assert int(hslots[0]) == 5 and bool(hot_hit[0])
+    if not quantized:     # int8 rows of X are exact too, but rescaled
+        assert wslots[0, 3:7].tolist() == [3, 100, 300, 450]
+        assert vids[0, 7].item() == 1505          # the tail copy last
+    assert not hit[1] and int(hslots[1]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [33, 40])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_bucket_overlap_between_queries(dev, Q, quantized):
+    """Four clusters, three probed per query: every bucket is probed by
+    most of the Q queries, more than one 16-query tile of them, with Q
+    not a multiple of the tile; single and E=3 forms against their plain
+    versions."""
+    g = torch.Generator(device=dev).manual_seed(30 + Q)
+    hot, warm = _states(dev, g, K=4, bucket=160, cap=512)
+    q, qt, thr = _queries(dev, g, Q, 64)
+    src = torch.nonzero(warm.valid).squeeze(1)[:Q // 2]
+    q[:Q // 2] = _unit(warm.keys[src] + 0.02 * torch.randn(
+        Q // 2, 64, generator=g, device=dev))
+    qt[:Q // 2] = warm.tenants[src]
+    out = _check(_args(hot, warm, q, qt, thr), k=4, n_probe=3, tail=48,
+                 quantized=quantized)
+    assert out[5].any() and (out[2] >= 0).any()
+    probes = torch.topk(q @ warm.centroids.T, 3).indices
+    per_bucket = torch.bincount(probes.flatten(), minlength=4)
+    assert int(per_bucket.max()) > kernel.QUERY_TILE
+    ens, qe, w = _ensemble(dev, g, hot, warm, q, 3)
+    _ens_check(_ens_args(hot, warm, ens, qe, w, qt, thr), k=4, n_probe=3,
+               tail=48, quantized=quantized)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+def test_ensemble_e1_equals_the_single_form_over_query_tiles(dev,
+                                                             quantized):
+    """E=1 at weight 1 through three 16-query tiles (Q = 33): every
+    output equal to the single form's, scores bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    hot, warm = _states(dev, g, bucket=160)
+    q, qt, thr = _queries(dev, g, 33, 64)
+    ens = tiers.init_ensemble(1, hot, warm)
+    kw = dict(k=3, n_probe=4, tail=48, quantized=quantized)
+    a = ops.cascade_lookup(*_args(hot, warm, q, qt, thr), **kw)
+    b = ops.ensemble_lookup(*_ens_args(hot, warm, ens, q[None],
+                                       torch.ones(33, 1, device=dev), qt,
+                                       thr), **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 # ---------------------------------------------------------------------------
@@ -868,13 +979,72 @@ def test_decode_attention_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="head_dim"):
         da_ops.decode_attention(torch.randn(1, 1, 4, 48, device=dev), k, k,
                                 valid)
+    # any group width: 128 query heads on one KV head (8 mma tiles)
     k = torch.randn(1, 16, 1, 128, device=dev)
-    with pytest.raises(ValueError, match="accumulator"):
-        da_ops.decode_attention(torch.randn(1, 1, 128, 128, device=dev), k,
-                                k, valid)
+    q = torch.randn(1, 128, 128, device=dev)
+    _decode_check(q, k, k, valid)
+    _decode_check(q.bfloat16(), k.bfloat16(), k.bfloat16(), valid)
+    with pytest.raises(ValueError, match="aligned"):
+        kb = torch.randn(1 * 16 * 128 + 1, device=dev)[1:].view(1, 16, 1,
+                                                                 128)
+        da_ops.decode_attention(q[:, None, :4].contiguous(), kb, kb, valid)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         da_ops.decode_attention(torch.randn(1, 1, 4, 128, device=dev).half(),
                                 k.half(), k.half(), valid)
     with pytest.raises(ValueError, match="dtype"):
         da_ops.decode_attention(torch.randn(1, 1, 4, 128, device=dev), k, k,
                                 valid.int())
+
+
+@pytest.fixture
+def many_sms(monkeypatch):
+    """Make the decode wrapper see a card of 10,000 SMs, so that it cuts
+    even a short cache into one-tile (64-row) splits and merges them."""
+    monkeypatch.setattr(da_kernel, "_sm_count", lambda index: 10_000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [96, 128])
+@pytest.mark.parametrize("H,KV", [(8, 8), (10, 2), (32, 1)])   # G 1, 5, 32
+def test_decode_attention_split_edges(dev, many_sms, dtype, hd, H, KV):
+    """Split-L flash-decoding at its edges: a ragged last split (L = 1000
+    is 15 full 64-row splits and one of 40), a split whose every slot is
+    masked, and a row whose every slot is masked (it averages v over all
+    L slots in every split and in the merge), at G = 1 (row kernel), 5
+    and 32 (the mma kernel in bf16)."""
+    B, L = 3, 1000
+    S, rows = da_kernel.splits(
+        B, da_kernel.units(H, KV, da_kernel.uses_mma(dtype, H // KV)), L,
+        da_kernel._sm_count(0))
+    assert (S, rows) == (16, 64)
+    g = torch.Generator(device=dev).manual_seed(hd + H)
+    q = torch.randn(B, H, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, L, KV, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, L, KV, hd, generator=g, device=dev).to(dtype)
+    valid = torch.rand(B, L, generator=g, device=dev) > 0.3
+    valid[0, 128:192] = False              # split 2 of row 0: all masked
+    valid[0, 960:] = True                  # the ragged split, all live
+    valid[1] = False                       # row 1: nothing valid
+    valid[2, :960] = False                 # row 2: only the last split
+    _decode_check(q, k, v, valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_splits_agree_with_one_pass(dev, monkeypatch,
+                                                     dtype):
+    """The same call with the cache in one split and in 8 (merged) gives
+    the same output within the attention tolerance."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn(2, 40, 128, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, 512, 8, 128, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, 512, 8, 128, generator=g, device=dev).to(dtype)
+    valid = torch.rand(2, 512, generator=g, device=dev) > 0.5
+    outs = []
+    for n_sm in (1, 10_000):
+        monkeypatch.setattr(da_kernel, "_sm_count", lambda index: n_sm)
+        outs.append(da_ops.decode_attention(q[:, None], k, v,
+                                            valid)[:, 0].float())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(outs[1], outs[0], **ATTN_TOL[dtype])

@@ -10,6 +10,8 @@ order; the reference's own kernel and oracle differ by ~1 ulp); hits,
 value ids, served strings and every stats counter exactly (the trace
 keeps top-1/top-2 gaps and threshold margins far above 1e-4).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -179,3 +181,33 @@ def test_unported_features_are_refused():
         LearningConfig(learned_embedder=True)
     with pytest.raises(ValueError, match="sharded"):
         ShardingConfig(mesh=object())
+
+
+def test_warm_block_is_accepted_and_changes_nothing():
+    """``--warm-block 256`` parses as in the reference's launcher, reaches
+    ``TieringConfig(warm_block=)``, and a trace with warm hits gives the
+    same answers, scores and stats with and without it (the reference's
+    streaming block never changes results; the CUDA kernel has no use for
+    it)."""
+    from repro_torch.launch import serve
+    from repro_torch.obs import Telemetry
+    args = serve.parse_args(["--device", "cpu", "--cache",
+                             "--warm-block", "256"])
+    assert args.warm_block == 256 and args.tiered
+    assert serve.make_cache(args, D, Telemetry()).warm_block == 256
+    batches, table = _trace(seed=2)
+    embed = lambda texts: np.stack([table[t] for t in texts])
+    out = []
+    for block in (None, 256):
+        tiering = dataclasses.replace(_tiering(TieringConfig, True, False),
+                                      warm_block=block)
+        cache = CacheService(CacheConfig(dim=D, threshold=0.9,
+                                         tiering=tiering), device="cpu")
+        svc = CachedLLMService(embed, cache, None, HashTokenizer())
+        res = [(r.query, r.response, r.cache_hit, r.score)
+               for texts, tenant in batches
+               for r in svc.handle(texts, tenant=tenant)]
+        out.append((res, cache.stats_snapshot()))
+    assert out[0][0] == out[1][0]
+    assert out[1][1].traffic["warm_hits"] > 0
+    _assert_stats_equal(out[0][1], out[1][1])
