@@ -17,7 +17,8 @@ or the port is not beside the script.  Phases, each fatal on failure:
    the bf16 decode-attention kernels of the mma path must have ``HMMA``
    and the others none; the cascade kernels must be ``FFMA`` with no
    ``HMMA``; and ``cuobjdump --dump-resource-usage`` must show no stack
-   or local memory (no spill) in the decode and cascade kernels;
+   or local memory (no spill) in the decode, cascade and contrastive
+   kernels;
 2. kernel parity, each kernel against its plain torch version on the
    same CUDA tensors, all timed with CUDA events (median of repeats
    after warm-up) over eager calls and over replays of a captured CUDA
@@ -40,7 +41,11 @@ or the port is not beside the script.  Phases, each fatal on failure:
    * the contrastive forward and backward at B=16 (the paper's batch)
      and B=4096, D=768, on mixed, all-duplicate and all-distinct
      labels; components ``rtol 1e-5``, gradients within ``GRAD_ATOL``
-     of torch autograd through the plain version;
+     of torch autograd through the plain version; the forward must be
+     one device kernel per call at both batches; timed beside the
+     card's launch floor (a one-element in-place add), the backward's
+     bound counted both for the rows it must read (the hard pairs) and
+     for all rows;
    * the ensemble cascade over E=3 stacked key panels at the cascade's
      serving shapes, random simplex weights per query, several tenants,
      fp32 and int8, k in {1, 4}; ints and flags equal, scores within
@@ -274,7 +279,8 @@ def device_kernels(fn, calls: int = 3) -> dict:
                             round(e.self_device_time_total / calls, 3)]
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA}
-        if got:
+        # or with some events lost (a fraction of a launch per call)
+        if got and all(v[0] == round(v[0]) for v in got.values()):
             break
     return got
 
@@ -704,26 +710,60 @@ def topk_phase(dev):
     return out
 
 
-def contrastive_bound_ms(B: int, D: int, backward: bool):
+def contrastive_bound_ms(B: int, D: int, backward: bool, hard=None):
     """Least time: the forward reads e1, e2 and the labels and writes
-    the components and the loss (6 B D flops); the backward reads e1, e2
-    and writes both gradients (6 B D flops).  Bytes bound both."""
-    n_bytes = 4 * (4 * B * D + 1) if backward else 8 * B * D + 4 * B + 20
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 6 * B * D / FP32_FLOPS
+    the components and the loss (6 B D flops); the backward reads e1 and
+    e2 of the ``hard`` pairs (those with a nonzero coefficient; all B
+    when None) and the upstream scalar and writes both gradients of
+    every pair (6 D flops per hard pair).  Bytes bound both."""
+    if backward:
+        h = B if hard is None else hard
+        n_bytes, flops = 8 * h * D + 8 * B * D + 4, 6 * h * D
+    else:
+        n_bytes, flops = 8 * B * D + 4 * B + 20, 6 * B * D
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes >= t_ops else "operations"
+
+
+def contrastive_hard_pairs(e1, e2, lab, margin: float = 0.5) -> int:
+    """Pairs whose loss coefficient is nonzero (the training loss's hard
+    pairs with d != 0, or with d < margin if distinct), from the plain
+    formulation: the rows the backward must read."""
+    import torch
+    from repro_torch.core import losses
+    d = losses.cosine_distance(e1, e2)
+    pos, neg = lab == 1, lab == 0
+    min_neg = torch.where(neg, d, losses.BIG).min()
+    max_pos = torch.where(pos, d, -losses.BIG).max()
+    hp = pos & torch.where(neg.any(), d > min_neg, True)
+    hn = neg & torch.where(pos.any(), d < max_pos, True)
+    coef = 2 * d * hp - 2 * (margin - d).clamp_min(0) * hn
+    return int((coef != 0).sum())
+
+
+def launch_floor_ms(dev):
+    """(eager, graph) ms of a one-element in-place add: the card's cost
+    of one launch that does no work."""
+    import torch
+    x = torch.zeros(1, device=dev)
+    return cuda_ms(lambda: x.add_(1.0)), graph_ms(lambda: x.add_(1.0))
 
 
 def contrastive_phase(dev):
     """The contrastive forward and backward kernels against the plain
     formulation (its autograd for the gradients) on the same CUDA
-    tensors, and the times of both."""
+    tensors, and the times of both beside the card's launch floor."""
     import torch
     from repro_torch.core import losses
     from repro_torch.kernels.contrastive import kernel, ops, ref
     g = torch.Generator(device=dev).manual_seed(2)
     D = 768
-    out = {"max_abs_err": 0.0, "by_b": {}}
+    floor_eager, floor_graph = launch_floor_ms(dev)
+    print(f"  launch floor (one-element in-place add): eager "
+          f"{floor_eager:.4f} ms, graph {floor_graph:.4f} ms")
+    out = {"max_abs_err": 0.0, "by_b": {}, "launch_floor_ms": floor_eager,
+           "launch_floor_graph_ms": floor_graph}
     for B in CONTRASTIVE_B:
         for labels in ("mixed", "pos", "neg"):
             e1 = torch.randn(B, D, generator=g, device=dev)
@@ -759,16 +799,17 @@ def contrastive_phase(dev):
             out["max_abs_err"] = max(out["max_abs_err"], err)
             if labels == "mixed":
                 mixed = (e1, e2, lab)
-        # times at the mixed batch, on the kernels' own entry points
+        # times at the mixed batch, on the kernels' own entry points; the
+        # forward's outputs after the loss are what the backward reads
         a, b, lab = mixed
-        _, _, rows, coef = kernel.forward(a, b, lab, 0.5)
+        saved = kernel.forward(a, b, lab, 0.5)[2:]
         up = torch.ones((), device=dev)
 
         def kfwd():
             return kernel.forward(a, b, lab, 0.5)
 
         def kbwd():
-            return kernel.backward(a, b, rows, coef, up)
+            return kernel.backward(a, b, *saved, up)
         fwd, bwd = cuda_ms(kfwd), cuda_ms(kbwd)
         fwd_graph, bwd_graph = graph_ms(kfwd), graph_ms(kbwd)
         fwd_kernels, bwd_kernels = device_kernels(kfwd), device_kernels(kbwd)
@@ -777,22 +818,38 @@ def contrastive_phase(dev):
             a1, a2, lab))
         plain_both = cuda_ms(lambda: torch.autograd.grad(
             losses.online_contrastive_loss(a1, a2, lab), (a1, a2)))
+        hard = contrastive_hard_pairs(a, b, lab)
         fb, fby = contrastive_bound_ms(B, D, False)
-        bb, bby = contrastive_bound_ms(B, D, True)
+        bb, bby = contrastive_bound_ms(B, D, True, hard)
+        bb_all, _ = contrastive_bound_ms(B, D, True)
         out["by_b"][B] = dict(
             fwd_ms=fwd, bwd_ms=bwd, fwd_graph_ms=fwd_graph,
-            bwd_graph_ms=bwd_graph, fwd_device_kernels=fwd_kernels,
+            bwd_graph_ms=bwd_graph, fwd_host_us=1e3 * (fwd - fwd_graph),
+            bwd_host_us=1e3 * (bwd - bwd_graph),
+            fwd_device_kernels=fwd_kernels,
             bwd_device_kernels=bwd_kernels, plain_fwd_ms=plain_fwd,
             plain_bwd_ms=plain_both - plain_fwd, fwd_bound_ms=fb,
-            fwd_bound_by=fby, bwd_bound_ms=bb, bwd_bound_by=bby)
+            fwd_bound_by=fby, bwd_bound_ms=bb, bwd_bound_by=bby,
+            bwd_bound_all_rows_ms=bb_all, hard_pairs=hard)
         print(f"  contrastive B={B}: components, loss and gradients equal "
               f"the plain version's (max |dgrad| {out['max_abs_err']:.3g});"
               f" forward {fwd:.4f} ms (graph {fwd_graph:.4f}, plain "
-              f"{plain_fwd:.4f}), backward {bwd:.4f} ms (graph "
-              f"{bwd_graph:.4f}, plain {plain_both - plain_fwd:.4f}), bounds "
-              f"{fb:.6f} / {bb:.6f} ms ({fby}); device kernels per call "
-              f"{fwd_kernels} / {bwd_kernels}")
+              f"{plain_fwd:.4f}, bound {fb:.6f} ({fby})), backward "
+              f"{bwd:.4f} ms (graph {bwd_graph:.4f}, plain "
+              f"{plain_both - plain_fwd:.4f}, bound {bb:.6f} for the {hard} "
+              f"hard of {B} pairs, {bb_all:.6f} reading all rows ({bby})); "
+              f"launch floor graph {floor_graph:.4f} ms; device kernels per "
+              f"call {fwd_kernels} / {bwd_kernels}")
     return out
+
+
+def check_contrastive_one_launch(cp) -> None:
+    """The forward is one device kernel per call at every batch."""
+    for B, row in cp["by_b"].items():
+        kernels = row["fwd_device_kernels"]
+        if len(kernels) != 1 or next(iter(kernels.values()))[0] != 1:
+            fail(f"contrastive forward at B={B}: device kernels per call "
+                 f"{kernels}, expected one kernel, launched once")
 
 
 # ---------------------------------------------------------------------------
@@ -1825,8 +1882,8 @@ def sass_phase(libs: dict) -> dict:
     """The bf16 flash kernels run on the tensor cores, the float32 one and
     cosine top-k on the FMA units: counted in the built SASS.  The bf16
     decode kernels of the mma path run on the tensor cores and the
-    cascade kernels on the FMA units, and neither redesigned source
-    spills."""
+    cascade kernels on the FMA units, and neither they nor the
+    contrastive kernels spill."""
     fa = sass_counts(libs["flash_attention"])
     bf16 = {n: c for n, c in fa.items() if "flash_attention_bf16_kernel" in n}
     f32 = {n: c for n, c in fa.items() if "flash_attention_kernel" in n}
@@ -1850,7 +1907,7 @@ def sass_phase(libs: dict) -> dict:
             c["FFMA"] for n, c in cl.items() if "cascade_score_kernel" in n):
         fail(f"cascade_lookup: HMMA present or FFMA missing: {cl}")
     usage = {}
-    for name in ("decode_attention", "cascade_lookup"):
+    for name in ("decode_attention", "cascade_lookup", "contrastive"):
         usage[name] = resource_usage(libs[name])
         spills = {n: u for n, u in usage[name].items()
                   if u.get("STACK", 0) or u.get("LOCAL", 0)}
@@ -1878,12 +1935,17 @@ def sass_phase(libs: dict) -> dict:
             "f32_HMMA": 0},
         "cosine_topk": {
             "kernels": len(ct),
-            "FFMA": sum(c["FFMA"] for c in ct.values()), "HMMA": 0}}
+            "FFMA": sum(c["FFMA"] for c in ct.values()), "HMMA": 0},
+        "contrastive": {
+            "kernels": len(usage["contrastive"]),
+            "max_registers": max(u["REG"] for u in
+                                 usage["contrastive"].values()),
+            "spills": 0}}
     print(f"  SASS: flash_attention {out['flash_attention']}; "
           f"cosine_topk {out['cosine_topk']}; decode_attention "
           f"{out['decode_attention']}; cascade_lookup "
-          f"{out['cascade_lookup']}")
-    for name in ("decode_attention", "cascade_lookup"):
+          f"{out['cascade_lookup']}; contrastive {out['contrastive']}")
+    for name in ("decode_attention", "cascade_lookup", "contrastive"):
         print(f"  registers per thread, {name}: " + "; ".join(
             f"{n[:60]} {u['REG']}" for n, u in usage[name].items()))
     return out
@@ -1933,6 +1995,7 @@ def main() -> int:
     ep = ensemble_kernel_phase(dev)
     tp = topk_phase(dev)
     cp = contrastive_phase(dev)
+    check_contrastive_one_launch(cp)
     ap = attention_kernel_phase(dev)
     if "--kernels-only" in sys.argv[1:]:
         print(card)
@@ -2029,7 +2092,10 @@ def main() -> int:
         "by_b": {b: {k: v for k, v in d.items() if k.startswith("fwd")
                      or k == "plain_fwd_ms"}
                  for b, d in cp["by_b"].items()},
-        "train_step_p50_ms": tr["step_p50_ms"], "card": card,
+        "launch_floor_ms": cp["launch_floor_ms"],
+        "launch_floor_graph_ms": cp["launch_floor_graph_ms"],
+        "train_step_p50_ms": tr["step_p50_ms"], "sass": sass["contrastive"],
+        "card": card,
     }, {
         "name": "contrastive_backward", "route": "cuda",
         "source": "src/repro_torch/kernels/contrastive/csrc/contrastive.cu",
@@ -2043,10 +2109,12 @@ def main() -> int:
         "bound_ms": cp["by_b"][b_train]["bwd_bound_ms"],
         "bound_by": cp["by_b"][b_train]["bwd_bound_by"],
         "library_ms": None, "at": f"B={b_train} D=768",
+        "bwd_bound_all_rows_ms":
+            cp["by_b"][b_train]["bwd_bound_all_rows_ms"],
         "by_b": {b: {k: v for k, v in d.items() if k.startswith("bwd")
-                     or k == "plain_bwd_ms"}
+                     or k in ("plain_bwd_ms", "hard_pairs")}
                  for b, d in cp["by_b"].items()},
-        "card": card,
+        "launch_floor_graph_ms": cp["launch_floor_graph_ms"], "card": card,
     }, {
         "name": "cascade_lookup_ensemble", "route": "cuda",
         "source": "src/repro_torch/kernels/cascade_lookup/csrc/"

@@ -6,11 +6,12 @@ Tensors on the CPU go to the plain torch versions (`ref.py`,
 
 ``online_contrastive_loss`` on CUDA tensors is a
 ``torch.autograd.Function``: the forward kernel computes the loss and
-saves each pair's distance terms, and the backward kernel turns the
-upstream gradient into dL/de1 and dL/de2.  It is the training loss of
-`core.trainer` (the reference trains through the jnp formulation and
-keeps its kernel forward-only; the port routes training through the
-kernel, with the same value and gradients).
+saves each pair's gradient scalars (zero for a pair that is not hard),
+and the backward kernel turns the upstream gradient into dL/de1 and
+dL/de2.  It is the training loss of `core.trainer` (the reference
+trains through the jnp formulation and keeps its kernel forward-only;
+the port routes training through the kernel, with the same value and
+gradients).
 """
 from __future__ import annotations
 
@@ -43,8 +44,16 @@ def _checked(e1, e2, labels):
     if labels.dtype.is_floating_point or labels.dtype == torch.bool:
         raise ValueError(f"labels must be an integer tensor, got "
                          f"{labels.dtype}")
-    return (e1.float().contiguous(), e2.float().contiguous(),
-            labels.to(torch.int32).contiguous())
+    return _as(e1, torch.float32), _as(e2, torch.float32), \
+        _as(labels, torch.int32)
+
+
+def _as(t, dtype):
+    """``t`` as a contiguous ``dtype`` tensor, itself when it is one
+    (the no-op conversions cost host time on every call)."""
+    if t.dtype != dtype:
+        t = t.to(dtype)
+    return t if t.is_contiguous() else t.contiguous()
 
 
 def contrastive_components(e1, e2, labels, margin: float = 0.5):
@@ -53,7 +62,7 @@ def contrastive_components(e1, e2, labels, margin: float = 0.5):
     no one-class fallback."""
     if e1.device.type == "cpu":
         return _ref.contrastive_components(e1, e2, labels, margin)
-    comps, _, _, _ = _kernel.forward(*_checked(e1, e2, labels), margin)
+    comps, _, _ = _kernel.forward(*_checked(e1, e2, labels), margin)
     return tuple(comps.unbind())
 
 
@@ -61,15 +70,15 @@ class _OnlineContrastive(torch.autograd.Function):
     @staticmethod
     def forward(ctx, e1, e2, labels, margin):
         a, b, lab = _checked(e1, e2, labels)
-        _, loss, rows, coef = _kernel.forward(a, b, lab, margin)
-        ctx.save_for_backward(a, b, rows, coef)
+        _, loss, saved = _kernel.forward(a, b, lab, margin)
+        ctx.save_for_backward(a, b, saved)
         return loss
 
     @staticmethod
     def backward(ctx, upstream):
-        a, b, rows, coef = ctx.saved_tensors
+        a, b, saved = ctx.saved_tensors
         up = upstream.float().contiguous()
-        g1, g2 = _kernel.backward(a, b, rows, coef, up)
+        g1, g2 = _kernel.backward(a, b, saved, up)
         return g1, g2, None, None
 
 

@@ -15,12 +15,16 @@ card: nothing is compiled here).
 * The cascade's scoring partition: the CTAs' chunks cover every hot row
   and every flat warm candidate position (probe-major, tail last) once,
   each into its own partial list.
+* The contrastive forward's cooperative grid: its warps own every pair
+  exactly once, the grid never exceeds the CTAs the card holds at once,
+  and the training batch is one CTA.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.cascade_lookup import kernel as cl_kernel
+from repro_torch.kernels.contrastive import kernel as co_kernel
 from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.cosine_topk import kernel as ct_kernel
 from repro_torch.kernels.cosine_topk.kernel import SOURCE as CT_SOURCE
@@ -196,3 +200,49 @@ def test_cascade_partition_at_the_serving_shapes():
     assert (g.q_tiles, g.hot_chunks, g.bucket_chunks, g.tail_chunks) \
         == (4, 16, 4, 4)
     assert g.n_part == 52 and g.ctas == 1104
+
+
+@pytest.mark.parametrize("B", [1, 16, 37, 300, 4096, 4097])
+@pytest.mark.parametrize("n_sm,ctas", [(132, 1), (132, 2), (8, 1), (8, 3)])
+def test_contrastive_geometry_covers_every_pair_once(B, n_sm, ctas):
+    """Warp w of CTA c owns rows (k * grid + c) * WARPS + w, k <
+    rows_per_warp, below B (the kernel's loop): every pair once, no warp
+    past its last row's chunk, the grid within the co-resident limit."""
+    grid, rows_per_warp = co_kernel.geometry(B, n_sm, ctas)
+    W = co_kernel.WARPS
+    assert 1 <= grid <= n_sm * ctas
+    owned = [(k * grid + c) * W + w for c in range(grid) for w in range(W)
+             for k in range(rows_per_warp) if (k * grid + c) * W + w < B]
+    assert sorted(owned) == list(range(B))
+    assert (rows_per_warp - 1) * grid * W < B     # no empty last round
+    if B <= n_sm * ctas * W:
+        assert rows_per_warp == 1 and grid == -(-B // W)
+
+
+@pytest.mark.parametrize("n_sm", [132, 8])
+def test_contrastive_geometry_caps_the_grid(n_sm):
+    """Past the co-resident rows the grid stays at n_sm * ctas and the
+    warps take more rows each."""
+    for ctas in (1, 2):
+        cap = n_sm * ctas
+        assert co_kernel.geometry(cap * co_kernel.WARPS, n_sm, ctas) \
+            == (cap, 1)
+        assert co_kernel.geometry(cap * co_kernel.WARPS + 1, n_sm, ctas) \
+            == (cap, 2)
+        assert co_kernel.geometry(10 ** 6, n_sm, ctas)[0] == cap
+
+
+def test_contrastive_geometry_at_the_training_batch():
+    """The paper's batch of 16 pairs is one CTA, one row per warp: its
+    grid barriers are __syncthreads.  B = 4096 is 256 CTAs where the
+    card holds two per SM, 132 (two rows a warp) where it holds one."""
+    assert co_kernel.geometry(16, 132, 1) == (1, 1)
+    assert co_kernel.geometry(4096, 132, 2) == (256, 1)
+    assert co_kernel.geometry(4096, 132, 1) == (132, 2)
+
+
+@pytest.mark.parametrize("B,n_sm,ctas", [(0, 132, 1), (16, 132, 0),
+                                         (16, 0, 1)])
+def test_contrastive_geometry_refuses_an_empty_grid(B, n_sm, ctas):
+    with pytest.raises(ValueError, match="no geometry"):
+        co_kernel.geometry(B, n_sm, ctas)

@@ -27,7 +27,11 @@ serving- and training-shape checks in ``chip_smoke.py`` do not.
   split of N with no valid row;
 * contrastive forward and backward: mixed and one-class batches, B = 1,
   zero rows (the clamped denominator), large B, float64 recomputations
-  and the refusals;
+  and the refusals; for the cooperative forward, a ragged last CTA
+  (B = 4097), more pairs than the co-resident grid holds at one row per
+  warp, the one-class sentinels across CTAs, CUDA-graph replays equal
+  to eager calls bit for bit, two streams in flight at once, and exact
+  zero gradients for pairs that are not hard (their rows never read);
 * flash attention: float32 and bf16, head widths 32, 64, 96 and 128,
   ragged sequences, Sq < Skv, causal, bidirectional and sliding-window
   masks, MHA, GQA and MQA, strided (B, S, H, hd) views read in place,
@@ -720,7 +724,7 @@ def _contrastive_check(e1, e2, lab, margin=0.5, grad_rtol=0.0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,D", [(1, 8), (16, 768), (37, 37), (300, 64),
-                                 (4096, 768)])
+                                 (4096, 768), (4097, 768), (4097, 37)])
 @pytest.mark.parametrize("labels", ["mixed", "pos", "neg"])
 def test_contrastive_matches_plain_version(dev, B, D, labels):
     if B == 1 and labels == "mixed":
@@ -802,6 +806,128 @@ def test_contrastive_refuses_what_the_kernel_does_not_take(dev):
         cl_ops.contrastive_components(e1, e2, lab[:3])
     with pytest.raises(ValueError, match="on cpu"):
         cl_ops.contrastive_components(e1, e2, lab.cpu())
+
+
+def _coresident_rows(dev):
+    """Pairs the forward's co-resident grid covers at one row per warp."""
+    n_sm, ctas = cl_kernel._device_limits(dev.index or 0)
+    return n_sm * ctas * cl_kernel.WARPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("labels", ["mixed", "neg"])
+def test_contrastive_above_the_coresident_rows(dev, labels):
+    """More pairs than the capped grid holds at one row per warp: warps
+    take several rows each, on both sides of the grid barrier."""
+    B = 2 * _coresident_rows(dev) + 5
+    n_sm, ctas = cl_kernel._device_limits(dev.index or 0)
+    grid, rows_per_warp = cl_kernel.geometry(B, n_sm, ctas)
+    assert grid == n_sm * ctas and rows_per_warp == 3
+    g = torch.Generator(device=dev).manual_seed(25)
+    _contrastive_check(*_pairs(dev, g, B, 64, labels))
+
+
+@pytest.mark.cuda
+def test_contrastive_one_class_sentinels_across_ctas(dev):
+    """A one-class batch on a grid of many CTAs keeps the +-1e9
+    sentinels, as one CTA does."""
+    g = torch.Generator(device=dev).manual_seed(26)
+    for labels, zero, sentinel, value in (("pos", 0, 2, 1e9),
+                                          ("neg", 1, 3, -1e9)):
+        e1, e2, lab = _pairs(dev, g, 4097, 64, labels)
+        got, _, _, _ = _contrastive_check(e1, e2, lab)
+        assert float(got[zero]) == 0.0 and float(got[sentinel]) == value
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 4097])
+def test_contrastive_graph_replays_equal_eager_calls(dev, B):
+    """Twenty calls replayed from a CUDA graph give the components, the
+    loss and the gradients of twenty eager calls, bit for bit (every sum
+    runs in a fixed order)."""
+    g = torch.Generator(device=dev).manual_seed(27)
+    batches = [_pairs(dev, g, B, 768) for _ in range(20)]
+    up = torch.full((), 0.75, device=dev)
+
+    def calls():
+        out = []
+        for e1, e2, lab in batches:
+            comps, loss, saved = cl_kernel.forward(e1, e2, lab, 0.5)
+            out.append((comps, loss, *cl_kernel.backward(e1, e2, saved, up)))
+        return out
+
+    eager = [[t.clone() for t in ts] for ts in calls()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = calls()
+    graph.replay()
+    torch.cuda.synchronize()
+    for want, got in zip(eager, replayed):
+        for w, x in zip(want, got):
+            assert torch.equal(w, x)
+
+
+@pytest.mark.cuda
+def test_contrastive_two_streams_in_flight(dev):
+    """Calls on two streams at once each give their own batch's answer
+    (every call has its own buffer of partials)."""
+    g = torch.Generator(device=dev).manual_seed(28)
+    batches = [_pairs(dev, g, 4097, 768, labels)
+               for labels in ("mixed", "pos")]
+    want = [torch.stack(cl_ref.contrastive_components(*b)) for b in batches]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(10):
+        for i, (s, b) in enumerate(zip(streams, batches)):
+            with torch.cuda.stream(s):
+                got[i].append(cl_kernel.forward(*b, 0.5)[0])
+    torch.cuda.synchronize()
+    for w, outs in zip(want, got):
+        for comps in outs:
+            torch.testing.assert_close(comps[:2], w[:2], rtol=1e-5,
+                                       atol=1e-6)
+            torch.testing.assert_close(comps[2:], w[2:], rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [768, 37])
+def test_contrastive_pairs_that_are_not_hard_get_exact_zeros(dev, D):
+    """A pair with coefficient 0 (here duplicates with e2 = e1, below
+    min_neg, and distinct pairs with e2 = -e1, above max_pos) gets
+    gradients of exactly 0, written without reading its rows: its rows
+    hold NaN in the backward, which any read would carry into the
+    gradient."""
+    g = torch.Generator(device=dev).manual_seed(29)
+    e1, e2, lab = _pairs(dev, g, 64, D)
+    e2[:8], lab[:8] = e1[:8], 1
+    e2[8:16], lab[8:16] = -e1[8:16], 0
+    d = losses.cosine_distance(e1, e2)
+    pos, neg = lab == 1, lab == 0
+    hp = pos & (d > torch.where(neg, d, 1e9).min())
+    hn = neg & (d < torch.where(pos, d, -1e9).max())
+    zero = (2 * d * hp - 2 * (0.5 - d).clamp_min(0) * hn) == 0
+    assert bool(zero[:16].all()) and int(zero.sum()) < 64
+    _, _, saved = cl_kernel.forward(e1, e2, lab, 0.5)
+    assert bool((saved[zero] == 0).all())
+    assert bool((saved[~zero, 3] != 0).all())
+    x1, x2 = e1.clone(), e2.clone()
+    x1[zero] = float("nan")
+    x2[zero] = float("nan")
+    k1, k2 = cl_kernel.backward(x1, x2, saved, torch.ones((), device=dev))
+    a1, a2 = e1.clone().requires_grad_(), e2.clone().requires_grad_()
+    p1, p2 = torch.autograd.grad(
+        losses.online_contrastive_loss(a1, a2, lab, 0.5), (a1, a2))
+    torch.cuda.synchronize()
+    assert bool((k1[zero] == 0).all()) and bool((k2[zero] == 0).all())
+    torch.testing.assert_close(k1, p1, rtol=0, atol=1e-6)
+    torch.testing.assert_close(k2, p2, rtol=0, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
