@@ -110,7 +110,35 @@ or the port is not beside the script.  Phases, each fatal on failure:
    (b) The same weights with float32 activations, teacher-forced: every
    decode step's logits must equal ``forward_lm``'s at the same position
    within ``DECODE_ATOL`` — the two kernels held against each other at
-   full width.
+   full width (it runs after phase 8, once the bf16 decoder is freed);
+8. the cache service's maintenance loop, through ``plan`` / ``commit``
+   / ``maintenance`` on phase 3's trace and embeddings.  (a) The cold
+   tier: hot 256, warm 1024 int8 rows (K=16), a host-RAM cold tier of
+   8192 rows, fused: warm-ring overwrites must be captured into the cold
+   tier with no drop, with cold fetches, cold hits, a promotion back to
+   warm and a cold route rebuild, cascade launches equal to plans and
+   every hit answered with the echo of the very same text; the same
+   trace four-op must give the same hits, value ids and cold counters.
+   (b) Phase 3's configuration with ``background_rebuild`` and
+   maintenance on every 32nd batch only, so that flushes race the
+   shadow in flight: shadow builds started and published, after every
+   batch no warm row newer than the index outside the tail window, every
+   hot, tail and listed row answering its own key and every other
+   indexed row left out only by a full list, each published shadow equal
+   to the inline
+   rebuild of its snapshot, and the quiesced tiers equal fused and
+   four-op; the plans served during a build and the publish stall are
+   printed.  (c) Phase 6(b) again with conformal calibration, every hit
+   audited (false iff another meaning): a tenant's floor must rise above
+   its learned threshold and launches equal plans; thresholds, floors,
+   hit rates and false hits per hit are printed beside 6(b)'s.  (d)
+   ``ContinuousBatcher`` over phase 7's decoder (8 slots, a 256-slot
+   pool, 32-token prompts, 24 requests of 4 to 32 new tokens) with (b)'s
+   ``maintenance`` on idle ticks: every request finishes, flash
+   launches equal 32 per admission and decode launches 32 per tick with
+   an active slot, the hook runs on idle ticks and skips saturated ones,
+   and after every admission the pool's rows equal the slot's prefill
+   state bit for bit.
 
 Prints the card's name and power limit, the stage latencies, a JSON
 line of per-kernel numbers and, last, ``{"ok": true, "device": ...}``.
@@ -189,6 +217,14 @@ LLM_NEW_TOKENS = 16        # CachedLLMService's default answer length
 # phase 7(b): float32 decode against forward_lm at full width; logits are
 # O(1) and both paths sum in float32 in another order through 32 layers
 DECODE_ATOL = 1e-3
+# phase 8(a): the hierarchy squeezed so the warm ring wraps on the trace
+# (about 1775 admissions against 256 + 1024 device rows), the cold ring
+# large enough to catch every overwrite
+COLD_TIERING = dict(hot_capacity=256, warm_capacity=1024, n_clusters=16,
+                    cold_capacity=8192)
+# phase 8(d): the continuous batcher's pool over the phase-7 decoder
+BATCHER = dict(n_slots=8, max_len=256, prompt_len=32)
+BATCHER_REQUESTS = 24
 
 
 def fail(msg: str) -> None:
@@ -258,20 +294,20 @@ def graph_ms(fn, iters: int = 20, reps: int = 7) -> float:
 
 def device_kernels(fn, calls: int = 3) -> dict:
     """{device kernel name: [launches, device µs]} per call of ``fn``,
-    read with ``torch.profiler`` over ``calls`` calls after a warm-up
-    step of the profiler's schedule (events of the first traced call can
-    be lost): what a wrapper call issues on the card (a wrapper's count
-    adds one per call, however many kernels the call issues), and where
-    its device time goes."""
+    read with ``torch.profiler`` over ``calls`` calls after two warm-up
+    steps of the profiler's schedule (with one, the events of a traced
+    call were now and then lost): what a wrapper call issues on the card
+    (a wrapper's count adds one per call, however many kernels the call
+    issues), and where its device time goes."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     from torch.profiler import schedule
     got = {}
     for _ in range(3):            # a trace now and then comes back empty
         with tprofile(activities=[ProfilerActivity.CUDA],
-                      schedule=schedule(wait=0, warmup=1, active=calls,
+                      schedule=schedule(wait=0, warmup=2, active=calls,
                                         repeat=1)) as prof:
-            for _ in range(1 + calls):
+            for _ in range(2 + calls):
                 fn()
                 torch.cuda.synchronize()
                 prof.step()
@@ -412,7 +448,7 @@ def work_bound_ms(hot, warm, q, qt, k: int, quantized: bool, E: int = 1):
     (routing runs on it alone); E > 1 adds the other panels' query rows
     and the (Q, E) weights."""
     import torch
-    from repro_torch.kernels.cascade_lookup.ref import topk_stable
+    from repro_torch.core.topk import topk_stable
     s = SHAPES
     Q, D, tail, bucket = s["Q"], s["D"], s["tail"], s["bucket"]
     cap = warm.valid.shape[0]
@@ -858,9 +894,8 @@ def check_contrastive_one_launch(cp) -> None:
 
 def serving_phase(dev):
     import numpy as np
-    import torch
     from repro_torch.cache_service import (
-        CacheConfig, CacheService, TieringConfig, tiers,
+        CacheConfig, CacheService, TieringConfig,
     )
     from repro_torch.core import EmbedderTrainer, FinetuneConfig
     from repro_torch.data import HashTokenizer, make_query_stream
@@ -932,26 +967,12 @@ def serving_phase(dev):
     if emb.shape != (BATCH, cfg.d_model) or not np.isfinite(emb).all() \
             or np.abs(np.linalg.norm(emb, axis=1) - 1).max() > 1e-3:
         fail(f"bad embeddings: {emb.shape}")
-    qd = torch.as_tensor(emb, device=dev)
-    qt = torch.zeros(BATCH, dtype=torch.int32, device=dev)
-    thr = torch.full((BATCH,), THRESHOLD, device=dev)
-    fused = tiers.cascade_query(cache.hot, cache.warm, qd, qt, thr,
-                                k=cache.topk, n_probe=cache._n_probe,
-                                tail=cache._tail, fused=True)
-    four = tiers.cascade_query(cache.hot, cache.warm, qd, qt, thr,
-                               k=cache.topk, n_probe=cache._n_probe,
-                               tail=cache._tail, fused=False)
-    torch.cuda.synchronize()
-    for name in ("value_ids", "hot_slots", "hot_hit", "hit"):
-        if not torch.equal(getattr(fused, name), getattr(four, name)):
-            fail(f"final tiers: fused vs four-op {name} differ")
-    err = float((fused.scores - four.scores).abs().max())
-    if err > SCORE_ATOL:
-        fail(f"final tiers: fused vs four-op scores differ by {err:.3g}")
+    final_tiers_agree(cache, emb, "serving")
     prof = profile(lambda: svc.handle(texts[:BATCH], tenant=0),
                    "serving batch")
     return {"launches": launches, "plans": plans, "p50_ms": p50,
-            "hits": st["hits"], "hit_rate": st["hit_rate"], "profile": prof}
+            "hits": st["hits"], "hit_rate": st["hit_rate"], "profile": prof,
+            "embed_fn": svc.embed_fn, "texts": texts}
 
 
 def profile(fn, what: str) -> dict:
@@ -1251,14 +1272,16 @@ def ensemble_score_report(embed_fn, names, stream) -> dict:
     return out
 
 
-def ensemble_config(threshold: float, telemetry=None):
+def ensemble_config(threshold: float, telemetry=None,
+                    conformal: bool = False):
     from repro_torch.cache_service import (
         CacheConfig, EnsembleConfig, LearningConfig, TieringConfig,
     )
     return CacheConfig(dim=encoder_config().d_model, threshold=threshold,
                        telemetry=telemetry,
                        tiering=TieringConfig(fused=True),
-                       learning=LearningConfig(learned_admission=True),
+                       learning=LearningConfig(learned_admission=True,
+                                               conformal=conformal),
                        ensemble=EnsembleConfig(embedders=ENS_E))
 
 
@@ -1359,10 +1382,14 @@ def ensemble_serving_phase(dev, embed_fn, thr: float, tok) -> dict:
             "paraphrase_hits": paraphrase_hits, "profile": prof}
 
 
-def ensemble_learning_phase(dev, embed_fn, names, thr: float) -> dict:
+def ensemble_learning_phase(dev, embed_fn, names, thr: float,
+                            conformal: bool = False, embs=None) -> dict:
     """(b) A fresh service over the trace on two tenants (batches
     alternate), each miss answered with its meaning's canonical
-    response, ``maintenance()`` after every commit."""
+    response, ``maintenance()`` after every commit.  With ``conformal``
+    (phase 8(c)) every hit is audited as the scenario bench does (a
+    false hit iff another (entity, aspect)) and fed to the §14.3 window;
+    ``embs`` reuses the batches' embeddings of an earlier run."""
     import numpy as np
     from repro_torch.cache_service import CacheRequest, CacheService
     from repro_torch.data import make_query_stream
@@ -1372,17 +1399,29 @@ def ensemble_learning_phase(dev, embed_fn, names, thr: float) -> dict:
                                repeat_frac=0.4)
     canon = {(x.entity, x.aspect): f"canon({x.entity}|{x.aspect})"
              for x in stream}
-    cache = CacheService(ensemble_config(thr), device=dev)
+    cache = CacheService(ensemble_config(thr, conformal=conformal),
+                         device=dev)
     counts = {t: {"queries": 0, "hits": 0, "false_hits": 0} for t in (0, 1)}
+    fb = cache.feedback
+    embs = [] if embs is None else list(embs)
+    fresh = not embs
+    floor_above = {0: False, 1: False}
     kernel.COUNTS["cascade_lookup_ensemble"] = 0
     t0 = time.perf_counter()
     for b, i in enumerate(range(0, N_REQUESTS, BATCH)):
         batch = stream[i:i + BATCH]
         texts = [x.text for x in batch]
         tenant = b % 2
-        plan = cache.plan(CacheRequest.build(embed_fn(texts), tenant,
-                                             texts=texts), coalesce=False)
+        if fresh:
+            embs.append(embed_fn(texts))
+        plan = cache.plan(CacheRequest.build(embs[b], tenant, texts=texts),
+                          coalesce=False)
         want = [canon[(x.entity, x.aspect)] for x in batch]
+        if conformal:
+            for i in np.flatnonzero(plan.hit):
+                cache.feedback.observe_hit_audit(
+                    tenant, float(plan.scores[i]),
+                    plan.responses[i] == want[i])
         c = counts[tenant]
         c["queries"] += len(batch)
         c["hits"] += int(plan.hit.sum())
@@ -1391,10 +1430,14 @@ def ensemble_learning_phase(dev, embed_fn, names, thr: float) -> dict:
         cache.commit(plan, [None if h else w
                             for h, w in zip(plan.hit, want)])
         cache.maintenance()
+        if conformal:
+            for t in floor_above:
+                f = fb.conformal_floor(t)
+                floor_above[t] |= f is not None \
+                    and f > cache.policies.get(t).threshold
     wall = time.perf_counter() - t0
     launches = kernel.COUNTS["cascade_lookup_ensemble"]
     plans = cache.stats_snapshot().traffic["plans"]
-    fb = cache.feedback
     w_applied = [r for r in fb.weight_refit_log if r.applied]
     t_applied = [r for r in fb.refit_log if r.applied]
     budget = fb.config.max_false_hit_rate
@@ -1408,21 +1451,24 @@ def ensemble_learning_phase(dev, embed_fn, names, thr: float) -> dict:
           f"for {plans} plans")
     out = {"launches": launches, "plans": plans, "tenants": {},
            "weight_refits": len(w_applied), "threshold_refits":
-           len(t_applied)}
+           len(t_applied), "embs": embs, "floor_above": floor_above}
     weights = cache.policies.weights_state()
     for t, c in counts.items():
         w = weights.get(t, [1.0 / ENS_E] * ENS_E)
         pol = cache.policies.get(t)
         fh = c["false_hits"] / max(c["hits"], 1)
+        floor = fb.conformal_floor(t) if conformal else None
         out["tenants"][t] = dict(weights=w, threshold=pol.threshold,
                                  margin=pol.admission_margin,
                                  hit_rate=c["hits"] / c["queries"],
                                  false_hits=c["false_hits"],
-                                 false_hit_share=fh)
+                                 false_hit_share=fh, floor=floor)
         print(f"  tenant {t}: weights " + ", ".join(
             f"{n} {x:.4f}" for n, x in zip(names, w))
             + f"; threshold {thr:.6f} -> {pol.threshold:.6f} (margin "
-            f"{pol.admission_margin:.4f}); hit rate "
+            f"{pol.admission_margin:.4f}"
+            + (f"; conformal floor {floor:.6f}" if floor is not None
+               else "") + "); hit rate "
             f"{c['hits'] / c['queries']:.4f}; false hits {c['false_hits']}"
             f" of {c['hits']} hits ({fh:.4f}; budget {budget})")
     for r in w_applied[:3] + w_applied[-2:]:
@@ -1836,6 +1882,377 @@ def decode_forward_phase(dev, cfg) -> dict:
     return {"max_abs_err": max(errs), "positions": len(errs)}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the cache service's maintenance loop
+# ---------------------------------------------------------------------------
+
+def embed_batches(embed_fn, texts) -> list:
+    """The trace's embeddings in the serving batches of ``BATCH``."""
+    return [embed_fn(texts[i:i + BATCH])
+            for i in range(0, len(texts), BATCH)]
+
+
+def drive_echo(cache, embs, texts, on_batch=None,
+               maintain_every: int = 1) -> dict:
+    """Plan / commit over the trace on one tenant, ``maintenance`` after
+    every ``maintain_every``-th batch, each miss answered with the echo
+    of its own text; fails on a hit answered otherwise (the threshold
+    sits in the gap between scores of different texts and of equal
+    texts, as in phase 3)."""
+    import numpy as np
+    from repro_torch.cache_service import CacheRequest
+    hits, vids = 0, []
+    for b, emb in enumerate(embs):
+        tx = texts[b * BATCH:(b + 1) * BATCH]
+        plan = cache.plan(CacheRequest.build(emb, 0, texts=tx),
+                          coalesce=False)
+        for h, r, q in zip(plan.hit, plan.responses, tx):
+            if h and r != f"answer({q})":
+                fail(f"request {q!r} answered {r!r}")
+        hits += int(plan.hit.sum())
+        vids.append(plan.value_ids.copy())
+        cache.commit(plan, [None if h else f"answer({q})"
+                            for h, q in zip(plan.hit, tx)])
+        if (b + 1) % maintain_every == 0:
+            cache.maintenance()
+        if on_batch is not None:
+            on_batch(b)
+    return {"hits": hits, "misses": len(texts) - hits,
+            "value_ids": np.concatenate(vids)}
+
+
+def stage_hist_ms(telemetry, stages) -> dict:
+    """{stage: (p50, mean)} in ms from the service's stage histogram:
+    the p50 interpolated inside its bucket, the mean exact (sum over
+    count)."""
+    h = telemetry.stage_histogram()
+    out = {}
+    for s in stages:
+        agg = h.aggregate(stage=s)
+        if agg.count:
+            out[s] = (1e3 * agg.quantile(0.5), 1e3 * agg.mean)
+    return out
+
+
+def cold_tier_phase(dev, embs, texts) -> dict:
+    """(a) The hierarchy squeezed so the warm ring wraps, int8 warm
+    rows, a host-RAM cold tier behind it; fused, then four-op."""
+    import torch
+    from repro_torch.cache_service import (
+        CacheConfig, CacheService, TieringConfig,
+    )
+    from repro_torch.kernels.cascade_lookup import kernel
+    from repro_torch.obs import Telemetry
+
+    def run(fused):
+        telemetry = Telemetry()
+        cache = CacheService(CacheConfig(
+            dim=SHAPES["D"], threshold=THRESHOLD, telemetry=telemetry,
+            tiering=TieringConfig(fused=fused, warm_dtype="int8",
+                                  **COLD_TIERING)), device=dev)
+        kernel.COUNTS["cascade_lookup"] = 0
+        t0 = time.perf_counter()
+        out = drive_echo(cache, embs, texts)
+        torch.cuda.synchronize()
+        out.update(wall_s=time.perf_counter() - t0,
+                   launches=kernel.COUNTS["cascade_lookup"],
+                   stats=cache.stats_snapshot(),
+                   stage_ms=stage_hist_ms(telemetry, (
+                       "plan", "cold_fetch", "commit", "maintenance")))
+        return out
+
+    f, u = run(True), run(False)
+    st = f["stats"]
+    t, cold = st.tiers, st.tiers["cold"]
+    print(f"  hot {COLD_TIERING['hot_capacity']}, warm "
+          f"{COLD_TIERING['warm_capacity']} int8 (K="
+          f"{COLD_TIERING['n_clusters']}), cold "
+          f"{COLD_TIERING['cold_capacity']}: {len(texts)} queries in "
+          f"{f['wall_s']:.2f} s; hits {f['hits']} (hot "
+          f"{st.traffic['hot_hits']}, warm {st.traffic['warm_hits']}, cold "
+          f"{st.traffic['cold_hits']}), misses {f['misses']}; launches "
+          f"{f['launches']} for {st.traffic['plans']} plans")
+    print(f"  warm-ring overwrites demoted {t['evictions_demoted']}, "
+          f"dropped {t['evictions_dropped']}; cold rows {cold['cold_rows']}"
+          f", fetches {cold['cold_fetches']} ({cold['cold_fetched_rows']} "
+          f"rows shipped, {cold['cold_router_skips']} router skips), cold "
+          f"hits {cold['cold_hits']}, promoted {cold['cold_promoted']}, "
+          f"route rebuilds {cold['cold_route_rebuilds']}, final drops "
+          f"{cold['cold_dropped']}")
+    for name, run_ in (("fused", f), ("four-op", u)):
+        print(f"  stage p50 / mean (ms, host wall incl. sync; the p50 "
+              f"interpolated in its histogram bucket), {name}: " + ", ".join(
+                  f"{s} {a:.3f} / {b:.3f}"
+                  for s, (a, b) in run_["stage_ms"].items()))
+    if f["launches"] != st.traffic["plans"]:
+        fail(f"cold tier: {f['launches']} cascade launches for "
+             f"{st.traffic['plans']} plans")
+    if not (t["evictions_demoted"] > 0 and t["evictions_dropped"] == 0
+            and cold["cold_dropped"] == 0):
+        fail(f"cold tier: demoted {t['evictions_demoted']}, dropped "
+             f"{t['evictions_dropped']}, final drops {cold['cold_dropped']}"
+             " (want captures and no drop while the cold ring has room)")
+    if not (cold["cold_fetches"] > 0 and st.traffic["cold_hits"] > 0
+            and cold["cold_promoted"] > 0
+            and cold["cold_route_rebuilds"] > 0):
+        fail(f"cold tier: fetches {cold['cold_fetches']}, hits "
+             f"{st.traffic['cold_hits']}, promotions "
+             f"{cold['cold_promoted']}, route rebuilds "
+             f"{cold['cold_route_rebuilds']}: need each")
+    us = u["stats"]
+    if (f["hits"], f["misses"]) != (u["hits"], u["misses"]) \
+            or not (f["value_ids"] == u["value_ids"]).all() \
+            or cold != us.tiers["cold"] or st.traffic != us.traffic:
+        fail(f"cold tier: fused and four-op runs differ: hits "
+             f"{f['hits']} / {u['hits']}, cold {cold} / "
+             f"{us.tiers['cold']}")
+    return {"launches": f["launches"], "plans": st.traffic["plans"],
+            "hits": f["hits"], "misses": f["misses"], "cold": cold,
+            "stage_ms": f["stage_ms"], "four_op_stage_ms": u["stage_ms"]}
+
+
+def check_reachable(cache, k_tail: int) -> dict:
+    """Every live row queried with its own key: the rows of the hot
+    tier, of the tail window and of the published lists must answer
+    (score 1 against a 0.999 threshold); a warm row newer than the index
+    outside the tail window would be stranded.  An indexed row may be
+    missing from the lists only as an inline rebuild leaves it out: its
+    nearest centroid's list is full (``sizes == bucket``) and holds only
+    lower ring slots (lists fill in slot order).  Any other unlisted row
+    fails the run."""
+    import numpy as np
+    import torch
+    from repro_torch.cache_service import tiers
+    hot, warm = cache.hot, cache.warm
+    cap = warm.keys.shape[0]
+    valid = warm.valid.cpu().numpy()
+    seq = warm.write_seq.cpu().numpy()
+    idx_total = int(warm.indexed_total)
+    cursor = int(warm.cursor)
+    tail = set(((cursor - 1 - np.arange(k_tail)) % cap).tolist())
+    members = warm.members.cpu().numpy()
+    listed = set(members[members >= 0].tolist())
+    fresh = valid & (seq > idx_total)
+    stranded = [p for p in np.flatnonzero(fresh) if p not in tail]
+    if stranded:
+        fail(f"background rebuild: {len(stranded)} warm rows newer than "
+             f"the published index lie outside the tail window")
+    must = [p for p in np.flatnonzero(valid)
+            if p in tail and seq[p] > idx_total
+            or p in listed and seq[p] <= idx_total]
+    unlisted = sorted(set(np.flatnonzero(valid).tolist()) - set(must))
+    if unlisted:
+        # the lists' own assignment: an indexed row is unchanged since
+        # the snapshot, so it scores the published centroids as it did
+        # (near-ties within SCORE_ATOL may have gone either way)
+        sims = (warm.keys @ warm.centroids.T).cpu().numpy()
+        sizes = warm.sizes.cpu().numpy()
+        full, last = sizes == members.shape[1], members.max(axis=1)
+        for p in unlisted:
+            near = sims[p] >= sims[p].max() - SCORE_ATOL
+            if not (near & full & (last < p)).any():
+                fail(f"background rebuild: warm row {p} (seq {seq[p]}, "
+                     f"indexed through {idx_total}) is in no list and its "
+                     "nearest centroid's list is not full")
+    keys = torch.cat([hot.keys[hot.valid], warm.keys[torch.as_tensor(
+        must, dtype=torch.long, device=warm.keys.device)]])
+    ten = torch.cat([hot.tenants[hot.valid], warm.tenants[torch.as_tensor(
+        must, dtype=torch.long, device=warm.keys.device)]])
+    if len(keys):
+        res = tiers.cascade_query(
+            hot, warm, keys, ten, torch.full((len(keys),), THRESHOLD,
+                                             device=keys.device),
+            k=cache.topk, n_probe=cache._n_probe, tail=cache._tail,
+            fused=True)
+        missed = int((~res.hit).sum())
+        if missed:
+            fail(f"background rebuild: {missed} of {len(keys)} hot, tail "
+                 "or listed rows do not answer their own key")
+    return {"checked": len(keys), "bucket_overflow": len(unlisted)}
+
+
+def background_rebuild_phase(dev, embs, texts) -> dict:
+    """(b) Phase 3's configuration with the double-buffered rebuild."""
+    import torch
+    from repro_torch.cache_service import (
+        CacheConfig, CacheService, TieringConfig, tiers,
+    )
+    from repro_torch.kernels.cascade_lookup import kernel
+    from repro_torch.obs import Telemetry
+    telemetry = Telemetry()
+    cache = CacheService(CacheConfig(
+        dim=SHAPES["D"], threshold=THRESHOLD, telemetry=telemetry,
+        tiering=TieringConfig(fused=True, background_rebuild=True)),
+        device=dev)
+    shadows = []
+    real = cache._rebuild
+
+    def capture(warm):
+        out = real(warm)
+        shadows.append((warm, out))
+        return out
+
+    cache._rebuild = capture
+    reach = {"checked": 0, "bucket_overflow": 0, "calls": 0}
+
+    def check(b):
+        r = check_reachable(cache, cache._tail)
+        reach["calls"] += r["checked"] > 0
+        reach["checked"] += r["checked"]
+        reach["bucket_overflow"] = max(reach["bucket_overflow"],
+                                       r["bucket_overflow"])
+
+    kernel.COUNTS["cascade_lookup"] = 0
+    t0 = time.perf_counter()
+    # a busy server: maintenance every 32nd batch, rarer than flushes
+    # (one every ~9 batches once the hot tier fills), so that flushes
+    # race the shadow in flight and publish it over rows appended since
+    # its snapshot
+    out = drive_echo(cache, embs, texts, on_batch=check,
+                     maintain_every=32)
+    cache.maintenance(block=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = cache.stats_snapshot()
+    rb, health = st.rebuild, st.health["rebuild"]
+    launches = kernel.COUNTS["cascade_lookup"]
+    plans = st.traffic["plans"]
+    if launches != plans + reach["calls"]:
+        fail(f"background rebuild: {launches} cascade launches for "
+             f"{plans} plans and {reach['calls']} reachability lookups")
+    print(f"  {len(texts)} queries in {wall:.2f} s (reachability checked "
+          f"after every batch: {reach['checked']} row lookups); hits "
+          f"{out['hits']}, misses {out['misses']}; shadow builds started "
+          f"{rb['shadow_started']}, published {health['publishes']}, "
+          f"rebuilds {rb['rebuilds']} (inline ones included); plans "
+          f"served while a shadow was in flight "
+          f"{health['overlap_plans_total']}; publish stall p99 "
+          f"{health['stall_p99_s'] * 1e3:.3f} ms; rows beyond a bucket's "
+          f"capacity at most {reach['bucket_overflow']}; cascade launches "
+          f"{launches} ({plans} plans, {reach['calls']} reachability "
+          "lookups)")
+    if rb["shadow_started"] < 1 or health["publishes"] < 1:
+        fail(f"background rebuild: {rb['shadow_started']} started, "
+             f"{health['publishes']} published")
+    # a published shadow is the inline rebuild of its snapshot
+    worst = 0.0
+    for snap, shadow in shadows:
+        inline = tiers.warm_rebuild(snap, cache._kmeans_iters, cache._seed)
+        for name in ("members", "sizes", "indexed_total"):
+            if not torch.equal(getattr(shadow, name),
+                               getattr(inline, name)):
+                fail(f"background rebuild: shadow {name} differs from the "
+                     "inline rebuild of its snapshot")
+        worst = max(worst, float((shadow.centroids
+                                  - inline.centroids).abs().max()))
+    if worst > SCORE_ATOL:
+        fail(f"background rebuild: shadow centroids differ by {worst:.3g}")
+    print(f"  {len(shadows)} shadows against the inline rebuild of their "
+          f"snapshots: lists and sizes equal, centroids within {worst:.3g}")
+    final_tiers_agree(cache, embs[-1], "background rebuild")
+    return {"shadow_started": rb["shadow_started"], "launches": launches,
+            "plans": plans,
+            "published": health["publishes"],
+            "overlap_plans": health["overlap_plans_total"],
+            "stall_p99_ms": health["stall_p99_s"] * 1e3,
+            "hits": out["hits"], "cache": cache}
+
+
+def final_tiers_agree(cache, emb, what: str) -> None:
+    """The final tiers answer the same through the kernel and the
+    four-op composition."""
+    import torch
+    from repro_torch.cache_service import tiers
+    dev = cache.device
+    qd = torch.as_tensor(emb, device=dev)
+    qt = torch.zeros(len(emb), dtype=torch.int32, device=dev)
+    thr = torch.full((len(emb),), THRESHOLD, device=dev)
+    kw = dict(k=cache.topk, n_probe=cache._n_probe, tail=cache._tail,
+              quantized=cache.warm_dtype == "int8")
+    fused = tiers.cascade_query(cache.hot, cache.warm, qd, qt, thr,
+                                fused=True, **kw)
+    four = tiers.cascade_query(cache.hot, cache.warm, qd, qt, thr,
+                               fused=False, **kw)
+    for name in ("value_ids", "hot_slots", "hot_hit", "hit"):
+        if not torch.equal(getattr(fused, name), getattr(four, name)):
+            fail(f"{what}: final tiers: fused vs four-op {name} differ")
+    err = float((fused.scores - four.scores).abs().max())
+    if err > SCORE_ATOL:
+        fail(f"{what}: final tiers: fused vs four-op scores differ by "
+             f"{err:.3g}")
+
+
+def batcher_phase(dev, lm, maintenance) -> dict:
+    """(d) ``ContinuousBatcher`` over the decoder, the cache's
+    maintenance on its idle ticks."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import ContinuousBatcher, Request, scheduler
+    cfg = lm.cfg
+    b = ContinuousBatcher(lm, maintenance=maintenance, **BATCHER)
+    rng = np.random.default_rng(17)
+    for i in range(BATCHER_REQUESTS):
+        b.submit(Request(uid=i, prompt=rng.integers(
+            4, cfg.vocab_size, BATCHER["prompt_len"]).astype(np.int32),
+            max_new_tokens=int(rng.integers(4, 33))))
+    real = scheduler._write_slot
+    admitted = []
+
+    def checked(pool, one, slot):
+        real(pool, one, slot)
+        for st, o in zip(pool["layers"], one["layers"]):
+            for name in ("k", "v", "pos"):
+                if not torch.equal(st[name][slot], o[name][0]):
+                    fail(f"batcher: slot {slot} {name} differs from its "
+                         "prefill state after admission")
+        admitted.append(slot)
+
+    scheduler._write_slot = checked
+    attention_counts(reset=True)
+    occupancy, active_ticks = [], 0
+    t0 = time.perf_counter()
+    try:
+        while b.pending or any(r is not None for r in b.slot_req):
+            n = b.tick()
+            active_ticks += n > 0
+            occupancy.append(n / b.n_slots)
+            if b.ticks > 1000:
+                fail("batcher: 1000 ticks without finishing")
+        torch.cuda.synchronize()
+    finally:
+        scheduler._write_slot = real
+    wall = time.perf_counter() - t0
+    counts = attention_counts()
+    st = b.stats()
+    L = cfg.n_layers
+    tokens = sum(len(r.generated) for r in b.finished.values())
+    print(f"  {BATCHER_REQUESTS} requests on {b.n_slots} slots: "
+          f"{st['ticks']} ticks ({active_ticks} with an active slot) in "
+          f"{wall:.2f} s, {1e3 * wall / st['ticks']:.3f} ms per tick, "
+          f"{tokens} tokens; mean occupancy "
+          f"{sum(occupancy) / len(occupancy):.4f}; admission wait p50 "
+          f"{st['admission_wait_p50_s'] * 1e3:.3f} ms; maintenance runs "
+          f"{st['maintenance_runs']}, skips {st['maintenance_skips']}; "
+          f"launches {counts}")
+    if len(b.finished) != BATCHER_REQUESTS:
+        fail(f"batcher: {len(b.finished)} of {BATCHER_REQUESTS} finished")
+    want = {"flash_attention": L * len(admitted),
+            "decode_attention": L * active_ticks}
+    if counts != want or len(admitted) != BATCHER_REQUESTS:
+        fail(f"batcher: launches {counts}, expected {want} for "
+             f"{len(admitted)} admissions")
+    if not (st["maintenance_runs"] > 0 and st["maintenance_skips"] > 0
+            and st["maintenance_runs"] + st["maintenance_skips"]
+            == st["ticks"]):
+        fail(f"batcher: maintenance runs {st['maintenance_runs']}, skips "
+             f"{st['maintenance_skips']} over {st['ticks']} ticks")
+    return {"launches": counts, "ticks": st["ticks"],
+            "active_ticks": active_ticks,
+            "mean_occupancy": sum(occupancy) / len(occupancy),
+            "admission_wait_p50_ms": st["admission_wait_p50_s"] * 1e3,
+            "ms_per_tick": 1e3 * wall / st["ticks"]}
+
+
 def sass_counts(lib: str) -> dict:
     """{kernel function (mangled): {"HMMA": n, "FFMA": n}} in a built
     library, from ``cuobjdump --dump-sass`` (beside ``nvcc``)."""
@@ -2040,7 +2457,36 @@ def main() -> int:
     gn = generation_phase(dev, dcfg)
     print("  (c) CachedLLMService: tuned encoder, tiered cache, decoder")
     ls = llm_serving_phase(dev, gn["engine"], tr["trainer"], tr["tok"])
-    del gn["lm"], gn["engine"]
+
+    # phase 8 runs while the phase-7 decoder is alive (8(d) drives it);
+    # 7(b) builds its float32 copy after that one is freed
+    print("phase 8: the maintenance loop (cold tier, background rebuild, "
+          "conformal calibration, continuous batcher)")
+    t8 = time.perf_counter()
+    embs = embed_batches(sv["embed_fn"], sv["texts"])
+    print("  (a) cold tier behind an int8 warm ring (phase 3's trace)")
+    ct = cold_tier_phase(dev, embs, sv["texts"])
+    print("  (b) double-buffered IVF rebuild (phase 3's configuration)")
+    bg = background_rebuild_phase(dev, embs, sv["texts"])
+    print("  (c) conformal hit calibration (phase 6(b) with the floor)")
+    elc = ensemble_learning_phase(dev, embed_fn, names, ens_thr,
+                                  conformal=True, embs=el["embs"])
+    budget = 0.01
+    for t, c in elc["tenants"].items():
+        o = el["tenants"][t]
+        print(f"  tenant {t}: threshold {o['threshold']:.6f} -> "
+              f"{c['threshold']:.6f}, floor {c['floor']}; hit rate "
+              f"{o['hit_rate']:.4f} -> {c['hit_rate']:.4f}; false hits per "
+              f"hit {o['false_hit_share']:.4f} -> {c['false_hit_share']:.4f}"
+              f" (budget {budget}; without -> with conformal)")
+    if not any(elc["floor_above"].values()):
+        fail("conformal: no tenant's floor rose above its learned "
+             "threshold")
+    print("  (d) continuous batcher over the decoder, (b)'s maintenance on "
+          "idle ticks")
+    cb = batcher_phase(dev, gn["lm"], bg["cache"].maintenance)
+    print(f"  phase 8 in {time.perf_counter() - t8:.1f} s")
+    del gn["lm"], gn["engine"], bg["cache"]
     gc.collect()
     torch.cuda.empty_cache()
     print("  (b) float32 decode against forward_lm (teacher-forced)")
@@ -2065,6 +2511,12 @@ def main() -> int:
         "int8_plain_ms": kp["int8_plain_ms"],
         "int8_bound_ms": kp["int8_bound_ms"],
         "serving_p50_ms": sv["p50_ms"], "serving_hit_rate": sv["hit_rate"],
+        "background_rebuild_launches": bg["launches"],
+        "background_rebuild_plans": bg["plans"],
+        "cold_tier_int8_launches": ct["launches"],
+        "cold_tier_plans": ct["plans"],
+        "cold_tier_stage_p50_mean_ms": ct["stage_ms"],
+        "cold_tier": ct["cold"],
         "sass": sass["cascade_lookup"], "card": card,
     }, {
         "name": "cosine_topk", "route": "cuda",
@@ -2129,6 +2581,7 @@ def main() -> int:
         "int8_plain_ms": ep["int8_plain_ms"],
         "int8_bound_ms": ep["int8_bound_ms"],
         "learning_launches": el["launches"],
+        "conformal_launches": elc["launches"],
         "serving_p50_ms": es["p50_ms"], "serving_hit_rate": es["hit_rate"],
         "sass": sass["cascade_lookup"], "card": card,
     }]
@@ -2156,6 +2609,8 @@ def main() -> int:
             "tokens_per_s": gn["tokens_per_s"],
             "llm_generate_p50_ms": ls["p50_ms"].get("generate"),
             "llm_hit_rate": ls["hit_rate"], "sass": sass.get(name),
+            "batcher_launches": cb["launches"][name],
+            "batcher": {k: v for k, v in cb.items() if k != "launches"},
             "card": card,
         })
     print(card)

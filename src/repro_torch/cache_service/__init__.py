@@ -1,17 +1,20 @@
 """Tiered multi-tenant cache service of the port: hot exact tier, warm
-IVF ring with demotion and inline rebuild, per-tenant thresholds and
-admission learned from feedback, the fused multi-embedder ensemble
-with learned mixture weights, host-side response GC, TTL — driven
-through the typed ``CacheBackend`` plan/commit protocol (DESIGN.md
-§7)."""
+IVF ring with demotion and a double-buffered rebuild, the host-RAM cold
+tier, per-tenant thresholds and admission learned from feedback with a
+conformal floor, the fused multi-embedder ensemble with learned mixture
+weights, host-side response GC, TTL — driven through the typed
+``CacheBackend`` plan/commit/maintenance protocol (DESIGN.md §7)."""
+from repro_torch.cache_service.cold import ColdFetch, ColdTier, Promotion
 from repro_torch.cache_service.config import (
     CacheConfig, EnsembleConfig, LearningConfig, ShardingConfig,
     StalenessConfig, TieringConfig,
 )
 from repro_torch.cache_service.feedback import (
-    FeedbackAccumulator, FeedbackConfig,
+    ConformalWindow, FeedbackAccumulator, FeedbackConfig,
 )
-from repro_torch.cache_service.policy import PolicyTable, TenantPolicy
+from repro_torch.cache_service.policy import (
+    ColdRoutingPolicy, PolicyTable, TenantPolicy,
+)
 from repro_torch.cache_service.protocol import (
     CacheBackend, CacheCapabilities, CachePlan, CacheRequest,
     CommitReceipt, MaintenanceReport, coalesce_misses, ungrouped_misses,
@@ -22,7 +25,8 @@ __all__ = [
     "CacheService", "ServiceStats",
     "CacheConfig", "TieringConfig", "ShardingConfig", "LearningConfig",
     "EnsembleConfig", "StalenessConfig", "PolicyTable", "TenantPolicy",
-    "FeedbackAccumulator", "FeedbackConfig",
+    "ColdFetch", "ColdRoutingPolicy", "ColdTier", "Promotion",
+    "ConformalWindow", "FeedbackAccumulator", "FeedbackConfig",
     "CacheBackend", "CacheCapabilities", "CachePlan", "CacheRequest",
     "CommitReceipt", "MaintenanceReport", "coalesce_misses",
     "ungrouped_misses",

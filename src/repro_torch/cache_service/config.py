@@ -19,9 +19,8 @@ Field-level validation (ranges, enums) happens here in
 ensemble×refresh, tail-window clamping) stays in ``CacheService``,
 which owns those invariants.
 
-The legacy flat-kwargs constructor maps onto this config through
-``CacheConfig.from_kwargs`` and warns once per process; it is kept for
-one release (see README migration table).
+``CacheService`` takes only a ``CacheConfig``.  ``CacheConfig.from_kwargs``
+maps the reference's flat keyword names onto the groups.
 """
 from __future__ import annotations
 
@@ -35,16 +34,12 @@ from repro_torch.cache_service.policy import ColdRoutingPolicy, EmbedderRefreshP
 # construction, never accepted and then ignored.  (``warm_block`` is not
 # one of them: the reference's warm-panel streaming block never changes
 # results, so the port accepts it and its CUDA kernel has no use for it.)
-_LOOPS = "the service-learning-loops slice"
+_REFRESH = "the embedder-refresh slice"
 _NOT_PORTED = {
-    "background_rebuild": _LOOPS,
-    "conformal": _LOOPS,
-    "cold_capacity": "the cold-tier slice",
-    "cold_policy": "the cold-tier slice",
-    "learned_embedder": "the embedder-refresh slice",
-    "embedder_trainer": "the embedder-refresh slice",
-    "embedder_tokenizer": "the embedder-refresh slice",
-    "refresh_policy": "the embedder-refresh slice",
+    "learned_embedder": _REFRESH,
+    "embedder_trainer": _REFRESH,
+    "embedder_tokenizer": _REFRESH,
+    "refresh_policy": _REFRESH,
     "mesh": "the sharded-warm-tier slice",
 }
 
@@ -208,7 +203,7 @@ class CacheConfig:
                  f"admission_margin must be >= 0: {self.admission_margin}")
 
     # ------------------------------------------------------------------
-    # legacy flat-kwargs mapping (one release; see README migration)
+    # the reference's flat keyword names, grouped
     # ------------------------------------------------------------------
     _TIERING_KEYS = ("hot_capacity", "warm_capacity", "n_clusters",
                      "bucket", "n_probe", "flush_watermark", "flush_size",
@@ -223,9 +218,9 @@ class CacheConfig:
 
     @classmethod
     def from_kwargs(cls, dim: int, **kwargs) -> "CacheConfig":
-        """Map the pre-v2 flat keyword surface onto the grouped config
-        (the compatibility shim's engine; also handy for building a
-        config from a flat flag namespace)."""
+        """Map the reference's flat keyword surface onto the grouped
+        config (handy for building a config from a flat flag
+        namespace)."""
         top = {k: kwargs.pop(k) for k in cls._TOP_KEYS if k in kwargs}
         tiering = {k: kwargs.pop(k) for k in cls._TIERING_KEYS
                    if k in kwargs}

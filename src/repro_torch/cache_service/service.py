@@ -39,12 +39,22 @@ learned admission the weights are re-learned per tenant from the
 feedback stream, each refit recalibrating the tenant's threshold
 against the fused score; ``publish_panel`` swaps one embedder's panels.
 
-The double-buffered rebuild, conformal calibration, the cold tier,
-embedder refresh and the sharded warm tier are refused by the port's
+Double-buffered rebuild (DESIGN.md §7): with ``background_rebuild``
+a flush that would re-cluster inline starts a shadow build of a
+snapshot on a host thread instead; lookups keep reading the published
+index and ``maintenance()`` swaps the finished shadow in.  Conformal
+calibration (§14.3) floors every served threshold at a quantile of the
+tenant's recent audited negatives.  The cold tier (§12) catches
+warm-ring overwrites in host RAM, answers below-threshold queries the
+router deems worth a budgeted fetch, and ``maintenance()`` promotes
+re-hot rows back into the warm ring.
+
+Embedder refresh and the sharded warm tier are refused by the port's
 ``CacheConfig`` until the slices that bring them land (ROADMAP.md).
 """
 from __future__ import annotations
 
+import threading
 import time
 import warnings
 from dataclasses import dataclass
@@ -54,6 +64,7 @@ import numpy as np
 import torch
 
 from repro_torch.cache_service import tiers
+from repro_torch.cache_service.cold import ColdTier
 from repro_torch.cache_service.config import CacheConfig
 from repro_torch.cache_service.feedback import (
     FeedbackAccumulator, record_refit,
@@ -99,7 +110,9 @@ def _np(t: torch.Tensor) -> np.ndarray:
 class CacheService:
     def __init__(self, config: CacheConfig, *, device="cuda"):
         """Build the tiered service from a ``CacheConfig`` on ``device``
-        (default the card; raises when CUDA is absent).
+        (default the card; raises when CUDA is absent).  The config is
+        the only construction surface: the reference's flat-kwargs form
+        is not ported (``CacheConfig.from_kwargs`` maps its names).
 
         Tail invariant: rows demoted into the warm ring stay unindexed
         until the next IVF rebuild and are reachable only through the
@@ -117,15 +130,29 @@ class CacheService:
         ``warm_block`` is accepted and has no effect: it is a TPU
         VMEM-residency knob, and the CUDA kernel tiles internally.
 
+        ``background_rebuild=True`` double-buffers the IVF rebuild: a
+        flush that would re-cluster inline starts a shadow build of a
+        snapshot on a host thread (its kernels queue on the device's
+        default stream, behind the lookups already issued); lookups keep
+        reading the published index and ``maintenance()`` swaps the
+        finished shadow in.  A flush that would push the unindexed
+        backlog past the tail window first joins the build in flight (or
+        re-clusters inline if none runs), so no row is stranded.
+
+        ``cold_capacity > 0`` adds the host-RAM cold tier (DESIGN.md
+        §12); ``cold_policy`` tunes its router and implies a cold tier
+        of ``4 * warm_capacity`` rows when ``cold_capacity`` is 0.
+
         ``StalenessConfig`` turns on TTL eviction: admitted rows are
         stamped ``now + ttl``, expired rows are masked out of every
-        plan's view of the tiers and reaped on ``maintenance()``.  All
-        times are relative to the clock's value at construction,
-        because float32 deadlines on absolute epoch seconds would round
-        to ~256 s steps.
+        plan's view of the tiers (cold included) and reaped on
+        ``maintenance()``.  All times are relative to the clock's value
+        at construction, because float32 deadlines on absolute epoch
+        seconds would round to ~256 s steps.
 
         ``LearningConfig(learned_admission=True)`` (or a ``feedback``
-        config) turns on the §9 feedback loop.
+        config) turns on the §9 feedback loop; ``conformal=True`` the
+        §14.3 floor, which shares the feedback accumulator.
         ``EnsembleConfig(embedders=E)`` (an int, or a sequence of E
         embedder handles) turns on the §13 ensemble; ``weights`` seeds
         the default mixture.  ``embedders`` excludes
@@ -133,7 +160,8 @@ class CacheService:
         embedder), and ``weights`` needs ``embedders``.
         """
         if not isinstance(config, CacheConfig):
-            raise TypeError("CacheService takes a CacheConfig")
+            raise TypeError(f"CacheService takes a CacheConfig, got "
+                            f"{type(config).__name__}")
         self.device = resolve_device(device)
         cfg = self.config = config
         tc, stc = cfg.tiering, cfg.staleness
@@ -157,6 +185,14 @@ class CacheService:
                 "instead (DESIGN.md §13)")
         if ec.weights is not None and not n_embedders:
             raise ValueError("ensemble weights without embedders")
+        cold_capacity = tc.cold_capacity
+        if tc.cold_policy is not None and cold_capacity <= 0:
+            cold_capacity = 4 * tc.warm_capacity
+        if cold_capacity > 0 and cfg.sharding.mesh is not None:
+            raise ValueError(
+                "cold_capacity > 0 requires the unsharded warm tier: "
+                "demotion capture reads the single warm ring's int8 "
+                "panel (DESIGN.md §12)")
         hot_capacity, warm_capacity = tc.hot_capacity, tc.warm_capacity
         flush_size = tc.flush_size
         if flush_size is None:
@@ -178,6 +214,7 @@ class CacheService:
         self.flush_watermark = tc.flush_watermark
         self.rebuild_every = rebuild_every
         self.topk = cfg.topk
+        self.background_rebuild = bool(tc.background_rebuild)
         self.warm_shards = 1
         self.warm_dtype = tc.warm_dtype
         self.warm_block = tc.warm_block
@@ -185,6 +222,9 @@ class CacheService:
         self._seed = cfg.seed
         self._tail = min(flush_size * rebuild_every, warm_capacity)
         self._n_probe = tc.n_probe
+        self.cold: Optional[ColdTier] = \
+            ColdTier(cold_capacity, dim, policy=tc.cold_policy,
+                     device=self.device) if cold_capacity > 0 else None
         self.hot = tiers.init_hot(hot_capacity, dim, self.device)
         self.warm = tiers.init_warm(warm_capacity, dim, tc.n_clusters,
                                     tc.bucket, self.device)
@@ -199,9 +239,12 @@ class CacheService:
                 self.policies.set_default_weights(ec.weights)
         self.learned_admission = bool(lc.learned_admission
                                       or lc.feedback is not None)
+        # §14.3 conformal hit calibration needs the feedback stream: it
+        # shares the accumulator with §9 when both are on
+        self.conformal = bool(lc.conformal)
         self.feedback: Optional[FeedbackAccumulator] = \
-            FeedbackAccumulator(lc.feedback) if self.learned_admission \
-            else None
+            FeedbackAccumulator(lc.feedback) \
+            if self.learned_admission or self.conformal else None
         self.responses: Dict[int, str] = {}
         # raw query text per admitted value id: the neighbour side of
         # the labeled pairs the feedback stream pools
@@ -211,8 +254,11 @@ class CacheService:
         self._embed_version = 0
         self._last_rebuild_s = 0.0
         self._rebuild_total_s = 0.0
+        # host ints that receipts and overlap accounting need even with
+        # telemetry disabled
         self._n_plans = 0
         self._n_evictions = 0
+        self._n_demoted_cold = 0
         self.default_ttl = stc.default_ttl
         raw_clock = stc.clock if stc.clock is not None else time.time
         t0 = float(raw_clock())
@@ -247,6 +293,10 @@ class CacheService:
             "cache_demotions_total", "rows demoted hot -> warm").labels()
         self._c_evictions = reg.counter(
             "cache_evictions_total", "host response strings freed").labels()
+        # §12 eviction split: a warm-ring overwrite either *demotes* (the
+        # cold tier captured the row) or *drops* (no cold tier: the
+        # string is freed); with a cold tier the final drops happen on
+        # cold-ring overwrites instead
         self._c_ev_demoted = reg.counter(
             "cache_evictions_demoted_total",
             "warm-ring overwrites captured into the cold tier").labels()
@@ -254,6 +304,25 @@ class CacheService:
             "cache_evictions_dropped_total",
             "warm-ring overwrites freed with no cold tier to catch "
             "them").labels()
+        self._c_cold_evictions = reg.counter(
+            "cache_cold_evictions_total",
+            "cold-ring overwrites — the hierarchy's final drops"
+        ).labels()
+        self._c_cold_promotions = reg.counter(
+            "cache_cold_promotions_total",
+            "re-hot rows promoted cold -> warm by maintenance()"
+        ).labels()
+        self._c_cold_fetches = reg.counter(
+            "cache_cold_fetches_total",
+            "queries whose cold fetch the router approved").labels()
+        self._c_cold_fetched_rows = reg.counter(
+            "cache_cold_fetched_rows_total",
+            "candidate rows shipped host -> device for the exact "
+            "re-score").labels()
+        self._c_cold_router_skips = reg.counter(
+            "cache_cold_router_skips_total",
+            "below-threshold queries whose cold fetch the router "
+            "declined as not worth the transfer").labels()
         self._c_rebuilds = reg.counter(
             "cache_rebuilds_total",
             "IVF re-clusters completed (published or inline)").labels()
@@ -274,6 +343,10 @@ class CacheService:
             "cache_expired_reaped_total",
             "TTL-expired rows reaped by maintenance() across all "
             "tiers (§14.2)").labels()
+        # double-buffer state: the shadow thread re-clusters a snapshot;
+        # only _publish_shadow, on the serving thread, swaps it in
+        self._shadow_thread: Optional[threading.Thread] = None
+        self._shadow_box: Dict[str, object] = {}
         self.fused = bool(tc.fused)
 
     def set_fused(self, fused: bool) -> None:
@@ -339,19 +412,25 @@ class CacheService:
     # ------------------------------------------------------------------
     def capabilities(self) -> CacheCapabilities:
         return CacheCapabilities(tenants=True, fused_lookup=True,
-                                 admission=True, background_rebuild=False,
+                                 admission=True,
+                                 background_rebuild=self.background_rebuild,
                                  tiered=True, warm_sharded=False,
                                  warm_dtype=self.warm_dtype,
                                  learned_admission=self.learned_admission,
-                                 ensemble=self.n_embedders, ttl=True)
+                                 cold_tier=self.cold is not None,
+                                 ensemble=self.n_embedders, ttl=True,
+                                 conformal=self.conformal)
 
     def plan(self, request: CacheRequest, *,
              coalesce: bool = True) -> CachePlan:
-        """Read side: one cascade over both tiers, LRU touch, response
-        resolution, admission pre-decision, miss coalescing."""
+        """Read side: one cascade over both tiers, the cold fallback,
+        LRU touch, response resolution, admission pre-decision, miss
+        coalescing."""
         t0 = time.perf_counter()
         qt = request.tenants
-        thr = self.policies.effective_thresholds(qt)
+        # §14.3: the conformal floor rides every threshold resolution
+        thr = self.policies.effective_thresholds(
+            qt, self.feedback if self.conformal else None)
         now = float(self._clock()) if self._ttl_active else None
         hot_view, warm_view = self.hot, self.warm
         n_masked = 0
@@ -394,6 +473,30 @@ class CacheService:
         self._c_rows.inc(len(hit))
         self._c_hot_hits.inc(int(hot_hit.sum()))
         self._c_warm_hits.inc(int((hit & ~hot_hit).sum()))
+        if self.cold is not None and bool((~hit).any()):
+            # §12 cold fallback: only the below-threshold rows are
+            # offered, and the cold tier's router decides which justify
+            # a host -> device fetch.  Verdicts merge before everything
+            # downstream, so a cold hit is a hit everywhere.
+            tc = time.perf_counter()
+            qn = np.asarray(pilot, np.float32)
+            qn = qn / np.maximum(
+                np.linalg.norm(qn, axis=1, keepdims=True), 1e-9)
+            cf = self.cold.lookup(qn, np.asarray(qt),
+                                  np.asarray(thr, np.float32), ~hit,
+                                  now=now)
+            self._stage_h.observe(time.perf_counter() - tc,
+                                  stage="cold_fetch",
+                                  tenant=tenant_label(qt))
+            self._c_cold_fetches.inc(int(cf.consulted.sum()))
+            self._c_cold_fetched_rows.inc(cf.fetched_rows)
+            self._c_cold_router_skips.inc(cf.router_skips)
+            chit = cf.consulted & (cf.scores >= np.asarray(thr, np.float32))
+            if bool(chit.any()):
+                self._c_cold_hits.inc(int(chit.sum()))
+                hit = hit | chit
+                scores = np.where(chit, cf.scores, scores)
+                vids = np.where(chit, cf.value_ids, vids)
         responses = [self.responses.get(int(v)) if h else None
                      for h, v in zip(hit, vids)]
         admit = self.policies.pre_decision(qt, scores, hit)
@@ -461,6 +564,7 @@ class CacheService:
                 self._m_admissions.inc(int(m.sum()) - n_a,
                                        tenant=int(tid), decision="skipped")
         evicted_before = self._n_evictions
+        demoted_cold_before = self._n_demoted_cold
         n_ttl = 0
         if len(rows):
             if plan.request.ttl is not None:
@@ -499,24 +603,39 @@ class CacheService:
         return CommitReceipt(
             admitted=n_admit, skipped=int((~admit).sum()),
             evicted=self._n_evictions - evicted_before,
-            # a due policy refit is a maintenance obligation: the
-            # pipeline discharges it with one maintenance() call
-            rebuild_due=self.feedback is not None
-            and self.feedback.refit_due(),
+            # a due policy refit is a maintenance obligation exactly like
+            # a due rebuild: the pipeline discharges both with one
+            # maintenance() call between batches
+            rebuild_due=self._rebuild_due()
+            or (self.learned_admission and self.feedback.refit_due()),
             commit_wall_s=wall, trace_id=plan.request.trace_id,
             embed_version=self._embed_version,
-            stale_version_skipped=n_stale_ver, ttl_stamped=n_ttl)
+            stale_version_skipped=n_stale_ver, ttl_stamped=n_ttl,
+            demoted_cold=self._n_demoted_cold - demoted_cold_before,
+            cold_maintenance_due=self.cold is not None
+            and self.cold.maintenance_due)
 
     def maintenance(self, block: bool = False) -> MaintenanceReport:
-        """The idle tick (DESIGN.md §10.3): threshold refits (§9) and
-        mixture-weight refits (§13) from the feedback stream, reap
-        TTL-expired rows, publish occupancy gauges, drain the health
-        tracker.  Rebuilds run inline at flush time in the port, so
-        ``block`` has nothing to join."""
-        del block
+        """The idle tick (DESIGN.md §10.3): publish a finished shadow
+        index and start one if the backlog calls for it, threshold
+        refits (§9) and mixture-weight refits (§13) from the feedback
+        stream, reap TTL-expired rows, drain cold promotions and re-fit
+        cold routes (§12), publish gauges, drain the health tracker.
+        ``block=True`` quiesces: it joins a build in flight and never
+        starts one, so the service returns with no rebuild running."""
         t0 = time.perf_counter()
+        published = started = False
+        wall = 0.0
+        if self._shadow_thread is not None and (
+                block or not self._shadow_thread.is_alive()):
+            wall = self._publish_shadow()
+            published = True
+        if (not block and self.background_rebuild
+                and self._shadow_thread is None and self._tail_pressure()):
+            self._start_shadow()
+            started = True
         refits_applied = refits_checked = 0
-        if self.feedback is not None:
+        if self.feedback is not None and self.learned_admission:
             # republish every tenant policy whose reservoir survives the
             # hysteresis guards — host-only work
             reports = self.policies.refit(self.feedback)
@@ -550,8 +669,27 @@ class CacheService:
             self.hot, self.warm, h_ev, w_ev = tiers.reap_expired(
                 self.hot, self.warm, now)
             expired_reaped = self._gc(h_ev) + self._gc(w_ev)
+            if self.cold is not None:
+                expired_reaped += self._gc(self.cold.reap_expired(now))
             if expired_reaped:
                 self._c_expired_reaped.inc(expired_reaped)
+        cold_promoted = 0
+        cold_route_rebuilt = False
+        if self.cold is not None:
+            # §12 promotion: re-hot cold rows climb back into the warm
+            # ring here, never on the plan path, at most promote_max
+            prom = self.cold.take_promotions(self.cold.policy.promote_max)
+            if prom is not None:
+                self._promote_into_warm(prom)
+                cold_promoted = len(prom.value_ids)
+                self._c_cold_promotions.inc(cold_promoted)
+                if self._backlog() > self._tail:
+                    # promotions are ring appends like any flush: the
+                    # tail window must keep covering them
+                    self._rebuild_inline()
+            if self.cold._route_due():
+                self.cold.rebuild_routes()
+                cold_route_rebuilt = True
         reg = self.telemetry.registry
         reg.gauge("cache_hot_occupancy",
                   "hot-tier occupancy fraction").set(self.hot_occupancy)
@@ -562,15 +700,26 @@ class CacheService:
         reg.gauge("cache_warm_backlog_rows",
                   "rows appended since the published index (demotion "
                   "pressure vs the tail window)").set(self._backlog())
+        if self.cold is not None:
+            reg.gauge("cache_cold_occupancy",
+                      "cold-tier occupancy fraction"
+                      ).set(self.cold.occupancy)
+            reg.gauge("cache_cold_pending_promotions",
+                      "re-hot cold rows queued for warm promotion"
+                      ).set(self.cold.pending_promotions)
         if self.telemetry.health is not None:
             self.telemetry.health.drain(reg)
         host_wall = time.perf_counter() - t0
         self._stage_h.observe(host_wall, stage="maintenance", tenant="-")
-        return MaintenanceReport(refits_applied=refits_applied,
-                                 refits_checked=refits_checked,
-                                 wall_s=host_wall,
-                                 embed_version=self._embed_version,
-                                 expired_reaped=expired_reaped)
+        return MaintenanceReport(
+            rebuild_started=started, rebuild_published=published,
+            rebuild_in_flight=self._shadow_thread is not None,
+            rebuild_wall_s=wall,
+            refits_applied=refits_applied, refits_checked=refits_checked,
+            wall_s=host_wall, embed_version=self._embed_version,
+            cold_promoted=cold_promoted,
+            cold_route_rebuilt=cold_route_rebuilt,
+            expired_reaped=expired_reaped)
 
     def stats_snapshot(self) -> ServiceStats:
         """The typed stats surface (DESIGN.md §10.1): every count read
@@ -606,6 +755,8 @@ class CacheService:
         }
         if self.ens is not None:
             tiers_d["ensemble"] = self.n_embedders
+        if self.cold is not None:
+            tiers_d["cold"] = self.cold.stats()
         if self._ttl_active:
             tiers_d["staleness"] = {
                 "default_ttl": self.default_ttl,
@@ -619,7 +770,7 @@ class CacheService:
             "rebuilds": int(reg.value("cache_rebuilds_total")),
             "shadow_started": int(
                 reg.value("cache_shadow_rebuilds_total")),
-            "in_flight": False,
+            "in_flight": self._shadow_thread is not None,
             "last_wall_s": self._last_rebuild_s,
             "total_wall_s": self._rebuild_total_s,
         }
@@ -629,6 +780,8 @@ class CacheService:
             learning["learned_policies"] = self.policies.learned_state()
             if self.ens is not None:
                 learning["ensemble_weights"] = self.policies.weights_state()
+            if self.conformal:
+                learning["conformal"] = self.feedback.conformal_state()
         health = self.telemetry.health.snapshot() \
             if self.telemetry.health is not None else None
         return ServiceStats(schema=SCHEMA, traffic=traffic,
@@ -637,12 +790,17 @@ class CacheService:
                             health=health, refresh=None)
 
     def evict_tenant(self, tenant: int) -> int:
-        """Drop every entry of one tenant from both tiers; frees the
+        """Drop every entry of one tenant from every tier; frees the
         host strings.  Returns the number of entries evicted."""
         self._epoch += 1
         self.hot, self.warm, h_ev, w_ev = tiers.evict_tenant(
             self.hot, self.warm, int(tenant))
-        return self._gc(h_ev) + self._gc(w_ev)
+        n = self._gc(h_ev) + self._gc(w_ev)
+        if self.cold is not None:
+            # also purges the tenant's queued promotions: an evicted
+            # tenant must not resurrect through the drain (§12)
+            n += self._gc(self.cold.evict_tenant(int(tenant)))
+        return n
 
     # ------------------------------------------------------------------
     # internals
@@ -714,15 +872,163 @@ class CacheService:
         tail window."""
         return self._backlog() + self.flush_size > self._tail
 
-    def _rebuild_inline(self) -> None:
-        t0 = time.perf_counter()
-        self.warm = tiers.warm_rebuild(self.warm, self._kmeans_iters,
-                                       self._seed)
+    def _rebuild_due(self) -> bool:
+        """A maintenance() call now would publish or start a rebuild."""
+        if self._shadow_thread is not None:
+            return True
+        return self.background_rebuild and self._tail_pressure()
+
+    def _live_vids(self) -> np.ndarray:
+        """Value ids currently valid in the hot and warm tiers."""
+        h = self.hot.value_ids[self.hot.valid]
+        w = self.warm.value_ids[self.warm.valid]
+        return np.unique(_np(torch.cat([h, w])))
+
+    def _rebuild(self, warm: tiers.WarmState) -> tiers.WarmState:
+        """One IVF re-cluster of ``warm`` (inline or on the shadow
+        thread), finished on the device before it returns."""
+        out = tiers.warm_rebuild(warm, self._kmeans_iters, self._seed)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        return out
+
+    def _rebuild_inline(self) -> None:
+        t0 = time.perf_counter()
+        self.warm = self._rebuild(self.warm)
         self._last_rebuild_s = time.perf_counter() - t0
         self._rebuild_total_s += self._last_rebuild_s
         self._c_rebuilds.inc()
+
+    def _start_shadow(self) -> None:
+        """Start a shadow re-cluster of a snapshot of the warm tier.  The
+        tier ops are functional (they write into fresh tensors), so
+        serving keeps building new states while the thread reads the
+        snapshot, and the snapshot's tensors live as long as the thread
+        holds them.  The thread's kernels go to the device's default
+        stream, the serving stream, so they run after every lookup
+        issued before them and no tensor crosses streams."""
+        snapshot = self.warm
+        self._shadow_box = box = {}
+        rebuild = self._rebuild
+
+        def run() -> None:
+            t0 = time.perf_counter()
+            try:
+                box["warm"] = rebuild(snapshot)
+            except BaseException as e:          # re-raised at publish
+                box["error"] = e
+            # the build itself, not the idle wait for the publish
+            box["wall"] = time.perf_counter() - t0
+
+        self._shadow_thread = threading.Thread(
+            target=run, name="warm-ivf-rebuild", daemon=True)
+        self._shadow_thread.start()
+        self._c_shadow.inc()
+        if self.telemetry.health is not None:
+            # overlap accounting (§10.3): plans served until the publish
+            # ran against the pre-snapshot index
+            self.telemetry.health.observe_rebuild_start(self._n_plans)
+
+    def _publish_shadow(self) -> float:
+        """Join the shadow thread and swap its index in.
+
+        ``indexed_total`` becomes the snapshot's total, so every row
+        appended after the snapshot stays in the tail window and recall
+        never dips across the swap.  Returns the build's wall time.
+        """
+        t0 = time.perf_counter()
+        self._shadow_thread.join()
+        self._shadow_thread = None
+        err = self._shadow_box.get("error")
+        if err is not None:
+            raise RuntimeError("background IVF rebuild failed") from err
+        self.warm = tiers.warm_publish_index(self.warm,
+                                             self._shadow_box["warm"])
+        # the stall the serve loop felt: join wait + swap
+        stall = time.perf_counter() - t0
+        wall = float(self._shadow_box["wall"])
+        self._last_rebuild_s = wall
+        self._rebuild_total_s += wall
+        self._c_rebuilds.inc()
+        if self.telemetry.health is not None:
+            self.telemetry.health.observe_rebuild_publish(self._n_plans,
+                                                          stall)
+        return wall
+
+    def _capture_and_append(self, dem: tiers.Demoted,
+                            panel_keys: Optional[torch.Tensor] = None
+                            ) -> None:
+        """Land a batch on the warm ring and route its overwrites.
+
+        Without a cold tier a ring overwrite is the end of the line: GC
+        the reported value ids and count them dropped.  With one, the
+        rows about to be overwritten demote instead (§12): their ring
+        positions follow from the pre-append cursor (the arithmetic of
+        `tiers.warm_append`, sound because ``dem.mask`` is a True
+        prefix), only those rows of the int8 panel are gathered on the
+        device and copied to the host into the cold ring before the
+        append, and only the cold ring's own overwrites are GC'd.
+
+        Under an ensemble ``panel_keys`` carries the batch's (E, m, D)
+        panel rows; ``None`` (the cold-promotion path, which keeps pilot
+        keys only) backfills every panel with the pilot row.
+        """
+        warm_pre = self.warm
+        if self.ens is not None and panel_keys is None:
+            panel_keys = dem.keys[None].expand(
+                (self.n_embedders,) + tuple(dem.keys.shape))
+        if self.cold is None:
+            self.warm, evicted = tiers.warm_append(self.warm, dem)
+            self._c_ev_dropped.inc(self._gc(evicted))
+        else:
+            n = int(dem.mask.sum())
+            if n:
+                w = self.warm
+                pos = (int(w.cursor) + torch.arange(n, device=self.device)
+                       ) % w.keys.shape[0]
+                pos = pos[w.valid[pos]]
+                if len(pos):
+                    dropped = self.cold.insert(
+                        _np(w.keys_q[pos]), _np(w.scales[pos]),
+                        _np(w.value_ids[pos]).astype(np.int64),
+                        _np(w.tenants[pos]),
+                        expires=_np(w.expires_at[pos]))
+                    self._c_ev_demoted.inc(len(pos))
+                    self._n_demoted_cold += len(pos)
+                    self._c_cold_evictions.inc(self._gc(dropped))
+            # the append's own eviction report covers exactly the
+            # captured rows: their strings live on behind the cold copies
+            self.warm, _ = tiers.warm_append(self.warm, dem)
+        if self.ens is not None:
+            self.ens = tiers.ensemble_warm_append(self.ens, warm_pre, dem,
+                                                  panel_keys)
+
+    def _promote_into_warm(self, prom) -> None:
+        """Append a drained cold `Promotion` to the warm ring in
+        ``flush_size`` chunks padded with masked rows, as a demotion
+        flush.  Ring rows a promotion overwrites demote straight back
+        into the cold tier: promotion never becomes a covert drop."""
+        m = self.flush_size
+        for lo in range(0, len(prom.value_ids), m):
+            v = np.asarray(prom.value_ids[lo:lo + m], np.int32)
+            pad = m - len(v)
+            dem = tiers.Demoted(
+                keys=self._t(np.concatenate(
+                    [prom.keys[lo:lo + m],
+                     np.zeros((pad, self.dim), np.float32)]),
+                    torch.float32),
+                value_ids=self._t(np.concatenate(
+                    [v, np.full(pad, -1, np.int32)]), torch.int32),
+                tenants=self._t(np.concatenate(
+                    [prom.tenants[lo:lo + m],
+                     np.full(pad, -1, np.int32)]), torch.int32),
+                mask=self._t(np.concatenate(
+                    [np.ones(len(v), bool), np.zeros(pad, bool)]),
+                    torch.bool),
+                expires=self._t(np.concatenate(
+                    [prom.expires[lo:lo + m],
+                     np.full(pad, np.inf, np.float32)]), torch.float32))
+            self._capture_and_append(dem)
 
     def _do_flush(self, rebuild: bool) -> None:
         pk = None
@@ -733,16 +1039,27 @@ class CacheService:
             pk = self.ens.hot_keys[:, tiers.coldest_slots(self.hot,
                                                           self.flush_size)]
         self.hot, dem = tiers.demote_coldest(self.hot, self.flush_size)
-        if self.ens is not None:
-            self.ens = tiers.ensemble_warm_append(self.ens, self.warm, dem,
-                                                  pk)
-        self.warm, evicted = tiers.warm_append(self.warm, dem)
-        self._c_ev_dropped.inc(self._gc(evicted))
+        self._capture_and_append(dem, pk)
         self._c_demotions.inc(int(dem.mask.sum()))
         # the tail window only covers the last `tail` ring writes; a
         # rebuild is forced before the unindexed backlog outgrows it
-        if rebuild or self._tail_pressure():
-            self._rebuild_inline()
+        if not self.background_rebuild:
+            if rebuild or self._tail_pressure():
+                self._rebuild_inline()
+            return
+        # double-buffered: publish any finished shadow, then make sure
+        # the window still covers the backlog before serving resumes
+        if self._shadow_thread is not None \
+                and not self._shadow_thread.is_alive():
+            self._publish_shadow()
+        if self._backlog() > self._tail:
+            if self._shadow_thread is not None:
+                self._publish_shadow()          # blocks: join + swap
+            if self._backlog() > self._tail:
+                self._rebuild_inline()          # snapshot was too old
+        if (rebuild or self._tail_pressure()) \
+                and self._shadow_thread is None:
+            self._start_shadow()
 
     def _maybe_flush(self) -> None:
         n_valid = int(self.hot.valid.sum())
@@ -751,7 +1068,9 @@ class CacheService:
 
     def flush(self, rebuild: bool = True) -> None:
         """Force one demotion flush now.  ``rebuild=False`` still
-        rebuilds if skipping would leave rows beyond the tail window."""
+        rebuilds if skipping would leave rows beyond the tail window.
+        With ``background_rebuild`` the re-cluster runs double-buffered
+        (shadow build, later publish) instead of inline."""
         self._do_flush(rebuild)
 
     # ------------------------------------------------------------------
@@ -762,3 +1081,7 @@ class CacheService:
     @property
     def warm_occupancy(self) -> float:
         return int(self.warm.valid.sum()) / self.warm_capacity
+
+    def __len__(self) -> int:
+        n = int(self.hot.valid.sum()) + int(self.warm.valid.sum())
+        return n + len(self.cold) if self.cold is not None else n

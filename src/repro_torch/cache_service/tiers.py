@@ -40,7 +40,7 @@ import torch
 from repro_torch.core import ivf as ivf_lib
 from repro_torch.kernels.cascade_lookup import ops as casc_ops
 from repro_torch.kernels.cascade_lookup import ref as casc_ref
-from repro_torch.kernels.cascade_lookup.ref import topk_stable
+from repro_torch.core.topk import topk_stable
 
 NEG = -1e30
 _I32 = torch.int32
@@ -369,6 +369,21 @@ def warm_rebuild(state: WarmState, iters: int = 8, seed: int = 0,
                                          bucket)
     return state._replace(centroids=cent, members=members, sizes=sizes,
                           indexed_total=state.total.clone())
+
+
+def warm_publish_index(current: WarmState, shadow: WarmState) -> WarmState:
+    """Swap a shadow-built IVF (DESIGN.md §7) into the live warm state.
+
+    Only the index moves (centroids, inverted lists, sizes,
+    ``indexed_total``); keys, valid bits and the ring counters stay the
+    *current* ring's, which may have advanced past the shadow's
+    snapshot.  ``indexed_total`` becomes the snapshot's total, so every
+    row appended after the snapshot keeps ``write_seq > indexed_total``
+    and stays in the tail window, and ring slots overwritten since the
+    snapshot drop out of the stale lists by the same test."""
+    return current._replace(centroids=shadow.centroids,
+                            members=shadow.members, sizes=shadow.sizes,
+                            indexed_total=shadow.indexed_total)
 
 
 def _warm_candidates(state: WarmState, qn, q_tenants, n_probe: int,

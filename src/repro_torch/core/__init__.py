@@ -10,7 +10,9 @@ from repro_torch.core.calibration import (
 from repro_torch.core.embedders import (
     EncoderEmbedder, HashNgramEmbedder, RandomProjectionEmbedder,
 )
-from repro_torch.core.ivf import build_ivf, build_lists, kmeans
+from repro_torch.core.ivf import (
+    build_ivf, build_lists, ivf_occupancy, ivf_query, kmeans,
+)
 from repro_torch.core.losses import (
     contrastive_loss, cosine_distance, hard_pair_fractions,
     online_contrastive_loss,
@@ -31,7 +33,8 @@ from repro_torch.core.trainer import EmbedderTrainer, FinetuneConfig
 __all__ = [
     "SemanticCache", "Calibration", "calibrate_for_false_hit_budget",
     "calibrate_for_precision", "EncoderEmbedder", "HashNgramEmbedder",
-    "RandomProjectionEmbedder", "build_ivf", "build_lists", "kmeans",
+    "RandomProjectionEmbedder", "build_ivf", "build_lists", "ivf_occupancy",
+    "ivf_query", "kmeans",
     "contrastive_loss", "cosine_distance", "hard_pair_fractions",
     "online_contrastive_loss", "average_precision", "metrics_at_threshold",
     "pair_classification_metrics", "QueryResult", "StoreState",

@@ -1,5 +1,6 @@
-"""IVF (inverted-file) index build: spherical k-means + fixed-bucket
-inverted lists — the warm tier's periodic re-cluster.
+"""IVF (inverted-file) index: spherical k-means + fixed-bucket inverted
+lists — the warm tier's periodic re-cluster — and the standalone probe
+query over them (`ivf_query`).
 
 Mirrors `repro/core/ivf.py` over torch tensors on any device, with
 static shapes (the lists are (K, bucket) with -1 padding).  One
@@ -16,6 +17,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.topk import topk_stable
 
 
 class IVFState(NamedTuple):
@@ -118,3 +121,30 @@ def build_ivf(keys: torch.Tensor, valid: torch.Tensor,
     return IVFState(centroids=cent, members=members, keys=keys,
                     valid=valid, value_ids=value_ids.to(torch.int32),
                     sizes=sizes)
+
+
+def ivf_query(state: IVFState, q: torch.Tensor, threshold: float,
+              k: int = 1, n_probe: int = 4):
+    """q: (Q, D) -> (scores (Q, k), slots (Q, k), value_ids (Q, k), hit
+    (Q,)).  Probes the ``n_probe`` nearest lists; ties in both top-k's
+    go to the lowest index, as ``lax.top_k``."""
+    q = _unit(q.float())
+    Q = q.shape[0]
+    K, bucket = state.members.shape
+    n_probe = min(n_probe, K)
+    _, probes = topk_stable(q @ state.centroids.T, n_probe)   # (Q, P)
+    cand = state.members[probes].reshape(Q, n_probe * bucket)
+    safe = cand.clamp(0, state.keys.shape[0] - 1).long()
+    ok = (cand >= 0) & state.valid[safe]
+    scores = torch.einsum("qd,qnd->qn", q, state.keys[safe])
+    scores = torch.where(ok, scores, torch.full_like(scores, -1e30))
+    top_s, top_i = topk_stable(scores, k)
+    slots = torch.gather(safe, 1, top_i)
+    return top_s, slots, state.value_ids[slots], top_s[:, 0] >= threshold
+
+
+def ivf_occupancy(state: IVFState) -> torch.Tensor:
+    """Fraction of valid rows actually reachable through the lists."""
+    listed = state.sizes.sum()
+    total = state.valid.sum().clamp_min(1)
+    return listed / total

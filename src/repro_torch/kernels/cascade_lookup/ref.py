@@ -22,14 +22,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.topk import topk_stable
+
 NEG = -1e30
-
-
-def topk_stable(x: torch.Tensor, k: int):
-    """Top-k along the last axis, ties to the lowest index — the order
-    of ``jax.lax.top_k`` (``torch.topk`` promises none)."""
-    s, i = torch.sort(x, dim=-1, descending=True, stable=True)
-    return s[..., :k], i[..., :k]
 
 
 def _hot_topk(scores, q_tenants, hot_valid, hot_tenants, hot_value_ids,

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.cascade_lookup.ref import topk_stable
+from repro_torch.core.topk import topk_stable
 
 NEG_INF = -1e30
 

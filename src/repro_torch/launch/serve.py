@@ -17,17 +17,19 @@ points online (DESIGN.md §9), ``--warm-block N`` is accepted as in the
 reference and changes nothing (a TPU streaming knob with no counterpart
 in the CUDA kernel), ``--ensemble E`` serves E embedders
 through the fused ensemble cascade (the fine-tuned embedder as the
-pilot, random-projection panels beside it; §13) and ``--ttl`` stamps a
-default TTL on admitted entries (§14.2).  ``--metrics-json PATH`` dumps
+pilot, random-projection panels beside it; §13), ``--ttl`` stamps a
+default TTL on admitted entries (§14.2), ``--conformal`` floors each
+tenant's threshold at a recency-window quantile of its audited
+negatives (§14.3) and ``--cold-capacity N`` puts a host-RAM cold tier
+of N rows behind the warm ring (§12).  ``--metrics-json PATH`` dumps
 the telemetry registry as JSON-lines after the run, and
 ``--metrics-interval N`` every N batches too.
 
 The prompts of cache misses are encoded with a tokenizer of the
 *decoder's* vocab, not the encoder's: the encoder's ids would fall
 outside the decoder's embedding table.  Options of the reference that
-the port lacks (``--cache-shards``, ``--cold-capacity``,
-``--learned-embedder``, ``--conformal``, ``--scenario``) are refused
-with the slice that brings them.
+the port lacks (``--cache-shards``, ``--learned-embedder``,
+``--scenario``) are refused with the slice that brings them.
 """
 from __future__ import annotations
 
@@ -47,9 +49,7 @@ from repro_torch.serving import CachedLLMService, ServeEngine
 # each (ROADMAP.md queue A)
 _NOT_PORTED = {
     "cache_shards": ("--cache-shards", "the sharded-warm-tier slice"),
-    "cold_capacity": ("--cold-capacity", "the cold-tier slice"),
     "learned_embedder": ("--learned-embedder", "the embedder-refresh slice"),
-    "conformal": ("--conformal", "the service-learning-loops slice"),
     "scenario": ("--scenario", "the benchmarks slice"),
 }
 
@@ -86,7 +86,10 @@ def parse_args(argv=None):
                     help="with --metrics-json: also a snapshot every N "
                          "batches")
     ap.add_argument("--cache-shards", type=int, default=0)
-    ap.add_argument("--cold-capacity", type=int, default=0)
+    ap.add_argument("--cold-capacity", type=int, default=0,
+                    help="host-RAM cold-tier rows behind the warm ring "
+                         "(0 = no cold tier; DESIGN.md §12; implies "
+                         "--tiered)")
     ap.add_argument("--warm-block", type=int, default=0,
                     help="the reference's warm-panel streaming block "
                          "(rows; implies --tiered).  Accepted for the "
@@ -94,7 +97,11 @@ def parse_args(argv=None):
                          "results, and the CUDA kernel has no counterpart "
                          "(it stages rows in its own tiles)")
     ap.add_argument("--learned-embedder", action="store_true")
-    ap.add_argument("--conformal", action="store_true")
+    ap.add_argument("--conformal", action="store_true",
+                    help="per-tenant split-conformal hit calibration: "
+                         "serve only above a recency-window quantile of "
+                         "observed negative scores (DESIGN.md §14.3; "
+                         "implies --tiered)")
     ap.add_argument("--scenario", default=None)
     args = ap.parse_args(argv)
     for dest, (flag, slice_name) in _NOT_PORTED.items():
@@ -105,7 +112,8 @@ def parse_args(argv=None):
         ap.error("--metrics-json instruments the cached serving path; "
                  "add --cache")
     if args.warm_dtype != "float32" or args.learned_admission \
-            or args.ensemble or args.ttl or args.warm_block:
+            or args.ensemble or args.ttl or args.warm_block \
+            or args.cold_capacity or args.conformal:
         args.tiered = True
     if args.ensemble == 1:
         ap.error("--ensemble needs E >= 2 (a single embedder is the "
@@ -127,16 +135,20 @@ def make_cache(args, dim: int, telemetry: Telemetry):
         tiering=TieringConfig(hot_capacity=512, warm_capacity=4096,
                               n_clusters=32, bucket=256,
                               warm_dtype=args.warm_dtype,
-                              warm_block=args.warm_block or None),
-        learning=LearningConfig(learned_admission=args.learned_admission),
+                              warm_block=args.warm_block or None,
+                              cold_capacity=args.cold_capacity),
+        learning=LearningConfig(learned_admission=args.learned_admission,
+                                conformal=args.conformal),
         ensemble=EnsembleConfig(embedders=args.ensemble or None),
         staleness=StalenessConfig(default_ttl=args.ttl or None)),
         device=args.device)
     caps = cache.capabilities()
     print(f"tiered cache: warm dtype {caps.warm_dtype}, learned admission "
-          f"{'on' if caps.learned_admission else 'off'}, ensemble "
+          f"{'on' if caps.learned_admission else 'off'}, cold tier "
+          f"{args.cold_capacity if caps.cold_tier else 0} rows, ensemble "
           f"{f'E={caps.ensemble}' if caps.ensemble else 'off'}, ttl "
-          f"{args.ttl or 'off'}")
+          f"{args.ttl or 'off'}, conformal "
+          f"{'on' if caps.conformal else 'off'}")
     return cache
 
 
@@ -205,11 +217,21 @@ def main(argv=None):
           f"hit rate {svc.hit_rate:.1%} ({st['hits']} LLM calls saved, "
           f"{st['generations']} generations)")
     stage_h = telemetry.stage_histogram()
-    for stage in ("embed", "plan", "generate", "commit", "maintenance"):
+    for stage in ("embed", "plan", "cold_fetch", "generate", "commit",
+                  "maintenance"):
         agg = stage_h.aggregate(stage=stage)
         if agg.count:
             print(f"  stage {stage:<12} p50 {agg.quantile(0.5) * 1e3:7.2f} "
                   f"ms  mean {agg.mean * 1e3:7.2f} ms  x{agg.count}")
+    if args.cold_capacity:
+        cd = cache.stats_snapshot().tiers["cold"]
+        print(f"cold tier: {cd['cold_rows']} rows "
+              f"({cd['cold_occupancy']:.0%} of {args.cold_capacity}), "
+              f"{cd['cold_hits']} hits from {cd['cold_fetches']} fetches "
+              f"({cd['cold_fetched_rows']} rows shipped, "
+              f"{cd['cold_router_skips']} router skips); "
+              f"{cd['cold_promoted']} promoted back to warm, "
+              f"{cd['cold_dropped']} final drops")
     if args.ensemble:
         ws = cache.policies.weights_state()
         print(f"ensemble: {cache.capabilities().ensemble} embedders, "
@@ -226,6 +248,11 @@ def main(argv=None):
         print(f"ttl: {stl['ttl_stamped']} stamped, "
               f"{stl['expired_masked']} masked at plan time, "
               f"{stl['expired_reaped']} reaped")
+    if args.conformal:
+        cs = cache.stats_snapshot().learning["conformal"]
+        print(f"conformal: {cs['hit_audits']} hit audits "
+              f"({cs['audited_false_hits']} false), "
+              f"{len(cs['tenants'])} tenant window(s)")
     if args.metrics_json:
         dump_metrics(args.requests // args.batch, append=wrote)
         print(f"metrics -> {args.metrics_json}")

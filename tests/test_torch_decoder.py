@@ -224,4 +224,7 @@ def test_launcher_serves_on_the_cpu():
     assert st["generations"] >= 1
     assert st["generations"] + st["coalesced_misses"] == st["misses"]
     with pytest.raises(SystemExit):
-        serve.parse_args(["--device", "cpu", "--cold-capacity", "64"])
+        serve.parse_args(["--device", "cpu", "--scenario", "drift"])
+    args = serve.parse_args(["--device", "cpu", "--cold-capacity", "64",
+                             "--conformal"])
+    assert args.tiered and args.cold_capacity == 64 and args.conformal

@@ -177,20 +177,21 @@ def test_learned_admission_refits_match_reference(monkeypatch):
 
 def test_unported_learning_fields_still_refused():
     """What the port does not run is refused by name and slice, never
-    accepted and ignored; the learning and ensemble fields of this
-    slice are accepted."""
+    accepted and ignored: the embedder refresh and the sharded warm
+    tier.  Conformal calibration, the background rebuild and the cold
+    tier are accepted, as are the learning and ensemble fields."""
     from repro_torch.cache_service import (
         EnsembleConfig, ShardingConfig,
     )
     for make, slice_name in (
-            (lambda: LearningConfig(conformal=True), "learning-loops"),
-            (lambda: TieringConfig(background_rebuild=True),
-             "learning-loops"),
-            (lambda: TieringConfig(cold_capacity=64), "cold-tier"),
             (lambda: LearningConfig(refresh_policy=object()),
+             "embedder-refresh"),
+            (lambda: LearningConfig(embedder_trainer=object()),
              "embedder-refresh"),
             (lambda: ShardingConfig(mesh=object()), "sharded")):
         with pytest.raises(ValueError, match=slice_name):
             make()
-    LearningConfig(learned_admission=True, feedback=FeedbackConfig())
+    LearningConfig(learned_admission=True, feedback=FeedbackConfig(),
+                   conformal=True)
+    TieringConfig(background_rebuild=True, cold_capacity=64)
     EnsembleConfig(embedders=3, weights=[1.0, 1.0, 1.0])

@@ -111,7 +111,7 @@ def no_card(monkeypatch):
 
 def test_entry_points_raise_without_a_card(no_card):
     from repro_torch import resolve_device
-    from repro_torch.cache_service import CacheConfig, CacheService
+    from repro_torch.cache_service import CacheConfig, CacheService, ColdTier
     from repro_torch.configs import get_config
     from repro_torch.core import (
         EmbedderTrainer, EncoderEmbedder, SemanticCache,
@@ -124,6 +124,7 @@ def test_entry_points_raise_without_a_card(no_card):
                  lambda: Encoder(cfg),
                  lambda: EmbedderTrainer(cfg),
                  lambda: CacheService(CacheConfig(dim=16)),
+                 lambda: ColdTier(8, 16),
                  lambda: SemanticCache(capacity=8, dim=16),
                  lambda: EncoderEmbedder(cfg),
                  lambda: LM(dec),

@@ -170,17 +170,20 @@ def test_ttl_and_tenant_eviction_match_reference():
 
 
 def test_unported_features_are_refused():
+    """Only what the port does not run yet is refused, by its slice's
+    name: the embedder refresh and the sharded warm tier.  The
+    maintenance loop's fields are accepted and reach the service."""
     from repro_torch.cache_service import LearningConfig, ShardingConfig
-    with pytest.raises(ValueError, match="slice"):
-        TieringConfig(background_rebuild=True)
-    with pytest.raises(ValueError, match="cold-tier"):
-        TieringConfig(cold_capacity=64)
-    with pytest.raises(ValueError, match="learning-loops"):
-        LearningConfig(conformal=True)
     with pytest.raises(ValueError, match="embedder-refresh"):
         LearningConfig(learned_embedder=True)
     with pytest.raises(ValueError, match="sharded"):
         ShardingConfig(mesh=object())
+    svc = CacheService(CacheConfig(
+        dim=D, tiering=TieringConfig(background_rebuild=True,
+                                     cold_capacity=64),
+        learning=LearningConfig(conformal=True)), device="cpu")
+    caps = svc.capabilities()
+    assert caps.background_rebuild and caps.cold_tier and caps.conformal
 
 
 def test_warm_block_is_accepted_and_changes_nothing():
