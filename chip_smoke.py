@@ -54,9 +54,12 @@ or the port is not beside the script.  Phases, each fatal on failure:
    * flash attention at Phi-3-mini's prefill (B=8, S=32, H=KV=32,
      hd=96), a long prefill (B=1, S=2048), GQA with a window (H=40,
      KV=8, hd=128, S=1024, W=256), bidirectional (B=64, H=12, hd=64,
-     S=32) and a ragged prefill (B=3, S=77); decode attention at Phi-3-mini's decode step (B=8, L=64), a
-     ring buffer (B=8, L=4096), GQA (H=40, KV=8, hd=128, L=32768) and
-     MQA (KV=1); bf16 and fp32, outputs within ``ATTN_TOL``, timed
+     S=32), a ragged prefill (B=3, S=77) and Granite-MoE's prefill
+     (B=8, S=32, H=24, KV=8, hd=64); decode attention at Phi-3-mini's
+     decode step (B=8, L=64), a ring buffer (B=8, L=4096), GQA (H=40,
+     KV=8, hd=128, L=32768), MQA (KV=1) and Granite-MoE's decode step
+     (B=8, L=64, H=24, KV=8, hd=64: a group of 3, the row kernel); bf16
+     and fp32, outputs within ``ATTN_TOL``, device kernels per call, timed
      beside ``F.scaled_dot_product_attention`` with the same mask (the
      library yardstick, never on the port's path); and, untimed, the
      decode kernel's split edges: a cache of L=30001 (ragged in its
@@ -138,7 +141,39 @@ or the port is not beside the script.  Phases, each fatal on failure:
    launches equal 32 per admission and decode launches 32 per tick with
    an active slot, the hook runs on idle ticks and skips saturated ones,
    and after every admission the pool's rows equal the slot's prefill
-   state bit for bit.
+   state bit for bit;
+9. the online embedder refresh: the untuned seed-0 full-width encoder
+   in an ``EmbedderTrainer`` behind ``CacheService(learned_embedder=True,
+   fused=True)`` (phase 3's tiers, the launcher's smoke-scale
+   ``EmbedderRefreshPolicy``), phase 3's trace through plan / commit /
+   non-blocking ``maintenance()`` for its first 48 batches (refreshes
+   train, gate and re-embed on a host thread while serving goes on),
+   then a closing join and the last 16 batches under the final
+   embedder; misses get their meaning's canonical answer, tenant 1
+   (the first two batches) is evicted while the first refresh runs.
+   At least one refresh must publish; contrastive forward and backward
+   launches must equal the candidates' steps and cascade launches the
+   plans; after each publish every valid hot and warm key must equal the
+   live encoder's embedding of its text within ``KEY_ATOL``, the
+   service's embed function must return the candidate's embeddings, and
+   no row evicted during a refresh may be valid.  Refreshes, steps, wall
+   times, gate F1, plans served during a refresh, stage p50 with and
+   without one, the publish stall, the recalibrated threshold and hit
+   rate / false hits per hit by embedder version are printed;
+10. the MoE decoder: full-width ``granite-moe-3b-a800m`` (32 layers,
+   d_model 1536, 24 heads over 8 KV heads of 64, 40 experts top-8 of
+   d_ff 512, vocab 49155; seeded float32 master weights, bf16
+   activations), after phase 7's models are freed.  (a) 7(a)'s
+   generation: 32 flash launches per prefill and 32 decode launches per
+   step; prefill and decode ms, tokens/s, peak memory, the dropped
+   assignments per layer at prefill and the weight casts' share of a
+   profiled decode step are printed.  (b) Teacher-forced logits through
+   the kernels against the same model with the plain attention versions:
+   bf16 within ``MOE_BF16_MEAN_TOL`` on the mean and ``MOE_BF16_AGREE``
+   on the argmax (router decisions the two paths' roundings flip are
+   counted), float32 elementwise within ``DECODE_ATOL``.  (c) 7(c)'s
+   1024 requests through ``CachedLLMService`` with this decoder: hits
+   and misses must equal 7(c)'s.
 
 Prints the card's name and power limit, the stage latencies, a JSON
 line of per-kernel numbers and, last, ``{"ok": true, "device": ...}``.
@@ -197,14 +232,16 @@ FLASH_SHAPES = (("phi3 prefill", 8, 32, 32, 32, 96, True, 0),
                 ("long prefill", 1, 32, 32, 2048, 96, True, 0),
                 ("gqa window", 1, 40, 8, 1024, 128, True, 256),
                 ("bidirectional", 64, 12, 12, 32, 64, False, 0),
-                ("ragged prefill", 3, 32, 32, 77, 96, True, 0))
+                ("ragged prefill", 3, 32, 32, 77, 96, True, 0),
+                ("granite prefill", 8, 24, 8, 32, 64, True, 0))
 # (name, B, H, KV, L, hd, cur, window): slot t holds the newest position
 # p <= cur with p % L == t; the step at position cur sees the filled
 # slots inside the window
 DECODE_SHAPES = (("phi3 decode", 8, 32, 32, 64, 96, 48, 0),
                  ("phi3 ring", 8, 32, 32, 4096, 96, 5000, 3000),
                  ("gqa long", 1, 40, 8, 32768, 128, 30000, 0),
-                 ("mqa", 8, 32, 1, 4096, 96, 3000, 0))
+                 ("mqa", 8, 32, 1, 4096, 96, 3000, 0),
+                 ("granite decode", 8, 24, 8, 64, 64, 48, 0))
 # (name, B, H, KV, L, hd, cur, window, slots all masked): bf16 MQA cuts
 # L = 4096 into 16 splits of 256 rows, so slots 256..511 are split 1
 DECODE_EDGES = (("gqa ragged", 1, 40, 8, 30001, 128, 29000, 0, None),
@@ -225,6 +262,29 @@ COLD_TIERING = dict(hot_capacity=256, warm_capacity=1024, n_clusters=16,
 # phase 8(d): the continuous batcher's pool over the phase-7 decoder
 BATCHER = dict(n_slots=8, max_len=256, prompt_len=32)
 BATCHER_REQUESTS = 24
+# phase 9: the launcher's smoke-scale refresh policy (the reference's
+# `launch/serve.py`); refreshes run over the first three quarters of the
+# trace, the last quarter is served after the closing join
+REFRESH_POLICY = dict(min_pairs=24, min_class=4, refresh_interval=32,
+                      synth_domain="medical", synth_min_pairs=128,
+                      recalibrate=True)
+REFRESH_BATCHES = 48
+# a published key against the live encoder's embedding of its text: two
+# embeddings of one text in different 64-text batches score >= 0.999999
+# on the card (phase 3), so differ by at most ~1.4e-3 in any entry
+KEY_ATOL = 2e-3
+MOE_DECODER = "granite-moe-3b-a800m"
+# phase 10(b), kernels against the plain attention versions.  In bf16
+# each path rounds its attention outputs once, at other places, and a
+# router near-tie then flips one of a token's 8 experts: a discrete
+# change that moves that sequence's later logits by up to ~0.26 (on the
+# H100, PERF.md), so bf16 is held on the mean and the argmax, which a
+# wrong kernel (mask, scale, head mapping) moves by O(1) on every row;
+# float32, where no decision flips, is held elementwise (7(b)'s
+# tolerance), over the prefill and the first 8 decode steps
+MOE_BF16_MEAN_TOL = 0.05
+MOE_BF16_AGREE = 0.9
+MOE_FP32_STEPS = 8
 
 
 def fail(msg: str) -> None:
@@ -1006,7 +1066,9 @@ def profile(fn, what: str) -> dict:
             f"{e.key[:48]} {getattr(e, key) / 1e3:.3f} ms x{e.count}"
             for e in top))
     return {"wall_ms": wall * 1e3, "device_ms": dev_us / 1e3,
-            "idle_share": idle}
+            "idle_share": idle,
+            "kernel_ms": {e.key: e.self_device_time_total / 1e3
+                          for e in kernels}}
 
 
 def stage_p50(telemetry) -> dict:
@@ -1593,7 +1655,8 @@ def attention_kernel_phase(dev):
                        bound_by=by, max_abs_err=err,
                        graph_ms=graph_ms(kern),
                        plain_graph_ms=graph_ms(plain, iters=5),
-                       library_graph_ms=graph_ms(library))
+                       library_graph_ms=graph_ms(library),
+                       device_kernels=device_kernels(kern))
             if dtype == torch.bfloat16:
                 row["warps"] = fkern.warps(S)
                 row["graph_ms_by_warps"] = {}
@@ -1608,6 +1671,7 @@ def attention_kernel_phase(dev):
                   f"graph: kernel {row['graph_ms']:.4f}, plain "
                   f"{row['plain_graph_ms']:.4f}, SDPA "
                   f"{row['library_graph_ms']:.4f}; bound {bound:.4f} ({by})"
+                  f"; device kernels per call {row['device_kernels']}"
                   + (f"; {row['warps']} warps (graph ms by warps "
                      f"{row['graph_ms_by_warps']})" if "warps" in row
                      else ""))
@@ -2253,6 +2317,472 @@ def batcher_phase(dev, lm, maintenance) -> dict:
             "ms_per_tick": 1e3 * wall / st["ticks"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the online embedder refresh
+# ---------------------------------------------------------------------------
+
+def check_single_space(cache, embed_fn) -> float:
+    """After a publish every valid hot and warm key is the live encoder's
+    embedding of its stored text: the max |key - embedding| over them."""
+    import numpy as np
+    err = 0.0
+    for state in (cache.hot, cache.warm):
+        v = state.valid
+        vids = state.value_ids[v].cpu().numpy()
+        if not len(vids):
+            continue
+        keys = state.keys[v].cpu().numpy()
+        live = embed_batches(embed_fn, [cache._texts[int(x)] for x in vids])
+        err = max(err, float(np.abs(keys - np.concatenate(live)).max()))
+    if not err <= KEY_ATOL:
+        fail(f"refresh: a published key differs from the live encoder's "
+             f"embedding of its text by {err:.3g} > {KEY_ATOL}")
+    return err
+
+
+def refresh_phase(dev) -> dict:
+    """Phase 3's trace through plan / commit / maintenance on a service
+    with ``learned_embedder`` over the untuned seed-0 encoder, each miss
+    answered with its meaning's canonical response: non-blocking ticks
+    for the first ``REFRESH_BATCHES`` batches, so refreshes overlap
+    serving, then a closing join (the last publish) and the rest of the
+    trace under the final embedder.  Tenant 1 holds the first two
+    batches and is evicted while the first refresh is in flight."""
+    import numpy as np
+    import torch
+    from repro_torch.cache_service import (
+        CacheConfig, CacheRequest, CacheService, EmbedderRefreshPolicy,
+        LearningConfig, TieringConfig,
+    )
+    from repro_torch.core import EmbedderTrainer, FinetuneConfig
+    from repro_torch.data import HashTokenizer, make_query_stream
+    from repro_torch.kernels.cascade_lookup import kernel as ck
+    from repro_torch.kernels.contrastive import kernel as clk
+    from repro_torch.obs import Telemetry
+
+    cfg = encoder_config()
+    tok = HashTokenizer(vocab_size=cfg.vocab_size)
+    trainer = EmbedderTrainer(cfg, FinetuneConfig(max_len=32, seed=0),
+                              device=dev)
+    embed_fn = trainer.make_embed_fn(tok)
+    cache = CacheService(CacheConfig(
+        dim=cfg.d_model, threshold=THRESHOLD, telemetry=Telemetry(),
+        tiering=TieringConfig(fused=True),
+        learning=LearningConfig(
+            learned_embedder=True, embedder_trainer=trainer,
+            embedder_tokenizer=tok, refresh_policy=EmbedderRefreshPolicy(
+                **REFRESH_POLICY))),
+        device=dev)
+    stream = make_query_stream("medical", N_REQUESTS, seed=11,
+                               repeat_frac=0.4)
+    canon = {(x.entity, x.aspect): f"canon({x.entity}|{x.aspect})"
+             for x in stream}
+    probe = [x.text for x in stream[:BATCH]]
+    # counts are process-wide: zeroed here, never inside the thread
+    ck.COUNTS["cascade_lookup"] = 0
+    clk.COUNTS["contrastive_components"] = 0
+    clk.COUNTS["contrastive_backward"] = 0
+    boxes, stalls, waits, key_errs, evicted = [], [], [], [], set()
+    per_batch = []                  # (version, queries, hits, false hits)
+    stage = {True: {"embed": [], "plan": [], "commit": []},
+             False: {"embed": [], "plan": [], "commit": []}}
+    in_flight_plans = stale = 0
+    t_start = time.perf_counter()
+
+    # at a publish the serving thread waits for the thread (a quiescing
+    # join) and then stalls for the graft and swap (the delta re-embed)
+    finish = cache._finish_refresh
+
+    def timed_finish():
+        t0 = time.perf_counter()
+        cache._refresh_thread.join()
+        t1 = time.perf_counter()
+        out = finish()
+        waits.append(t1 - t0)
+        stalls.append(time.perf_counter() - t1)
+        return out
+
+    cache._finish_refresh = timed_finish
+
+    def after_publish(rep, box):
+        cand = box["trainer"]
+        got, want = embed_fn(probe), cand.embed_texts(probe, tok)
+        if not np.array_equal(got, want):
+            fail(f"refresh: after publish {rep.embed_version} the embed "
+                 f"function differs from the candidate's by "
+                 f"{np.abs(got - want).max():.3g}")
+        key_errs.append(check_single_space(cache, embed_fn))
+        live = set(int(v) for v in cache._live_vids())
+        if live & evicted:
+            fail(f"refresh: {len(live & evicted)} rows evicted during a "
+                 "refresh are valid after its publish")
+
+    def tick(block=False):
+        # one tick may publish the refresh in flight and start the next
+        pending = cache._refresh_box
+        rep = cache.maintenance(block=block)
+        if rep.refresh_published:
+            after_publish(rep, pending)
+        if rep.refresh_started:
+            boxes.append(cache._refresh_box)
+
+    for b, i in enumerate(range(0, N_REQUESTS, BATCH)):
+        if b == REFRESH_BATCHES:
+            serve_s = time.perf_counter() - t_start
+            tick(block=True)
+        batch = stream[i:i + BATCH]
+        texts = [x.text for x in batch]
+        tenant = 1 if b < 2 else 0
+        busy = cache._refresh_thread is not None
+        if busy and not evicted and b >= 2:
+            # a tenant evicted while a refresh re-embeds its snapshot
+            for st in (cache.hot, cache.warm):
+                evicted.update(st.value_ids[st.valid & (st.tenants == 1)]
+                               .tolist())
+            cache.evict_tenant(1)
+        t0 = time.perf_counter()
+        emb = embed_fn(texts)
+        t1 = time.perf_counter()
+        plan = cache.plan(CacheRequest.build(emb, tenant, texts=texts),
+                          coalesce=False)
+        t2 = time.perf_counter()
+        in_flight_plans += busy
+        want = [canon[(x.entity, x.aspect)] for x in batch]
+        rc = cache.commit(plan, [None if h else w
+                                 for h, w in zip(plan.hit, want)])
+        t3 = time.perf_counter()
+        for name, dt in (("embed", t1 - t0), ("plan", t2 - t1),
+                         ("commit", t3 - t2)):
+            stage[busy][name].append(dt)
+        stale += rc.stale_version_skipped
+        per_batch.append((plan.embed_version, len(batch),
+                          int(plan.hit.sum()),
+                          sum(h and r != w for h, r, w in
+                              zip(plan.hit, plan.responses, want)),
+                          b >= REFRESH_BATCHES))
+        tick(block=b >= REFRESH_BATCHES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    st = cache.stats_snapshot()
+    rf = st.refresh
+    plans = st.traffic["plans"]
+    steps = sum(bx.get("fit", {}).get("steps", 0) for bx in boxes)
+    launches = {k: clk.COUNTS[k] for k in ("contrastive_components",
+                                           "contrastive_backward")}
+    print(f"  {REFRESH_BATCHES * BATCH} queries with refreshes in "
+          f"{serve_s:.2f} s, all {N_REQUESTS} in {wall:.2f} s; refreshes "
+          f"started "
+          f"{rf['refreshes_started']}, published "
+          f"{rf['refreshes_published']}, rolled back "
+          f"{rf['refreshes_rolled_back']}; embed version "
+          f"{rf['embed_version']}; {rf['pairs_held']} pairs pooled")
+    for n, bx in enumerate(boxes):
+        g = bx.get("gate", {})
+        f1 = (f"F1 candidate {g['candidate']['f1']:.4f} vs baseline "
+              f"{g['baseline']['f1']:.4f} (AP {g['candidate']['ap']:.4f} "
+              f"vs {g['baseline']['ap']:.4f})" if "candidate" in g
+              else f"gate {g.get('reason')}")
+        print(f"  refresh {n}: {bx.get('fit', {}).get('steps')} steps, "
+              f"{bx.get('wall', 0.0):.2f} s on the thread; {f1}; "
+              f"{'published' if g.get('pass') else 'rolled back'}")
+    med = {busy: {k: 1e3 * statistics.median(v) if v else None
+                  for k, v in d.items()} for busy, d in stage.items()}
+    print(f"  plans served while a refresh was in flight {in_flight_plans} "
+          f"of {plans}; stale-version commits {stale} (counter "
+          f"{rf['stale_version_commits']}); publish stall ms "
+          f"{[round(1e3 * s, 3) for s in stalls]} (join wait ms "
+          f"{[round(1e3 * s, 3) for s in waits]}); recalibrated threshold "
+          f"{rf['recalibrated_threshold']}")
+    print(f"  stage p50 ms with a refresh in flight {med[True]}, without "
+          f"{med[False]}")
+    print(f"  published keys against the live encoder: max |diff| "
+          f"{[round(e, 6) for e in key_errs]} (tolerance {KEY_ATOL}); "
+          f"{len(evicted)} rows evicted mid-refresh, none valid after")
+    out = {"launches": launches, "steps": steps, "plans": plans,
+           "cascade_launches": ck.COUNTS["cascade_lookup"],
+           "started": rf["refreshes_started"],
+           "published": rf["refreshes_published"],
+           "rolled_back": rf["refreshes_rolled_back"],
+           "embed_version": rf["embed_version"],
+           "in_flight_plans": in_flight_plans, "stale_commits": stale,
+           "publish_stall_ms": [1e3 * s for s in stalls],
+           "join_wait_ms": [1e3 * s for s in waits],
+           "recalibrated_threshold": rf["recalibrated_threshold"],
+           "key_max_abs_err": key_errs, "evicted": len(evicted),
+           "stage_p50_ms": med, "wall_s": wall,
+           "refreshes": [{"steps": bx.get("fit", {}).get("steps"),
+                          "wall_s": bx.get("wall"),
+                          "f1": bx.get("gate", {}).get("candidate", {})
+                          .get("f1"),
+                          "baseline_f1": bx.get("gate", {})
+                          .get("baseline", {}).get("f1"),
+                          "published": bool(bx.get("gate", {})
+                                            .get("pass"))}
+                         for bx in boxes]}
+    # hit rate and false hits per hit of the plans served under each
+    # embedder version; "first" is before the first publish, "last" the
+    # trace's tail served after the closing join
+    def segment(rows):
+        q, h, f = (sum(r[j] for r in rows) for j in (1, 2, 3))
+        return {"queries": q, "hit_rate": h / max(q, 1), "false_hits": f,
+                "false_hit_share": f / max(h, 1)}
+    out["by_version"] = {v: segment([r for r in per_batch if r[0] == v])
+                         for v in sorted({r[0] for r in per_batch})}
+    out["first"] = segment([r for r in per_batch if r[0] == 0])
+    out["last"] = segment([r for r in per_batch if r[4]])
+    print("  by embedder version: " + "; ".join(
+        f"v{v}: {d['queries']} queries, hit rate {d['hit_rate']:.4f}, "
+        f"false hits per hit {d['false_hit_share']:.4f}"
+        for v, d in out["by_version"].items())
+        + f"; before the first publish hit rate "
+        f"{out['first']['hit_rate']:.4f}, false hits per hit "
+        f"{out['first']['false_hit_share']:.4f}; the tail after the last "
+        f"{out['last']['hit_rate']:.4f}, {out['last']['false_hit_share']:.4f}")
+    print(f"  launches: cascade {out['cascade_launches']} for {plans} "
+          f"plans; contrastive {launches} for {steps} candidate steps")
+    if rf["refreshes_published"] < 1:
+        fail("refresh: no refresh published")
+    if launches != {"contrastive_components": steps,
+                    "contrastive_backward": steps}:
+        fail(f"refresh: contrastive launches {launches} for {steps} steps")
+    if out["cascade_launches"] != plans:
+        fail(f"refresh: cascade launched {out['cascade_launches']} times "
+             f"for {plans} plans")
+    if not evicted:
+        fail("refresh: no refresh was in flight to evict tenant 1 under")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the MoE decoder answering cache misses
+# ---------------------------------------------------------------------------
+
+def moe_decoder_config():
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_DECODER)
+    m = cfg.moe
+    widths = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+              cfg.head_dim, m.num_experts, m.top_k, m.expert_d_ff,
+              m.capacity_factor, cfg.vocab_size, cfg.dtype)
+    if widths != (32, 1536, 24, 8, 64, 40, 8, 512, 1.25, 49155,
+                  "bfloat16"):
+        fail(f"{MOE_DECODER} is not at its published widths: {widths}")
+    return cfg
+
+
+def moe_dropped(lm) -> list:
+    """Assignments past capacity in each MoE layer's last call."""
+    return [int(blk.moe.dropped) for blk in lm.layers]
+
+
+def moe_generation_phase(dev, cfg) -> dict:
+    """(a) 32 greedy tokens for 8 prompts through ``ServeEngine``."""
+    import numpy as np
+    import torch
+    from repro_torch.models import LM
+    from repro_torch.models.moe import capacity_for
+    from repro_torch.serving import ServeEngine
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    print(f"  {cfg.name}: {n_params:,} params (param_count() "
+          f"{cfg.param_count():,}, {cfg.param_count(active_only=True):,} "
+          f"active; float32 master weights, {cfg.dtype} activations), "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    engine = ServeEngine(lm, max_len=GEN_PROMPT + GEN_NEW)
+    prompts = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (GEN_B, GEN_PROMPT)).astype(np.int32)
+    engine.generate(prompts, 2)                         # warm
+    torch.cuda.synchronize()
+    attention_counts(reset=True)
+    t0 = time.perf_counter()
+    res = engine.generate(prompts, GEN_NEW)
+    wall = time.perf_counter() - t0
+    counts = attention_counts()
+    L = cfg.n_layers
+    if counts != {"flash_attention": L, "decode_attention": L * GEN_NEW}:
+        fail(f"moe generate: launches {counts}, expected {L} flash (one "
+             f"prefill) and {L * GEN_NEW} decode ({GEN_NEW} steps)")
+    if res.tokens.shape != (GEN_B, GEN_NEW) or res.tokens.min() < 0 \
+            or res.tokens.max() >= cfg.vocab_size:
+        fail(f"moe generate: bad tokens {res.tokens.shape}")
+    decode_dropped = moe_dropped(lm)        # the last step's, T = B = 8
+
+    def prefill():
+        out = lm.prefill(prompts, GEN_PROMPT + GEN_NEW)
+        torch.cuda.synchronize()
+        return out
+    times = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        prefill()
+        times.append(time.perf_counter() - t1)
+    prefill_dropped = moe_dropped(lm)
+    prefill_ms = 1e3 * statistics.median(times)
+    decode_ms = (1e3 * wall - prefill_ms) / GEN_NEW
+    tok_s = GEN_B * GEN_NEW / wall
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    T = GEN_B * GEN_PROMPT
+    print(f"  generate: {GEN_B} x {GEN_NEW} tokens in {wall * 1e3:.1f} ms "
+          f"({tok_s:.1f} tokens/s); prefill {prefill_ms:.3f} ms (B={GEN_B}, "
+          f"S={GEN_PROMPT}), decode {decode_ms:.3f} ms per step; launches "
+          f"{counts}; peak device memory {peak:.2f} GB; first row "
+          f"{res.tokens[0, :8].tolist()}")
+    print(f"  dropped assignments per layer at prefill (T={T}, "
+          f"{T * cfg.moe.top_k} assignments, capacity "
+          f"{capacity_for(cfg, T)} per expert): {prefill_dropped} (total "
+          f"{sum(prefill_dropped)}); at a decode step (T={GEN_B}, capacity "
+          f"{capacity_for(cfg, GEN_B)}): total {sum(decode_dropped)}")
+    _, state = prefill()
+    tok = torch.as_tensor(res.tokens[:, :1], device=dev)
+    prof = profile(lambda: lm.decode_step(state, tok), "MoE decode step")
+    casts = sum(ms for k, ms in prof["kernel_ms"].items() if "copy" in k)
+    print(f"  weight casts (copy kernels) {casts:.3f} ms of the step's "
+          f"{prof['device_ms']:.3f} ms of device time")
+    return {"lm": lm, "engine": engine, "launches": counts,
+            "tokens": res.tokens, "prompts": prompts,
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "tokens_per_s": tok_s, "generate_ms": wall * 1e3,
+            "peak_gb": peak, "prefill_dropped": prefill_dropped,
+            "decode_dropped": sum(decode_dropped), "profile": prof,
+            "cast_ms": casts, "params": n_params}
+
+
+class plain_attention:
+    """Within the block the decoder's attention runs the plain torch
+    versions on the card instead of the kernels (10(b)'s yardstick)."""
+
+    def __enter__(self):
+        from types import SimpleNamespace
+        from repro_torch.kernels.decode_attention import ref as dref
+        from repro_torch.kernels.flash_attention import ref as fref
+        from repro_torch.models import attention
+        self.saved = attention.flash_ops, attention.decode_ops
+
+        def flash(q, k, v, *, causal=True, window=0, scale=None):
+            return fref.flash_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=causal, window=window, scale=scale).transpose(1, 2)
+
+        def decode(q, k, v, valid, *, scale=None):
+            return dref.decode_attention(q[:, 0], k, v, valid,
+                                         scale=scale)[:, None]
+        attention.flash_ops = SimpleNamespace(flash_attention=flash)
+        attention.decode_ops = SimpleNamespace(decode_attention=decode)
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+        attention.flash_ops, attention.decode_ops = self.saved
+
+
+class record_routing:
+    """Within the block every MoE call's top-k expert ids are kept, in
+    call order (layer by layer, prefill then each decode step)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.real, calls = moe.MoE.route, []
+        real = self.real
+
+        def route(mod, xf, capacity):
+            r = real(mod, xf, capacity)
+            calls.append(r.expert_ids)
+            return r
+        moe.MoE.route = route
+        return calls
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.MoE.route = self.real
+
+
+def routing_flips(a_ids, b_ids) -> int:
+    """Token-layer decisions whose top-k expert *sets* differ between two
+    recorded runs (the order inside a set does not change the output)."""
+    return sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+               for a, b in zip(a_ids, b_ids))
+
+
+def moe_teacher_forced(lm, prompts, toks, steps: int):
+    """Prefill logits and ``steps`` teacher-forced decode steps' logits,
+    (1 + steps, B, vocab) float32."""
+    import torch
+    logits, state = lm.prefill(prompts, GEN_PROMPT + GEN_NEW)
+    out = [logits.float()]
+    for t in range(steps):
+        logits, state = lm.decode_step(state, toks[:, t:t + 1])
+        out.append(logits.float())
+    return torch.stack(out)
+
+
+def moe_plain_phase(dev, gn, cfg) -> dict:
+    """(b) The prompts and (a)'s tokens, teacher-forced: prefill and
+    every decode step's logits through the kernels against the same
+    model with the plain attention versions — in bf16 (the served
+    dtype), with the router decisions that the two paths' roundings
+    flip counted, and in float32 (the same weights), where no decision
+    flips and the logits must agree within ``DECODE_ATOL``."""
+    import torch
+    from repro_torch.models import LM
+    lm, prompts = gn["lm"], gn["prompts"]
+    toks = torch.as_tensor(gn["tokens"], device=dev)
+    L, steps = lm.cfg.n_layers, GEN_NEW - 1
+    attention_counts(reset=True)
+    with record_routing() as k_ids:
+        kern = moe_teacher_forced(lm, prompts, toks, steps)
+    counts = attention_counts()
+    attention_counts(reset=True)
+    with plain_attention(), record_routing() as p_ids:
+        plain = moe_teacher_forced(lm, prompts, toks, steps)
+    if attention_counts() != {"flash_attention": 0, "decode_attention": 0}:
+        fail("moe plain path: a kernel launched")
+    if counts != {"flash_attention": L, "decode_attention": L * steps}:
+        fail(f"moe kernel path: launches {counts}")
+    flips, decisions = routing_flips(k_ids, p_ids), sum(
+        a.shape[0] for a in k_ids)
+    err = (kern - plain).abs()
+    mean = float(err.mean())
+    agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    per_pos = [float(e) for e in err.amax(dim=(1, 2))]
+    print(f"  bf16, kernels vs plain attention (teacher-forced, prefill + "
+          f"{steps} steps): mean |dlogit| {mean:.4g} (tolerance "
+          f"{MOE_BF16_MEAN_TOL}), argmax equal at {agree:.4f} of rows "
+          f"(tolerance {MOE_BF16_AGREE}); max |dlogit| {max(per_pos):.4g} "
+          f"(prefill {per_pos[0]:.4g}, logits up to "
+          f"{float(plain.abs().max()):.3f}); router top-{cfg.moe.top_k} "
+          f"sets differing in {flips} of {decisions} token-layer decisions")
+    if not torch.isfinite(kern).all() or mean > MOE_BF16_MEAN_TOL \
+            or agree < MOE_BF16_AGREE:
+        fail(f"moe bf16: kernel logits off the plain path's: mean "
+             f"|dlogit| {mean:.4g}, argmax equal at {agree:.4f}")
+    del kern, plain
+    lm32 = LM(cfg.replace(dtype="float32"), seed=0, device=dev)
+    attention_counts(reset=True)
+    with record_routing() as k_ids:
+        kern = moe_teacher_forced(lm32, prompts, toks, MOE_FP32_STEPS)
+    counts = attention_counts()
+    with plain_attention(), record_routing() as p_ids:
+        plain = moe_teacher_forced(lm32, prompts, toks, MOE_FP32_STEPS)
+    del lm32
+    if counts != {"flash_attention": L,
+                  "decode_attention": L * MOE_FP32_STEPS}:
+        fail(f"moe fp32 kernel path: launches {counts}")
+    flips32 = routing_flips(k_ids, p_ids)
+    err32 = float((kern - plain).abs().max())
+    print(f"  float32, the same weights (prefill + {MOE_FP32_STEPS} "
+          f"steps): max |dlogit| {err32:.3g} (tolerance {DECODE_ATOL}); "
+          f"router sets differing in {flips32} decisions")
+    if not err32 <= DECODE_ATOL:
+        fail(f"moe fp32: kernel logits off the plain path's by "
+             f"{err32:.3g} > {DECODE_ATOL}")
+    return {"max_abs_err": max(per_pos), "per_position": per_pos,
+            "mean_abs_err": mean, "argmax_agree": agree,
+            "router_flips": flips, "router_decisions": decisions,
+            "fp32_max_abs_err": err32, "fp32_router_flips": flips32}
+
+
 def sass_counts(lib: str) -> dict:
     """{kernel function (mangled): {"HMMA": n, "FFMA": n}} in a built
     library, from ``cuobjdump --dump-sass`` (beside ``nvcc``)."""
@@ -2493,6 +3023,31 @@ def main() -> int:
     df = decode_forward_phase(dev, dcfg)
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           " GB")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("phase 9: the online embedder refresh (untuned full-width "
+          "encoder, phase 3's trace)")
+    t9 = time.perf_counter()
+    rp = refresh_phase(dev)
+    print(f"  phase 9 in {time.perf_counter() - t9:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"phase 10: the MoE decoder (full-width {MOE_DECODER})")
+    t10 = time.perf_counter()
+    mcfg = moe_decoder_config()
+    print("  (a) generation through ServeEngine")
+    mg = moe_generation_phase(dev, mcfg)
+    print("  (b) kernels against the plain attention versions")
+    mp = moe_plain_phase(dev, mg, mcfg)
+    print("  (c) CachedLLMService: tuned encoder, tiered cache, MoE decoder")
+    ml = llm_serving_phase(dev, mg["engine"], tr["trainer"], tr["tok"])
+    if (ml["hits"], ml["misses"]) != (ls["hits"], ls["misses"]):
+        fail(f"moe llm serving: hits / misses {ml['hits']} / "
+             f"{ml['misses']}, phase 7(c) {ls['hits']} / {ls['misses']}")
+    print(f"  phase 10 in {time.perf_counter() - t10:.1f} s")
+    del mg["lm"], mg["engine"]
     print(f"  all phases in {time.perf_counter() - t_start:.1f} s")
 
     n_flat = FLAT_CAPACITY
@@ -2511,6 +3066,8 @@ def main() -> int:
         "int8_plain_ms": kp["int8_plain_ms"],
         "int8_bound_ms": kp["int8_bound_ms"],
         "serving_p50_ms": sv["p50_ms"], "serving_hit_rate": sv["hit_rate"],
+        "refresh_launches": rp["cascade_launches"],
+        "refresh_plans": rp["plans"],
         "background_rebuild_launches": bg["launches"],
         "background_rebuild_plans": bg["plans"],
         "cold_tier_int8_launches": ct["launches"],
@@ -2547,7 +3104,8 @@ def main() -> int:
         "launch_floor_ms": cp["launch_floor_ms"],
         "launch_floor_graph_ms": cp["launch_floor_graph_ms"],
         "train_step_p50_ms": tr["step_p50_ms"], "sass": sass["contrastive"],
-        "card": card,
+        "refresh_launches": rp["launches"]["contrastive_components"],
+        "refresh_steps": rp["steps"], "card": card,
     }, {
         "name": "contrastive_backward", "route": "cuda",
         "source": "src/repro_torch/kernels/contrastive/csrc/contrastive.cu",
@@ -2566,7 +3124,9 @@ def main() -> int:
         "by_b": {b: {k: v for k, v in d.items() if k.startswith("bwd")
                      or k in ("plain_bwd_ms", "hard_pairs")}
                  for b, d in cp["by_b"].items()},
-        "launch_floor_graph_ms": cp["launch_floor_graph_ms"], "card": card,
+        "launch_floor_graph_ms": cp["launch_floor_graph_ms"],
+        "refresh_launches": rp["launches"]["contrastive_backward"],
+        "refresh_steps": rp["steps"], "card": card,
     }, {
         "name": "cascade_lookup_ensemble", "route": "cuda",
         "source": "src/repro_torch/kernels/cascade_lookup/csrc/"
@@ -2585,11 +3145,13 @@ def main() -> int:
         "serving_p50_ms": es["p50_ms"], "serving_hit_rate": es["hit_rate"],
         "sass": sass["cascade_lookup"], "card": card,
     }]
-    for name, key, main_shape, src, replaces in (
+    for name, key, main_shape, moe_shape, src, replaces in (
             ("flash_attention", "flash", "phi3 prefill bfloat16",
+             "granite prefill bfloat16",
              "flash_attention/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:115"),
             ("decode_attention", "decode", "phi3 decode bfloat16",
+             "granite decode bfloat16",
              "decode_attention/csrc/decode_attention.cu",
              "src/repro/kernels/decode_attention/kernel.py:74")):
         row = ap[key]["by_shape"][main_shape]
@@ -2611,6 +3173,15 @@ def main() -> int:
             "llm_hit_rate": ls["hit_rate"], "sass": sass.get(name),
             "batcher_launches": cb["launches"][name],
             "batcher": {k: v for k, v in cb.items() if k != "launches"},
+            "moe_at": moe_shape,
+            "moe_generate_launches": mg["launches"][name],
+            "moe_llm_launches": ml["launches"][name],
+            "moe_vs_plain_max_abs_err": mp["max_abs_err"],
+            "moe_vs_plain_mean_abs_err": mp["mean_abs_err"],
+            "moe_fp32_vs_plain_max_abs_err": mp["fp32_max_abs_err"],
+            "moe_prefill_ms": mg["prefill_ms"],
+            "moe_decode_ms": mg["decode_ms"],
+            "moe_tokens_per_s": mg["tokens_per_s"],
             "card": card,
         })
     print(card)

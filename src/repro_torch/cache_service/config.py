@@ -34,12 +34,7 @@ from repro_torch.cache_service.policy import ColdRoutingPolicy, EmbedderRefreshP
 # construction, never accepted and then ignored.  (``warm_block`` is not
 # one of them: the reference's warm-panel streaming block never changes
 # results, so the port accepts it and its CUDA kernel has no use for it.)
-_REFRESH = "the embedder-refresh slice"
 _NOT_PORTED = {
-    "learned_embedder": _REFRESH,
-    "embedder_trainer": _REFRESH,
-    "embedder_tokenizer": _REFRESH,
-    "refresh_policy": _REFRESH,
     "mesh": "the sharded-warm-tier slice",
 }
 
@@ -102,7 +97,6 @@ class TieringConfig:
                  f"warm_block must be positive: {self.warm_block}")
         _require(self.cold_capacity >= 0,
                  f"cold_capacity must be >= 0: {self.cold_capacity}")
-        _refuse_unported(self)
 
 
 @dataclass(frozen=True)
@@ -139,9 +133,6 @@ class LearningConfig:
     refresh_policy: Optional[EmbedderRefreshPolicy] = None  # implies
     #                                      learned_embedder
 
-    def __post_init__(self) -> None:
-        _refuse_unported(self)
-
 
 @dataclass(frozen=True)
 class EnsembleConfig:
@@ -153,7 +144,6 @@ class EnsembleConfig:
         if isinstance(self.embedders, int):
             _require(self.embedders > 0,
                      f"embedders must be positive: {self.embedders}")
-        _refuse_unported(self)
 
 
 @dataclass(frozen=True)

@@ -49,8 +49,13 @@ warm-ring overwrites in host RAM, answers below-threshold queries the
 router deems worth a budgeted fetch, and ``maintenance()`` promotes
 re-hot rows back into the warm ring.
 
-Embedder refresh and the sharded warm tier are refused by the port's
-``CacheConfig`` until the slices that bring them land (ROADMAP.md).
+The online embedder refresh (DESIGN.md §11): the feedback stream also
+pools labeled query *text* pairs, and ``maintenance()`` runs a one-epoch
+contrastive fine-tune of a candidate embedder on a host thread, judges
+it on a held-out slice, re-embeds both tiers' retained texts and
+hot-swaps the new keys and weights in with a versioned publish (or rolls
+the candidate back).  The sharded warm tier is refused by the port's
+``CacheConfig`` until the slice that brings it lands (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -58,7 +63,7 @@ import threading
 import time
 import warnings
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,11 +74,14 @@ from repro_torch.cache_service.config import CacheConfig
 from repro_torch.cache_service.feedback import (
     FeedbackAccumulator, record_refit,
 )
-from repro_torch.cache_service.policy import PolicyTable, TenantPolicy
+from repro_torch.cache_service.policy import (
+    EmbedderRefreshPolicy, PolicyTable, TenantPolicy,
+)
 from repro_torch.cache_service.protocol import (
     CacheCapabilities, CachePlan, CacheRequest, CommitReceipt,
     MaintenanceReport, coalesce_misses, ungrouped_misses,
 )
+from repro_torch.core.calibration import Calibration
 from repro_torch.device import resolve_device
 from repro_torch.obs import Telemetry
 from repro_torch.obs.registry import SCHEMA, tenant_label
@@ -153,6 +161,22 @@ class CacheService:
         ``LearningConfig(learned_admission=True)`` (or a ``feedback``
         config) turns on the §9 feedback loop; ``conformal=True`` the
         §14.3 floor, which shares the feedback accumulator.
+
+        ``learned_embedder=True`` closes the paper's training loop at
+        serving time (§11): the feedback stream also pools labeled text
+        pairs, and ``maintenance()`` periodically runs a one-epoch
+        contrastive refresh of a candidate copy of ``embedder_trainer``
+        (with ``embedder_tokenizer``; both required) on a host thread —
+        grammar-synthesized pairs backfill a thin or one-class pool —
+        then re-embeds both tiers' retained texts and publishes the new
+        keys and weights between lookups.  Every plan carries the
+        embedder version it embedded under; commit rejects admissions
+        from an older version.  A candidate that fails the held-out
+        eval gate is rolled back without ever becoming visible.
+        ``refresh_policy`` tunes the trigger and the gate (it implies
+        ``learned_embedder``).  The thread's kernels go to the device's
+        default stream, as the shadow rebuild's do.
+
         ``EnsembleConfig(embedders=E)`` (an int, or a sequence of E
         embedder handles) turns on the §13 ensemble; ``weights`` seeds
         the default mixture.  ``embedders`` excludes
@@ -239,21 +263,43 @@ class CacheService:
                 self.policies.set_default_weights(ec.weights)
         self.learned_admission = bool(lc.learned_admission
                                       or lc.feedback is not None)
-        # §14.3 conformal hit calibration needs the feedback stream: it
-        # shares the accumulator with §9 when both are on
+        learned_embedder = bool(lc.learned_embedder
+                                or lc.refresh_policy is not None)
+        if learned_embedder and (lc.embedder_trainer is None
+                                 or lc.embedder_tokenizer is None):
+            raise ValueError(
+                "learned_embedder=True needs embedder_trainer and "
+                "embedder_tokenizer — the refresh trains the candidate "
+                "and re-embeds the corpus through them (DESIGN.md §11)")
+        self.trainer = lc.embedder_trainer if learned_embedder else None
+        self._embed_tok = lc.embedder_tokenizer if learned_embedder \
+            else None
+        self._refresh_policy = (lc.refresh_policy
+                                or EmbedderRefreshPolicy()) \
+            if learned_embedder else None
+        # §14.3 conformal hit calibration needs the feedback stream: the
+        # §9 admission loop, the §11 refresh and the floor share one
+        # accumulator (scores feed the per-tenant reservoirs, texts the
+        # pooled pair reservoir)
         self.conformal = bool(lc.conformal)
         self.feedback: Optional[FeedbackAccumulator] = \
             FeedbackAccumulator(lc.feedback) \
-            if self.learned_admission or self.conformal else None
+            if self.learned_admission or learned_embedder \
+            or self.conformal else None
         self.responses: Dict[int, str] = {}
         # raw query text per admitted value id: the neighbour side of
-        # the labeled pairs the feedback stream pools
+        # the labeled pairs the feedback stream pools, and what a
+        # refreshed embedder re-embeds a stored key from (§11)
         self._texts: Dict[int, str] = {}
         self._next_vid = 0
         self._epoch = 0              # bumped by evict_tenant (plan staleness)
-        self._embed_version = 0
+        self._embed_version = 0      # bumped by a published refresh (§11)
+        self._pairs_at_refresh = 0   # pair-reservoir watermark (§11)
+        self._recalibrated_thr: Optional[float] = None
         self._last_rebuild_s = 0.0
         self._rebuild_total_s = 0.0
+        self._last_refresh_s = 0.0
+        self._refresh_total_s = 0.0
         # host ints that receipts and overlap accounting need even with
         # telemetry disabled
         self._n_plans = 0
@@ -332,6 +378,13 @@ class CacheService:
             "cache_stale_version_commits_total",
             "admissions rejected because the plan embedded under an "
             "older embedder version than is live (§11)").labels()
+        c_ref = reg.counter(
+            "cache_embedder_refreshes_total",
+            "embedder refresh lifecycle events (§11)",
+            labels=("outcome",))
+        self._c_refresh_started = c_ref.labels(outcome="started")
+        self._c_refresh_published = c_ref.labels(outcome="published")
+        self._c_refresh_rolled_back = c_ref.labels(outcome="rolled_back")
         self._c_ttl_stamped = reg.counter(
             "cache_ttl_stamped_total",
             "admitted rows stamped with a finite expiry (§14.2)").labels()
@@ -347,6 +400,11 @@ class CacheService:
         # only _publish_shadow, on the serving thread, swaps it in
         self._shadow_thread: Optional[threading.Thread] = None
         self._shadow_box: Dict[str, object] = {}
+        # refresh double-buffer (§11): the thread trains a candidate
+        # embedder and re-embeds tier snapshots; _finish_refresh, on the
+        # serving thread, publishes or rolls back
+        self._refresh_thread: Optional[threading.Thread] = None
+        self._refresh_box: Dict[str, object] = {}
         self.fused = bool(tc.fused)
 
     def set_fused(self, fused: bool) -> None:
@@ -377,6 +435,13 @@ class CacheService:
     def set_tenant_policy(self, tenant: int, threshold: float,
                           admission_margin: float = 0.0) -> None:
         self.policies.set(tenant, TenantPolicy(threshold, admission_margin))
+
+    def calibrate_tenant(self, tenant: int, scores, labels,
+                         max_false_hit_rate: float = 0.01) -> Calibration:
+        """Set this tenant's threshold from its own eval pairs under a
+        false-hit budget."""
+        return self.policies.calibrate(tenant, scores, labels,
+                                       max_false_hit_rate)
 
     def set_tenant_weights(self, tenant: int, weights) -> None:
         """Pin one tenant's ensemble mixture weights (§13), normalized
@@ -417,6 +482,7 @@ class CacheService:
                                  tiered=True, warm_sharded=False,
                                  warm_dtype=self.warm_dtype,
                                  learned_admission=self.learned_admission,
+                                 learned_embedder=self.trainer is not None,
                                  cold_tier=self.cold is not None,
                                  ensemble=self.n_embedders, ttl=True,
                                  conformal=self.conformal)
@@ -530,8 +596,9 @@ class CacheService:
         admit = plan.admit[rows]
         n_stale_ver = 0
         if plan.embed_version != self._embed_version and len(rows):
-            # the plan embedded under a panel set that has since been
-            # swapped (publish_panel): admitting its rows would plant
+            # the plan embedded under an embedder version that has since
+            # been swapped (a refresh or publish_panel): its hits were
+            # served consistently, but admitting its rows would plant
             # old-space keys into the new panels — reject them
             n_stale_ver = int(np.asarray(admit, bool).sum())
             admit = np.zeros_like(np.asarray(admit, bool))
@@ -603,11 +670,13 @@ class CacheService:
         return CommitReceipt(
             admitted=n_admit, skipped=int((~admit).sum()),
             evicted=self._n_evictions - evicted_before,
-            # a due policy refit is a maintenance obligation exactly like
-            # a due rebuild: the pipeline discharges both with one
-            # maintenance() call between batches
+            # a due policy refit or embedder refresh is a maintenance
+            # obligation exactly like a due rebuild: the pipeline
+            # discharges all three with one maintenance() call between
+            # batches
             rebuild_due=self._rebuild_due()
-            or (self.learned_admission and self.feedback.refit_due()),
+            or (self.learned_admission and self.feedback.refit_due())
+            or self._refresh_thread is not None or self._refresh_due(),
             commit_wall_s=wall, trace_id=plan.request.trace_id,
             embed_version=self._embed_version,
             stale_version_skipped=n_stale_ver, ttl_stamped=n_ttl,
@@ -619,10 +688,12 @@ class CacheService:
         """The idle tick (DESIGN.md §10.3): publish a finished shadow
         index and start one if the backlog calls for it, threshold
         refits (§9) and mixture-weight refits (§13) from the feedback
-        stream, reap TTL-expired rows, drain cold promotions and re-fit
-        cold routes (§12), publish gauges, drain the health tracker.
-        ``block=True`` quiesces: it joins a build in flight and never
-        starts one, so the service returns with no rebuild running."""
+        stream, publish or roll back a finished embedder refresh and
+        start one when due (§11), reap TTL-expired rows, drain cold
+        promotions and re-fit cold routes (§12), publish gauges, drain
+        the health tracker.  ``block=True`` quiesces: it joins a build
+        or refresh in flight and never starts one, so the service
+        returns with nothing running."""
         t0 = time.perf_counter()
         published = started = False
         wall = 0.0
@@ -634,6 +705,18 @@ class CacheService:
                 and self._shadow_thread is None and self._tail_pressure()):
             self._start_shadow()
             started = True
+        # §11: publish (or roll back) a finished candidate, then start
+        # one if the pair reservoir says a refresh is due
+        r_published = r_started = r_rolled = False
+        r_wall = 0.0
+        if self.trainer is not None:
+            if self._refresh_thread is not None and (
+                    block or not self._refresh_thread.is_alive()):
+                r_wall, r_published, r_rolled = self._finish_refresh()
+            if (not block and self._refresh_thread is None
+                    and self._refresh_due()):
+                self._start_refresh()
+                r_started = True
         refits_applied = refits_checked = 0
         if self.feedback is not None and self.learned_admission:
             # republish every tenant policy whose reservoir survives the
@@ -700,6 +783,10 @@ class CacheService:
         reg.gauge("cache_warm_backlog_rows",
                   "rows appended since the published index (demotion "
                   "pressure vs the tail window)").set(self._backlog())
+        if self.trainer is not None:
+            reg.gauge("cache_embed_version",
+                      "published embedder version (§11)"
+                      ).set(self._embed_version)
         if self.cold is not None:
             reg.gauge("cache_cold_occupancy",
                       "cold-tier occupancy fraction"
@@ -716,7 +803,11 @@ class CacheService:
             rebuild_in_flight=self._shadow_thread is not None,
             rebuild_wall_s=wall,
             refits_applied=refits_applied, refits_checked=refits_checked,
-            wall_s=host_wall, embed_version=self._embed_version,
+            wall_s=host_wall,
+            refresh_started=r_started, refresh_published=r_published,
+            refresh_rolled_back=r_rolled,
+            refresh_in_flight=self._refresh_thread is not None,
+            refresh_wall_s=r_wall, embed_version=self._embed_version,
             cold_promoted=cold_promoted,
             cold_route_rebuilt=cold_route_rebuilt,
             expired_reaped=expired_reaped)
@@ -782,12 +873,31 @@ class CacheService:
                 learning["ensemble_weights"] = self.policies.weights_state()
             if self.conformal:
                 learning["conformal"] = self.feedback.conformal_state()
+        refresh = None
+        if self.trainer is not None:
+            refresh = {
+                "embed_version": self._embed_version,
+                "refreshes_started": int(reg.value(
+                    "cache_embedder_refreshes_total", outcome="started")),
+                "refreshes_published": int(reg.value(
+                    "cache_embedder_refreshes_total", outcome="published")),
+                "refreshes_rolled_back": int(reg.value(
+                    "cache_embedder_refreshes_total",
+                    outcome="rolled_back")),
+                "stale_version_commits": int(reg.value(
+                    "cache_stale_version_commits_total")),
+                "refresh_in_flight": self._refresh_thread is not None,
+                "last_refresh_s": self._last_refresh_s,
+                "refresh_total_s": self._refresh_total_s,
+                "pairs_held": len(self.feedback.pairs),
+                "recalibrated_threshold": self._recalibrated_thr,
+            }
         health = self.telemetry.health.snapshot() \
             if self.telemetry.health is not None else None
         return ServiceStats(schema=SCHEMA, traffic=traffic,
                             admission=admission, tiers=tiers_d,
                             rebuild=rebuild, learning=learning,
-                            health=health, refresh=None)
+                            health=health, refresh=refresh)
 
     def evict_tenant(self, tenant: int) -> int:
         """Drop every entry of one tenant from every tier; frees the
@@ -816,12 +926,22 @@ class CacheService:
         neighbour string was GC'd between plan and commit is skipped.
         Runs before commit mints fresh ids.  Under an ensemble the same
         verdict, labeled with the candidate's per-embedder cosines, is
-        the mixture-weight learner's event (§13)."""
+        the mixture-weight learner's event (§13).  With the §11 refresh
+        on, every served hit also pools a positive text pair (query,
+        the stored neighbour's query) — before the miss rows, in the
+        reference's order, since the pair reservoir shares its random
+        stream with the score reservoirs."""
         top = plan.top_value_ids
         if top is None:
             return
         tenants = plan.request.tenants
         req_texts = plan.request.texts
+        if req_texts is not None and self.trainer is not None:
+            for row in np.nonzero(np.asarray(plan.hit, bool))[0]:
+                neigh = self._texts.get(int(plan.value_ids[row]))
+                if neigh is not None:
+                    self.feedback.observe_hit_pair(req_texts[int(row)],
+                                                   neigh)
         for pos, row in enumerate(rows):
             text = texts[pos]
             if text is None:
@@ -877,6 +997,159 @@ class CacheService:
         if self._shadow_thread is not None:
             return True
         return self.background_rebuild and self._tail_pressure()
+
+    # ------------------------------------------------------------------
+    # §11: online embedder refresh (train -> gate -> re-embed -> publish)
+    # ------------------------------------------------------------------
+    def _refresh_due(self) -> bool:
+        """The pair reservoir justifies a refresh attempt: enough pooled
+        pairs of both labels, and enough new pair events since the last
+        attempt.  With a ``synth_domain`` the class-balance guard is
+        waived: the synthetic backfill balances a one-sided pool."""
+        if self.trainer is None or self._refresh_thread is not None \
+                or self.feedback is None:
+            return False
+        pol = self._refresh_policy
+        pairs = self.feedback.pairs
+        if len(pairs) < pol.min_pairs:
+            return False
+        if pol.synth_domain is None and (pairs.n_pos < pol.min_class
+                                         or pairs.n_neg < pol.min_class):
+            return False
+        return self._pairs_at_refresh == 0 \
+            or pairs.seen - self._pairs_at_refresh >= pol.refresh_interval
+
+    def _start_refresh(self) -> None:
+        """Start the refresh on a host thread: a one-epoch contrastive
+        fit of a *candidate* trainer built from a copy of the live
+        weights (fresh Adam state; the live model is never written), the
+        eval gate against the live embedder on the held-out slice, then
+        the re-embed of a snapshot of both tiers' texts.  Everything the
+        thread reads is snapshotted here; what it produces lands in the
+        box for ``_finish_refresh``.  The thread's kernels go to the
+        device's default stream, behind the lookups already issued, and
+        the tier snapshots stay valid because every tier op writes fresh
+        tensors."""
+        from repro_torch.core.trainer import EmbedderTrainer
+        pol = self._refresh_policy
+        self._pairs_at_refresh = self.feedback.pairs.seen
+        train_ds, eval_ds = self.feedback.pairs.split(pol.eval_frac,
+                                                      seed=pol.seed)
+        if pol.synth_domain is not None and (
+                len(train_ds.labels) < pol.synth_min_pairs
+                or _single_class(train_ds) or _single_class(eval_ds)):
+            train_ds, eval_ds = _synth_backfill(train_ds, eval_ds, pol)
+        snap_hot, snap_warm = self.hot, self.warm
+        snap_texts = dict(self._texts)
+        baseline, tok = self.trainer, self._embed_tok
+        self._refresh_box = box = {}
+
+        def run() -> None:
+            t0 = time.perf_counter()
+            try:
+                cand = EmbedderTrainer(baseline.cfg, baseline.ft,
+                                       params=baseline.params,
+                                       device=baseline.device)
+                box["fit"] = cand.fit(train_ds, tok)
+                gate = _eval_gate(cand, baseline, eval_ds, tok, pol)
+                box["gate"] = gate
+                if gate["pass"]:
+                    box["trainer"] = cand
+                    box["embeddings"] = _reembed_snapshot(
+                        cand, tok, snap_hot, snap_warm, snap_texts)
+            except BaseException as e:          # re-raised at publish
+                box["error"] = e
+            box["wall"] = time.perf_counter() - t0
+
+        self._refresh_thread = threading.Thread(
+            target=run, name="embedder-refresh", daemon=True)
+        self._refresh_thread.start()
+        self._c_refresh_started.inc()
+
+    def _finish_refresh(self) -> Tuple[float, bool, bool]:
+        """Join the refresh thread; publish or roll back.
+
+        Publish grafts the shadow re-embeddings onto the *current* tiers
+        by value id: a row admitted while the thread ran is re-embedded
+        here with the candidate, so the published panel is single-space;
+        a row evicted meanwhile has no key to graft and ``valid`` never
+        moves, so nothing resurrects.  The panels swap between lookups,
+        the live trainer takes the candidate's weights in place
+        (``EmbedderTrainer.adopt``: every embed function handed out reads
+        the live model, so that copy is the hot swap) and its optimizer
+        state, and the version bumps so that plans in flight are
+        rejected at commit.  As in the reference, the IVF centroids and
+        lists stay in the old space until the next rebuild, and the cold
+        tier keeps its old-space rows.  Rollback discards the candidate,
+        which was never visible.  Returns (wall_s, published,
+        rolled_back)."""
+        self._refresh_thread.join()
+        self._refresh_thread = None
+        box, self._refresh_box = self._refresh_box, {}
+        err = box.get("error")
+        if err is not None:
+            raise RuntimeError("background embedder refresh failed") from err
+        wall = float(box.get("wall", 0.0))
+        self._last_refresh_s = wall
+        gate = box.get("gate", {"pass": False})
+        reg = self.telemetry.registry
+        g = reg.gauge(
+            "cache_refresh_eval",
+            "last refresh's eval-gate metrics on the held-out slice "
+            "(candidate vs the then-frozen baseline)",
+            labels=("embedder", "metric"))
+        for side in ("candidate", "baseline"):
+            for k, v in (gate.get(side) or {}).items():
+                if k in ("precision", "recall", "f1"):
+                    g.set(float(v), embedder=side, metric=k)
+        if not gate.get("pass"):
+            self._c_refresh_rolled_back.inc()
+            return wall, False, True
+        emb: Dict[int, np.ndarray] = box["embeddings"]
+        cand = box["trainer"]
+        delta = [(int(v), self._texts[int(v)]) for v in self._live_vids()
+                 if int(v) not in emb and int(v) in self._texts]
+        if delta:
+            de = cand.embed_texts([t for _, t in delta], self._embed_tok)
+            emb.update({v: de[i] for i, (v, _) in enumerate(delta)})
+        self.hot, self.warm = tiers.publish_reembedded_keys(
+            self.hot, self.warm, self._graft(self.hot, emb),
+            self._graft(self.warm, emb))
+        self.trainer.adopt(cand)
+        self._embed_version += 1
+        if self._refresh_policy.recalibrate:
+            # a threshold means something against one embedder's score
+            # distribution only: move every tenant to the candidate's
+            # best-F1 point on the gate slice, and drop the §9 score
+            # reservoirs (their samples are old-space cosines)
+            lo, hi = self._refresh_policy.recalibrate_bounds
+            new_thr = float(np.clip(
+                gate["candidate"]["f1_threshold"], lo, hi))
+            self.policies.recalibrate_all(new_thr)
+            self.feedback.reset_scores()
+            self._recalibrated_thr = new_thr
+            reg.gauge(
+                "cache_refresh_recalibrated_threshold",
+                "serving threshold adopted at the last embedder "
+                "publish (the candidate's held-out best-F1 operating "
+                "point, clipped to the policy's recalibrate_bounds)"
+            ).set(new_thr)
+        self._refresh_total_s += wall
+        self._c_refresh_published.inc()
+        return wall, True, False
+
+    def _graft(self, state, emb: Dict[int, np.ndarray]) -> torch.Tensor:
+        """``state``'s key panel with every valid row whose value id has
+        a re-embedding replaced by it; only those rows cross to the
+        device."""
+        keys = state.keys.clone()
+        vids = _np(state.value_ids)
+        rows = [i for i in np.nonzero(_np(state.valid))[0]
+                if int(vids[i]) in emb]
+        if rows:
+            keys[torch.as_tensor(rows, device=self.device)] = self._t(
+                np.stack([emb[int(vids[i])] for i in rows]), torch.float32)
+        return keys
 
     def _live_vids(self) -> np.ndarray:
         """Value ids currently valid in the hot and warm tiers."""
@@ -1082,6 +1355,94 @@ class CacheService:
     def warm_occupancy(self) -> float:
         return int(self.warm.valid.sum()) / self.warm_capacity
 
+    @property
+    def occupancy(self) -> float:
+        """Drop-in parity with SemanticCache (fraction of total rows)."""
+        n = int(self.hot.valid.sum()) + int(self.warm.valid.sum())
+        return n / (self.hot_capacity + self.warm_capacity)
+
     def __len__(self) -> int:
         n = int(self.hot.valid.sum()) + int(self.warm.valid.sum())
         return n + len(self.cold) if self.cold is not None else n
+
+
+# ---------------------------------------------------------------------------
+# §11 refresh helpers (module-level: they run on the refresh thread and
+# touch only the snapshots they are handed)
+# ---------------------------------------------------------------------------
+
+def _eval_gate(cand, baseline, eval_ds, tok,
+               pol: EmbedderRefreshPolicy) -> Dict[str, object]:
+    """Judge the candidate on the held-out slice: absolute
+    precision/recall floors plus no F1 regression against the live
+    embedder on the same slice.  A slice without both labels cannot
+    support the metrics: fail closed (roll back), never publish
+    unjudged."""
+    labels = np.asarray(eval_ds.labels)
+    if len(labels) == 0 or len(np.unique(labels)) < 2:
+        return {"pass": False, "reason": "eval-starved"}
+    cand_m = cand.evaluate(eval_ds, tok)
+    base_m = baseline.evaluate(eval_ds, tok)
+    ok = (cand_m["precision"] >= pol.min_precision
+          and cand_m["recall"] >= pol.min_recall
+          and cand_m["f1"] >= base_m["f1"] - pol.max_f1_regression)
+    return {"pass": bool(ok), "reason": "ok" if ok else "gate-failed",
+            "candidate": cand_m, "baseline": base_m}
+
+
+def _reembed_snapshot(trainer, tok, hot, warm,
+                      texts: Dict[int, str]) -> Dict[int, np.ndarray]:
+    """Re-embed every snapshot row whose query text is retained: value
+    id -> new embedding (the publish grafts them onto the then-current
+    tiers by id, so rows evicted since the snapshot are never looked
+    up)."""
+    vids: set = set()
+    for state in (hot, warm):
+        vids.update(int(x) for x in _np(state.value_ids[state.valid]))
+    todo = [(v, texts[v]) for v in sorted(vids) if v in texts]
+    if not todo:
+        return {}
+    embs = trainer.embed_texts([t for _, t in todo], tok)
+    return {v: embs[i] for i, (v, _) in enumerate(todo)}
+
+
+def _single_class(ds) -> bool:
+    labels = np.asarray(ds.labels)
+    return len(labels) == 0 or len(np.unique(labels)) < 2
+
+
+def _synth_backfill(train, eval_ds, pol: EmbedderRefreshPolicy):
+    """Top a thin or class-skewed split up with grammar-synthesized
+    paraphrase/distinct pairs from ``pol.synth_domain`` (the paper's
+    synthetic augmentation, DESIGN.md §6).  The synthetic pool is split
+    train/eval with the reservoir's ``eval_frac`` only when the held-out
+    slice is class-starved (otherwise the gate judges serving pairs
+    alone); the split is deterministic in ``synth_seed``.  Returns the
+    augmented ``(train, eval)`` datasets."""
+    from repro_torch.core.synth import (
+        TemplateGenerator, generate_synthetic_pairs, records_to_dataset,
+    )
+    from repro_torch.data.corpora import PairDataset, sample_query
+    need = max(pol.synth_min_pairs - len(train.labels), 8)
+    rng = np.random.default_rng(pol.synth_seed)
+    # each seed query yields 2 paraphrase + 2 distinct records
+    seeds = [sample_query(rng, pol.synth_domain)
+             for _ in range(max(-(-need // 4), 1))]
+    synth = records_to_dataset(generate_synthetic_pairs(
+        seeds, TemplateGenerator(pol.synth_seed), n_pos=2, n_neg=2))
+    perm = np.random.default_rng(pol.synth_seed).permutation(
+        len(synth.labels))
+    n_eval = int(np.ceil(len(perm) * pol.eval_frac)) \
+        if _single_class(eval_ds) else 0
+    ev, tr = perm[:n_eval], perm[n_eval:]
+
+    def cat(ds: PairDataset, idx: np.ndarray) -> PairDataset:
+        return PairDataset(
+            q1=list(ds.q1) + [synth.q1[i] for i in idx],
+            q2=list(ds.q2) + [synth.q2[i] for i in idx],
+            labels=np.concatenate(
+                [np.asarray(ds.labels, np.int32),
+                 np.asarray([synth.labels[i] for i in idx], np.int32)]),
+            domain=ds.domain)
+
+    return cat(train, tr), cat(eval_ds, ev)

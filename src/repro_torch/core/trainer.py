@@ -11,7 +11,17 @@ Adam update of `training.optim`, in place on the encoder's parameters.
 
 Without ``params`` the encoder is initialised from ``ft.seed`` at the
 config's widths; ``params`` takes a port state dict (e.g.
-`models.state_dict_from_reference` of the reference's weights).
+`models.state_dict_from_reference` of the reference's weights, or
+another trainer's ``params``), whose values are copied in: the trainer
+never shares a tensor with the caller, so a candidate built from the
+live trainer's ``params`` trains without touching the live weights.
+
+``adopt(other)`` is the hot swap of the embedder refresh (DESIGN.md
+§11).  The reference swaps by assigning ``params``, which works there
+because its embed closure reads ``self.params`` on every call; here
+``make_embed_fn`` closes over ``self.model``, so the swap copies the
+other trainer's weights into this model's parameters in place and
+adopts its optimizer state.
 """
 from __future__ import annotations
 
@@ -148,6 +158,15 @@ class EmbedderTrainer:
     def evaluate(self, ds: PairDataset, tokenizer: HashTokenizer) -> dict:
         scores = self.pair_scores(ds, tokenizer)
         return pair_classification_metrics(scores, ds.labels)
+
+    @torch.no_grad()
+    def adopt(self, other: "EmbedderTrainer") -> None:
+        """Take ``other``'s weights (copied in place into this model's
+        parameters, so every embed function already handed out sees
+        them) and its optimizer state."""
+        for name, p in self.params.items():
+            p.copy_(other.params[name])
+        self.opt_state = other.opt_state
 
     def make_embed_fn(self, tokenizer: HashTokenizer) -> Callable:
         """list[str] -> (B, D) unit-norm np — plugs into CachedLLMService."""

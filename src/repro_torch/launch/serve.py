@@ -20,16 +20,19 @@ through the fused ensemble cascade (the fine-tuned embedder as the
 pilot, random-projection panels beside it; §13), ``--ttl`` stamps a
 default TTL on admitted entries (§14.2), ``--conformal`` floors each
 tenant's threshold at a recency-window quantile of its audited
-negatives (§14.3) and ``--cold-capacity N`` puts a host-RAM cold tier
-of N rows behind the warm ring (§12).  ``--metrics-json PATH`` dumps
+negatives (§14.3), ``--cold-capacity N`` puts a host-RAM cold tier
+of N rows behind the warm ring (§12) and ``--learned-embedder``
+refreshes the embedder online from the serving stream (§11; the
+reference's smoke-scale policy, so the refresh trips inside a short
+stream).  ``--metrics-json PATH`` dumps
 the telemetry registry as JSON-lines after the run, and
 ``--metrics-interval N`` every N batches too.
 
 The prompts of cache misses are encoded with a tokenizer of the
 *decoder's* vocab, not the encoder's: the encoder's ids would fall
 outside the decoder's embedding table.  Options of the reference that
-the port lacks (``--cache-shards``, ``--learned-embedder``,
-``--scenario``) are refused with the slice that brings them.
+the port lacks (``--cache-shards``, ``--scenario``) are refused with the
+slice that brings them.
 """
 from __future__ import annotations
 
@@ -49,7 +52,6 @@ from repro_torch.serving import CachedLLMService, ServeEngine
 # each (ROADMAP.md queue A)
 _NOT_PORTED = {
     "cache_shards": ("--cache-shards", "the sharded-warm-tier slice"),
-    "learned_embedder": ("--learned-embedder", "the embedder-refresh slice"),
     "scenario": ("--scenario", "the benchmarks slice"),
 }
 
@@ -96,7 +98,11 @@ def parse_args(argv=None):
                          "reference's command line: it does not change "
                          "results, and the CUDA kernel has no counterpart "
                          "(it stages rows in its own tiles)")
-    ap.add_argument("--learned-embedder", action="store_true")
+    ap.add_argument("--learned-embedder", action="store_true",
+                    help="refresh the embedder online: one-epoch "
+                         "contrastive fine-tunes on pooled serving pairs, "
+                         "gated, re-embedded and hot-swapped (DESIGN.md "
+                         "§11; implies --tiered)")
     ap.add_argument("--conformal", action="store_true",
                     help="per-tenant split-conformal hit calibration: "
                          "serve only above a recency-window quantile of "
@@ -112,24 +118,37 @@ def parse_args(argv=None):
         ap.error("--metrics-json instruments the cached serving path; "
                  "add --cache")
     if args.warm_dtype != "float32" or args.learned_admission \
-            or args.ensemble or args.ttl or args.warm_block \
-            or args.cold_capacity or args.conformal:
+            or args.learned_embedder or args.ensemble or args.ttl \
+            or args.warm_block or args.cold_capacity or args.conformal:
         args.tiered = True
     if args.ensemble == 1:
         ap.error("--ensemble needs E >= 2 (a single embedder is the "
                  "default cascade)")
+    if args.ensemble and args.learned_embedder:
+        ap.error("--ensemble and --learned-embedder are exclusive: the "
+                 "§11 refresh re-embeds one key panel, the §13 ensemble "
+                 "serves several (swap panels via publish_panel instead)")
     return args
 
 
-def make_cache(args, dim: int, telemetry: Telemetry):
+def make_cache(args, dim: int, telemetry: Telemetry, trainer=None,
+               tok=None):
+    """The flat or tiered cache the flags ask for; ``--learned-embedder``
+    needs the embedder's ``trainer`` and ``tok``."""
     if not args.tiered:
         return SemanticCache(capacity=4096, dim=dim,
                              threshold=args.threshold, telemetry=telemetry,
                              device=args.device)
     from repro_torch.cache_service import (
-        CacheConfig, CacheService, EnsembleConfig, LearningConfig,
-        StalenessConfig, TieringConfig,
+        CacheConfig, CacheService, EmbedderRefreshPolicy, EnsembleConfig,
+        LearningConfig, StalenessConfig, TieringConfig,
     )
+    # smoke-scale refresh policy: trip the trigger inside a short
+    # stream, backfill thin splits from the medical grammar (§11)
+    refresh = EmbedderRefreshPolicy(
+        min_pairs=24, min_class=4, refresh_interval=32,
+        synth_domain="medical", synth_min_pairs=128, recalibrate=True,
+    ) if args.learned_embedder else None
     cache = CacheService(CacheConfig(
         dim=dim, threshold=args.threshold, telemetry=telemetry,
         tiering=TieringConfig(hot_capacity=512, warm_capacity=4096,
@@ -137,14 +156,20 @@ def make_cache(args, dim: int, telemetry: Telemetry):
                               warm_dtype=args.warm_dtype,
                               warm_block=args.warm_block or None,
                               cold_capacity=args.cold_capacity),
-        learning=LearningConfig(learned_admission=args.learned_admission,
-                                conformal=args.conformal),
+        learning=LearningConfig(
+            learned_admission=args.learned_admission,
+            conformal=args.conformal,
+            learned_embedder=args.learned_embedder,
+            embedder_trainer=trainer if args.learned_embedder else None,
+            embedder_tokenizer=tok if args.learned_embedder else None,
+            refresh_policy=refresh),
         ensemble=EnsembleConfig(embedders=args.ensemble or None),
         staleness=StalenessConfig(default_ttl=args.ttl or None)),
         device=args.device)
     caps = cache.capabilities()
     print(f"tiered cache: warm dtype {caps.warm_dtype}, learned admission "
-          f"{'on' if caps.learned_admission else 'off'}, cold tier "
+          f"{'on' if caps.learned_admission else 'off'}, learned embedder "
+          f"{'on' if caps.learned_embedder else 'off'}, cold tier "
           f"{args.cold_capacity if caps.cold_tier else 0} rows, ensemble "
           f"{f'E={caps.ensemble}' if caps.ensemble else 'off'}, ttl "
           f"{args.ttl or 'off'}, conformal "
@@ -179,7 +204,7 @@ def main(argv=None):
         epochs=1, batch_size=32, lr=5e-4, max_len=24), device=args.device)
     trainer.fit(make_pair_dataset("medical", 512, seed=0), tok)
     telemetry = Telemetry()
-    cache = make_cache(args, enc_cfg.d_model, telemetry)
+    cache = make_cache(args, enc_cfg.d_model, telemetry, trainer, tok)
     embed_fn = trainer.make_embed_fn(tok)
     if args.ensemble:
         from repro_torch.core import RandomProjectionEmbedder
@@ -243,6 +268,16 @@ def main(argv=None):
               f"({lrn['duplicate_events']} duplicates, "
               f"{lrn['wasted_admissions']} wasted admissions); "
               f"policies {lrn['learned_policies']}")
+    if args.learned_embedder:
+        rf = st["backend"]["refresh"]
+        print(f"learned embedder: version {rf['embed_version']} "
+              f"({rf['refreshes_published']} published, "
+              f"{rf['refreshes_rolled_back']} rolled back from "
+              f"{rf['refreshes_started']} started; "
+              f"{rf['pairs_held']} pairs pooled, "
+              f"{rf['stale_version_commits']} stale-version commits; "
+              f"recalibrated threshold "
+              f"{rf['recalibrated_threshold']})")
     if args.ttl:
         stl = cache.stats_snapshot().tiers["staleness"]
         print(f"ttl: {stl['ttl_stamped']} stamped, "

@@ -13,10 +13,12 @@ reference's; "fixing" it would change every cache key.
 ``LM`` mirrors the reference's decoder functions (`repro/models/
 model.py` ``forward_lm``, ``init_lm_state``, ``prefill``,
 ``decode_step``) for configs whose layers are all ``LayerSpec(ATTN,
-DENSE)``: the decode state is ``{"layers": [one KV cache per layer],
-"cur_len": tokens consumed}``, updated in place by ``decode_step``.
-Frontend configs (audio, vision), MoE and the recurrent mixers arrive
-with later slices; ``lm_loss`` with the decoder-training slice.
+DENSE)`` or ``LayerSpec(ATTN, MOE)``: the decode state is ``{"layers":
+[one KV cache per layer], "cur_len": tokens consumed}``, updated in
+place by ``decode_step``.  ``forward_lm`` sums the MoE layers' aux
+losses; prefill and decode drop them, as the reference does.  Frontend
+configs (audio, vision) and the recurrent mixers arrive with later
+slices; ``lm_loss`` with the decoder-training slice.
 """
 from __future__ import annotations
 
@@ -60,7 +62,7 @@ class Encoder(nn.Module):
         positions = torch.arange(x.shape[1], device=x.device)
         sin, cos = layers.rope_frequencies(self.cfg, positions)
         for blk in self.layers:
-            x = blk(x, sin, cos)
+            x, _ = blk(x, sin, cos)
         x = self.final_norm(x).float()
         if mask is None:
             emb = x.mean(dim=1)
@@ -111,13 +113,17 @@ class LM(nn.Module):
 
     def forward_lm(self, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens: (B, S) int.  Returns (logits (B, S, padded vocab) in
-        ``cfg.dtype``, aux loss () float32 — 0 without MoE)."""
+        ``cfg.dtype``, aux loss () float32: the sum over the MoE layers
+        of their load-balance + z-losses, 0 without MoE)."""
         x = self.embed(self._tokens(tokens))
         positions = torch.arange(x.shape[1], device=x.device)
         sin, cos = layers.rope_frequencies(self.cfg, positions)
+        aux = torch.zeros((), device=x.device)
         for blk in self.layers:
-            x = blk(x, sin, cos)
-        return self._logits(x), torch.zeros((), device=x.device)
+            x, a = blk(x, sin, cos)
+            if a is not None:
+                aux = aux + a
+        return self._logits(x), aux
 
     def init_lm_state(self, batch: int, seq_len: int) -> Dict:
         """Empty decode state: a KV cache per layer sized for
@@ -139,7 +145,7 @@ class LM(nn.Module):
         positions = torch.arange(S, device=x.device)
         sin, cos = layers.rope_frequencies(self.cfg, positions)
         for blk, st in zip(self.layers, state["layers"]):
-            x = blk.prefill(x, positions, sin, cos, st)
+            x, _ = blk.prefill(x, positions, sin, cos, st)
         state["cur_len"] = S
         return self._logits(x[:, -1:])[:, 0], state
 
@@ -152,6 +158,6 @@ class LM(nn.Module):
         pos = torch.full((1,), cur, device=x.device)
         sin, cos = layers.rope_frequencies(self.cfg, pos)
         for blk, st in zip(self.layers, state["layers"]):
-            x = blk.decode(x, cur, sin, cos, st)
+            x, _ = blk.decode(x, cur, sin, cos, st)
         state["cur_len"] = cur + 1
         return self._logits(x)[:, 0], state

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MOE, ModelConfig
 
 
 class Initializer:
@@ -83,6 +83,9 @@ def state_dict_from_reference(tree: Mapping, cfg: ModelConfig
     * ``ffn/w_gate``, ``w_up``: ``(d, f)`` -> ``(f, d)``;
       ``ffn/w_down``: ``(f, d)`` -> ``(d, f)``
 
+    * an MoE layer's ``ffn/router`` (d, E), ``ffn/w_gate``, ``w_up``
+      (E, d, f) and ``ffn/w_down`` (E, f, d) -> ``moe.*`` in the same
+      layouts (not transposed: the port's ``MoE`` keeps the reference's)
     * ``embed/unembed`` (an untied decoder's): ``(d, vocab)`` ->
       ``unembed`` ``(vocab, d)``; an encoder has no use for it, and it
       is dropped there
@@ -119,6 +122,8 @@ def state_dict_from_reference(tree: Mapping, cfg: ModelConfig
                 name, a = "attn.wo", a.reshape(-1, a.shape[-1]).T
             elif leaf in ("mixer/bq", "mixer/bk", "mixer/bv"):
                 name, a = "attn." + leaf[6:], a.reshape(-1)
+            elif leaf.startswith("ffn/") and cfg.period[i].ffn == MOE:
+                name = "moe." + leaf[4:]
             elif leaf.startswith("ffn/"):
                 name, a = "mlp." + leaf[4:], a.T
             elif leaf.startswith(("norm1/", "norm2/")):

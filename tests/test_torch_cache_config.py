@@ -10,10 +10,10 @@ port counterpart: the port's service takes only a ``CacheConfig``, and
 ``test_flat_kwargs_construction_is_refused`` pins that.  The same inputs
 go to both sides: a field
 the reference refuses the port refuses, and ``from_kwargs`` builds the
-same grouped config.  What the port does not run yet (the embedder
-refresh, the sharded warm tier) it refuses by slice name, which the
-reference accepts; those cases are left out here and pinned in
-`tests/test_torch_service.py` and `tests/test_torch_feedback.py`.
+same grouped config.  What the port does not run yet (the sharded warm
+tier) it refuses by slice name, which the reference accepts; that case
+is left out here and pinned in `tests/test_torch_service.py` and
+`tests/test_torch_feedback.py`.
 """
 import dataclasses
 
@@ -98,6 +98,23 @@ def test_from_kwargs_groups_every_renamed_key():
     assert cfg["learning"]["conformal"]
     assert cfg["ensemble"]["embedders"] == 3
     assert cfg["staleness"]["default_ttl"] == 30.0
+
+
+def test_from_kwargs_groups_the_refresh_keys():
+    """The embedder refresh's flat names land on ``LearningConfig`` on
+    both sides, the policy's fields equal."""
+    trainer, tok = object(), object()
+    built = []
+    for mod in (J, P):
+        cfg = mod.CacheConfig.from_kwargs(
+            32, learned_embedder=True, embedder_trainer=trainer,
+            embedder_tokenizer=tok, refresh_policy=mod.EmbedderRefreshPolicy(
+                min_pairs=24, synth_domain="medical", recalibrate=True))
+        assert cfg.learning.embedder_trainer is trainer
+        assert cfg.learning.embedder_tokenizer is tok
+        built.append(_fields(cfg))
+    assert built[1] == built[0]
+    assert built[1]["learning"]["refresh_policy"]["min_pairs"] == 24
 
 
 def test_from_kwargs_rejects_unknown_keyword():

@@ -177,20 +177,23 @@ def test_learned_admission_refits_match_reference(monkeypatch):
 
 def test_unported_learning_fields_still_refused():
     """What the port does not run is refused by name and slice, never
-    accepted and ignored: the embedder refresh and the sharded warm
-    tier.  Conformal calibration, the background rebuild and the cold
-    tier are accepted, as are the learning and ensemble fields."""
+    accepted and ignored: the sharded warm tier.  The embedder refresh's
+    fields are accepted by the config, and the service holds them to the
+    reference's rule (a refresh needs its trainer and tokenizer).
+    Conformal calibration, the background rebuild and the cold tier are
+    accepted, as are the learning and ensemble fields."""
     from repro_torch.cache_service import (
-        EnsembleConfig, ShardingConfig,
+        CacheConfig, CacheService, EmbedderRefreshPolicy, EnsembleConfig,
+        ShardingConfig,
     )
-    for make, slice_name in (
-            (lambda: LearningConfig(refresh_policy=object()),
-             "embedder-refresh"),
-            (lambda: LearningConfig(embedder_trainer=object()),
-             "embedder-refresh"),
-            (lambda: ShardingConfig(mesh=object()), "sharded")):
-        with pytest.raises(ValueError, match=slice_name):
-            make()
+    with pytest.raises(ValueError, match="sharded"):
+        ShardingConfig(mesh=object())
+    for learning in (LearningConfig(refresh_policy=EmbedderRefreshPolicy()),
+                     LearningConfig(learned_embedder=True,
+                                    embedder_trainer=object())):
+        with pytest.raises(ValueError, match="embedder_tokenizer"):
+            CacheService(CacheConfig(dim=8, learning=learning),
+                         device="cpu")
     LearningConfig(learned_admission=True, feedback=FeedbackConfig(),
                    conformal=True)
     TieringConfig(background_rebuild=True, cold_capacity=64)

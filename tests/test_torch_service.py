@@ -171,11 +171,14 @@ def test_ttl_and_tenant_eviction_match_reference():
 
 def test_unported_features_are_refused():
     """Only what the port does not run yet is refused, by its slice's
-    name: the embedder refresh and the sharded warm tier.  The
-    maintenance loop's fields are accepted and reach the service."""
+    name: the sharded warm tier.  The maintenance loop's fields and the
+    embedder refresh's are accepted and reach the service (a refresh
+    without its trainer and tokenizer is refused there, as in the
+    reference)."""
     from repro_torch.cache_service import LearningConfig, ShardingConfig
-    with pytest.raises(ValueError, match="embedder-refresh"):
-        LearningConfig(learned_embedder=True)
+    with pytest.raises(ValueError, match="embedder_trainer"):
+        CacheService(CacheConfig(dim=D, learning=LearningConfig(
+            learned_embedder=True)), device="cpu")
     with pytest.raises(ValueError, match="sharded"):
         ShardingConfig(mesh=object())
     svc = CacheService(CacheConfig(
@@ -214,3 +217,46 @@ def test_warm_block_is_accepted_and_changes_nothing():
     assert out[0][0] == out[1][0]
     assert out[1][1].traffic["warm_hits"] > 0
     _assert_stats_equal(out[0][1], out[1][1])
+
+
+def test_calibrate_tenant_matches_reference():
+    """A tenant's threshold fit to its own eval pairs under a false-hit
+    budget: the same calibration and the same published policy on both
+    sides, other tenants untouched."""
+    rng = np.random.default_rng(7)
+    labels = rng.random(400) < 0.4
+    scores = np.where(labels, rng.normal(0.93, 0.03, 400),
+                      rng.normal(0.85, 0.04, 400)).astype(np.float32)
+    ref, port = _pair(False, False)
+    for budget in (0.01, 0.05):
+        a = ref.calibrate_tenant(3, scores, labels, max_false_hit_rate=budget)
+        b = port.calibrate_tenant(3, scores, labels,
+                                  max_false_hit_rate=budget)
+        assert dataclasses.asdict(b) == pytest.approx(dataclasses.asdict(a))
+        assert port.policies.get(3).threshold == \
+            ref.policies.get(3).threshold == b.threshold
+    assert port.policies.get(0).threshold == ref.policies.get(0).threshold \
+        == 0.9
+
+
+def test_occupancy_matches_reference():
+    """The SemanticCache drop-in fraction of live rows over hot + warm
+    capacity, through fills, demotions and a tenant eviction."""
+    batches, table = _trace(seed=2, n_batches=12)
+    ref, port = _pair(True, False)
+    assert port.occupancy == ref.occupancy == 0.0
+    embed = lambda texts: np.stack([table[t] for t in texts])
+    rs = JCachedLLMService(embed, ref, None, JHashTokenizer())
+    ps = CachedLLMService(embed, port, None, HashTokenizer())
+    seen = set()
+    for texts, tenant in batches:
+        rs.handle(texts, tenant=tenant)
+        ps.handle(texts, tenant=tenant)
+        assert port.occupancy == pytest.approx(ref.occupancy, abs=0)
+        seen.add(port.occupancy)
+    assert len(seen) > 3 and port.stats_snapshot().tiers["demotions"] > 0
+    assert port.occupancy == (len(port) / (port.hot_capacity
+                                           + port.warm_capacity))
+    ref.evict_tenant(1)
+    port.evict_tenant(1)
+    assert port.occupancy == ref.occupancy
