@@ -58,7 +58,10 @@ or the port is not beside the script.  Phases, each fatal on failure:
      (B=8, S=32, H=24, KV=8, hd=64); decode attention at Phi-3-mini's
      decode step (B=8, L=64), a ring buffer (B=8, L=4096), GQA (H=40,
      KV=8, hd=128, L=32768), MQA (KV=1) and Granite-MoE's decode step
-     (B=8, L=64, H=24, KV=8, hd=64: a group of 3, the row kernel); bf16
+     (B=8, L=64, H=24, KV=8, hd=64: a group of 3, the row kernel); the
+     zoo's prefills (MusicGen B=8, S=288, H=KV=32, hd 64; Pixtral H=32,
+     KV=8, hd 128, S=288; Jamba B=8, S=32, H=64, KV=8, hd 128) and decode
+     steps (MusicGen and Pixtral L=320 at position 300, Jamba L=64); bf16
      and fp32, outputs within ``ATTN_TOL``, device kernels per call, timed
      beside ``F.scaled_dot_product_attention`` with the same mask (the
      library yardstick, never on the port's path); and, untimed, the
@@ -173,13 +176,39 @@ or the port is not beside the script.  Phases, each fatal on failure:
    on the argmax (router decisions the two paths' roundings flip are
    counted), float32 elementwise within ``DECODE_ATOL``.  (c) 7(c)'s
    1024 requests through ``CachedLLMService`` with this decoder: hits
-   and misses must equal 7(c)'s.
+   and misses must equal 7(c)'s;
+11. the rest of the decoder zoo at published widths, one model at a
+   time (each freed, and the peak-memory counter reset, before the
+   next), after phase 10's model is freed; for each: peak memory,
+   prefill ms, decode ms a step, tokens/s, the device kernels of one
+   profiled decode step, and flash / decode launches, which must equal
+   the prefills and the steps times the attention layers.  (a)
+   ``xlstm-125m`` (12 layers alternating mLSTM and sLSTM, d 768, 4 heads,
+   vocab 50304, tied embeddings; no attention, so no attention launch)
+   through 7(a)'s generation.  (c) 7(c)'s 1024 requests with this
+   decoder answering the misses: hits / misses must equal 7(c)'s and
+   cascade launches the plans.  (d) ``jamba-1.5-large-398b`` cut to the
+   first five positions of its period (four Mamba layers of d_in 16384,
+   N 16, dt rank 512; one attention layer without RoPE, 64 heads over 8
+   KV heads of 128; two MoE layers of 16 experts top-2 at d_ff 24576;
+   bf16 parameters, the config's own), 7(a)'s generation, with the MoE
+   layers' dropped assignments.  (e) ``musicgen-large`` (48 layers, d
+   2048, MHA 32 x 64, vocab 2048, sinusoidal positions) and (f)
+   ``pixtral-12b`` (40 layers, d 5120, 32 heads over 8 KV heads of 128,
+   vocab 131072), each generating from 256 frontend-stub frames plus the
+   32-token prompts (``use_frontend=True``).  (b) For (a), (d), (e) and
+   (f), after each one's generation: the same seed's model with float32
+   activations (Jamba's MoE at a capacity factor of experts / top-k, so
+   that no assignment drops), teacher-forced decode against
+   ``forward_lm`` at every position after a 32-token prompt (behind the
+   frontend frames), within ``DECODE_ATOL`` with equal argmax.
 
 Prints the card's name and power limit, the stage latencies, a JSON
 line of per-kernel numbers and, last, ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -233,7 +262,10 @@ FLASH_SHAPES = (("phi3 prefill", 8, 32, 32, 32, 96, True, 0),
                 ("gqa window", 1, 40, 8, 1024, 128, True, 256),
                 ("bidirectional", 64, 12, 12, 32, 64, False, 0),
                 ("ragged prefill", 3, 32, 32, 77, 96, True, 0),
-                ("granite prefill", 8, 24, 8, 32, 64, True, 0))
+                ("granite prefill", 8, 24, 8, 32, 64, True, 0),
+                ("musicgen prefill", 8, 32, 32, 288, 64, True, 0),
+                ("pixtral prefill", 8, 32, 8, 288, 128, True, 0),
+                ("jamba prefill", 8, 64, 8, 32, 128, True, 0))
 # (name, B, H, KV, L, hd, cur, window): slot t holds the newest position
 # p <= cur with p % L == t; the step at position cur sees the filled
 # slots inside the window
@@ -241,7 +273,10 @@ DECODE_SHAPES = (("phi3 decode", 8, 32, 32, 64, 96, 48, 0),
                  ("phi3 ring", 8, 32, 32, 4096, 96, 5000, 3000),
                  ("gqa long", 1, 40, 8, 32768, 128, 30000, 0),
                  ("mqa", 8, 32, 1, 4096, 96, 3000, 0),
-                 ("granite decode", 8, 24, 8, 64, 64, 48, 0))
+                 ("granite decode", 8, 24, 8, 64, 64, 48, 0),
+                 ("musicgen decode", 8, 32, 32, 320, 64, 300, 0),
+                 ("pixtral decode", 8, 32, 8, 320, 128, 300, 0),
+                 ("jamba decode", 8, 64, 8, 64, 128, 48, 0))
 # (name, B, H, KV, L, hd, cur, window, slots all masked): bf16 MQA cuts
 # L = 4096 into 16 splits of 256 rows, so slots 256..511 are split 1
 DECODE_EDGES = (("gqa ragged", 1, 40, 8, 30001, 128, 29000, 0, None),
@@ -285,6 +320,12 @@ MOE_DECODER = "granite-moe-3b-a800m"
 MOE_BF16_MEAN_TOL = 0.05
 MOE_BF16_AGREE = 0.9
 MOE_FP32_STEPS = 8
+# phase 11: the zoo, in the order run; 11(d) keeps the first five
+# positions of Jamba's period of 8 (the full 72 layers, 398.6 B bf16
+# parameters, do not fit one card)
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_POSITIONS = 5
+ZOO = ("xlstm-125m", JAMBA, "musicgen-large", "pixtral-12b")
 
 
 def fail(msg: str) -> None:
@@ -1067,6 +1108,7 @@ def profile(fn, what: str) -> dict:
             for e in top))
     return {"wall_ms": wall * 1e3, "device_ms": dev_us / 1e3,
             "idle_share": idle,
+            "launches": sum(e.count for e in kernels),
             "kernel_ms": {e.key: e.self_device_time_total / 1e3
                           for e in kernels}}
 
@@ -1766,6 +1808,13 @@ def decoder_config():
     return cfg
 
 
+def attention_layers(cfg) -> int:
+    """The decoder's attention layers: one flash launch each a prefill,
+    one decode launch each a step."""
+    from repro_torch.configs.base import ATTN
+    return sum(spec.mixer == ATTN for spec in cfg.layer_specs())
+
+
 def attention_counts(reset: bool = False) -> dict:
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -1874,7 +1923,7 @@ def llm_serving_phase(dev, engine, trainer, tok) -> dict:
     del engine.generate
     st = svc.stats()
     plans = st["backend"]["traffic"]["plans"]
-    L, calls = cfg.n_layers, len(rows)
+    L, calls = attention_layers(cfg), len(rows)
     want = {"flash_attention": L * calls,
             "decode_attention": L * LLM_NEW_TOKENS * calls}
     print(f"  served {len(served)} requests in {wall:.2f} s: hits "
@@ -1904,6 +1953,7 @@ def llm_serving_phase(dev, engine, trainer, tok) -> dict:
                  "generation of this run")
     p50 = stage_p50(telemetry)
     return {"launches": counts, "calls": calls, "p50_ms": p50,
+            "cascade_launches": ck.COUNTS["cascade_lookup"], "plans": plans,
             "hits": st["hits"], "misses": st["misses"],
             "generations": st["generations"], "hit_rate": st["hit_rate"],
             "wall_s": wall}
@@ -2572,7 +2622,7 @@ def moe_decoder_config():
 
 def moe_dropped(lm) -> list:
     """Assignments past capacity in each MoE layer's last call."""
-    return [int(blk.moe.dropped) for blk in lm.layers]
+    return [int(blk.moe.dropped) for blk in lm.layers if hasattr(blk, "moe")]
 
 
 def moe_generation_phase(dev, cfg) -> dict:
@@ -2781,6 +2831,214 @@ def moe_plain_phase(dev, gn, cfg) -> dict:
             "mean_abs_err": mean, "argmax_agree": agree,
             "router_flips": flips, "router_decisions": decisions,
             "fp32_max_abs_err": err32, "fp32_router_flips": flips32}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the rest of the decoder zoo
+# ---------------------------------------------------------------------------
+
+def zoo_config(name: str):
+    """The published config (Jamba cut to ``JAMBA_POSITIONS`` layers),
+    its widths checked."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    if name == JAMBA:
+        cfg = cfg.replace(n_layers=JAMBA_POSITIONS,
+                          period=cfg.period[:JAMBA_POSITIONS])
+    head = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.dtype,
+            cfg.param_dtype, cfg.frontend_len if cfg.frontend else 0)
+    want = {"xlstm-125m": (12, 768, 4, 4, 192, 0, 50304, "bfloat16",
+                           "float32", 0),
+            JAMBA: (5, 8192, 64, 8, 128, 24576, 65536, "bfloat16",
+                    "bfloat16", 0),
+            "musicgen-large": (48, 2048, 32, 32, 64, 8192, 2048, "bfloat16",
+                               "float32", 256),
+            "pixtral-12b": (40, 5120, 32, 8, 128, 14336, 131072,
+                            "bfloat16", "float32", 256)}[name]
+    extra = {"xlstm-125m": lambda c: c.tie_embeddings and not c.use_rope,
+             JAMBA: lambda c: (c.moe.num_experts, c.moe.top_k,
+                               c.moe.expert_d_ff, c.ssm.d_state,
+                               c.ssm.d_conv, c.ssm.expand) == (
+                                   16, 2, 24576, 16, 4, 2)
+             and not c.use_rope,
+             "musicgen-large": lambda c: not c.use_rope
+             and c.family == "audio",
+             "pixtral-12b": lambda c: c.use_rope}[name]
+    if head != want or not extra(cfg):
+        fail(f"{name} is not at its published widths: {head}")
+    return cfg
+
+
+def zoo_generation_phase(dev, cfg) -> dict:
+    """7(a)'s generation (8 prompts of 32 tokens, 32 greedy tokens),
+    behind the frontend stub's frames where the config has a frontend."""
+    import numpy as np
+    import torch
+    from repro_torch.models import LM
+    from repro_torch.serving import ServeEngine
+    from repro_torch.serving.frontend import stub_frontend_embeds
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    use_fe = bool(cfg.frontend)
+    n_fe = cfg.frontend_len if use_fe else 0
+    L = attention_layers(cfg)
+    print(f"  {cfg.name}: {cfg.n_layers} layers ({L} attention), "
+          f"{n_params:,} params ({cfg.param_dtype}; param_count() "
+          f"{cfg.param_count():,}), {cfg.dtype} activations"
+          + (f", {n_fe} {cfg.frontend} frontend frames" if use_fe else "")
+          + f"; built in {time.perf_counter() - t0:.1f} s")
+    max_len = n_fe + GEN_PROMPT + GEN_NEW
+    engine = ServeEngine(lm, max_len=max_len)
+    prompts = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (GEN_B, GEN_PROMPT)).astype(np.int32)
+    engine.generate(prompts, 2, use_frontend=use_fe)        # warm
+    torch.cuda.synchronize()
+    attention_counts(reset=True)
+    t0 = time.perf_counter()
+    res = engine.generate(prompts, GEN_NEW, use_frontend=use_fe)
+    wall = time.perf_counter() - t0
+    counts = attention_counts()
+    if counts != {"flash_attention": L, "decode_attention": L * GEN_NEW}:
+        fail(f"{cfg.name} generate: launches {counts}, expected {L} flash "
+             f"(one prefill) and {L * GEN_NEW} decode ({GEN_NEW} steps)")
+    if res.tokens.shape != (GEN_B, GEN_NEW) or res.tokens.min() < 0 \
+            or res.tokens.max() >= cfg.vocab_size:
+        fail(f"{cfg.name} generate: bad tokens {res.tokens.shape}")
+    fe = stub_frontend_embeds(cfg, GEN_B, 0, device=dev) if use_fe else None
+
+    def prefill():
+        out = lm.prefill(prompts, max_len, frontend_embeds=fe)
+        torch.cuda.synchronize()
+        return out
+    times = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        prefill()
+        times.append(time.perf_counter() - t1)
+    prefill_ms = 1e3 * statistics.median(times)
+    decode_ms = (1e3 * wall - prefill_ms) / GEN_NEW
+    tok_s = GEN_B * GEN_NEW / wall
+    dropped = moe_dropped(lm)
+    _, state = prefill()
+    tok = torch.as_tensor(res.tokens[:, :1], device=dev)
+    prof = profile(lambda: lm.decode_step(state, tok),
+                   f"{cfg.name} decode step")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  generate: {GEN_B} x {GEN_NEW} tokens in {wall * 1e3:.1f} ms "
+          f"({tok_s:.1f} tokens/s); prefill {prefill_ms:.3f} ms (B={GEN_B}, "
+          f"S={n_fe}+{GEN_PROMPT}), decode {decode_ms:.3f} ms per step, "
+          f"{prof['launches']} device launches per step; attention "
+          f"launches {counts}; peak device memory {peak:.2f} GB; first row "
+          f"{res.tokens[0, :8].tolist()}"
+          + (f"; dropped MoE assignments per MoE layer at prefill "
+             f"(T={GEN_B * (n_fe + GEN_PROMPT)}): {dropped}" if dropped
+             else ""))
+    return {"lm": lm, "engine": engine, "launches": counts,
+            "params": n_params, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "tokens_per_s": tok_s,
+            "generate_ms": wall * 1e3, "peak_gb": peak,
+            "step_launches": prof["launches"],
+            "step_device_ms": prof["device_ms"],
+            "step_idle_share": prof["idle_share"],
+            "prefill_dropped": dropped}
+
+
+def zoo_decode_forward_phase(dev, cfg) -> dict:
+    """(b) The same seed with float32 activations: teacher-forced decode logits against
+    ``forward_lm`` at every position after a 32-token prompt, behind the
+    frontend frames where the config has them."""
+    import numpy as np
+    import torch
+    from repro_torch.models import LM
+    from repro_torch.serving.frontend import stub_frontend_embeds
+    cfg32 = cfg.replace(dtype="float32")
+    if cfg.moe is not None:
+        # capacity = T: the full forward (T = 96) must drop no assignment
+        # that a decode step (T = 2) keeps, as the reference's own
+        # decode-versus-forward test runs its MoE configs without drops
+        cfg32 = cfg32.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    lm = LM(cfg32, seed=0, device=dev)
+    S, t0 = 48, 32
+    toks = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (2, S)), device=dev)
+    fe = stub_frontend_embeds(cfg32, 2, 0, device=dev)
+    n_fe = 0 if fe is None else cfg.frontend_len
+    attention_counts(reset=True)
+    with torch.no_grad():
+        full, _ = lm.forward_lm(toks, fe)
+        if sum(moe_dropped(lm)):
+            fail(f"{cfg.name} forward_lm dropped MoE assignments: "
+                 f"{moe_dropped(lm)}")
+        logits, state = lm.prefill(toks[:, :t0], n_fe + S, fe)
+        rows = [(logits, full[:, n_fe + t0 - 1])]
+        for t in range(t0, S):
+            logits, state = lm.decode_step(state, toks[:, t:t + 1])
+            rows.append((logits, full[:, n_fe + t]))
+    counts = attention_counts()
+    errs = [float((a - b).abs().max()) for a, b in rows]
+    agree = [bool(torch.equal(a.argmax(-1), b.argmax(-1))) for a, b in rows]
+    L = attention_layers(cfg32)
+    print(f"  {cfg.name}, float32"
+          + (f", MoE capacity factor {cfg32.moe.capacity_factor:g} (no "
+             "drops)" if cfg.moe is not None else "")
+          + ": decode vs "
+          f"forward_lm over {len(errs)} positions: max |dlogit| "
+          f"{max(errs):.3g} (logits up to {float(full.abs().max()):.3f}); "
+          f"argmax equal at {sum(agree)} of {len(agree)}; launches {counts}")
+    if not max(errs) <= DECODE_ATOL or not all(agree):
+        fail(f"{cfg.name} decode vs forward_lm: max |dlogit| "
+             f"{max(errs):.3g} (bound {DECODE_ATOL}), argmax equal at "
+             f"{sum(agree)} of {len(agree)}")
+    if counts != {"flash_attention": 2 * L,
+                  "decode_attention": (S - t0) * L}:
+        fail(f"{cfg.name} decode vs forward_lm: launches {counts}")
+    del lm, full, state
+    return {"max_abs_err": max(errs), "positions": len(errs)}
+
+
+def free_cuda() -> None:
+    """Collect the freed models and hand their blocks back to the card."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def zoo_phase(dev, trainer, tok, ref_serving) -> dict:
+    """Phase 11: each model's generation and 11(b) in turn, 11(c) with
+    the xLSTM decoder; every model freed before the next."""
+    out = {}
+    for name in ZOO:
+        t0 = time.perf_counter()
+        cfg = zoo_config(name)
+        tag = {"xlstm-125m": "a", JAMBA: "d", "musicgen-large": "e",
+               "pixtral-12b": "f"}[name]
+        print(f"  ({tag}) {name}: generation through ServeEngine")
+        gn = zoo_generation_phase(dev, cfg)
+        row = {k: v for k, v in gn.items() if k not in ("lm", "engine")}
+        if name == "xlstm-125m":
+            print("  (c) CachedLLMService: tuned encoder, tiered cache, "
+                  "xLSTM decoder")
+            ls = llm_serving_phase(dev, gn["engine"], trainer, tok)
+            if (ls["hits"], ls["misses"]) != (ref_serving["hits"],
+                                              ref_serving["misses"]):
+                fail(f"xlstm llm serving: hits / misses {ls['hits']} / "
+                     f"{ls['misses']}, phase 7(c) {ref_serving['hits']} / "
+                     f"{ref_serving['misses']}")
+            row["llm"] = {k: v for k, v in ls.items()}
+        del gn
+        free_cuda()
+        print(f"  (b) {name}: float32 decode against forward_lm")
+        row["decode_vs_forward"] = zoo_decode_forward_phase(dev, cfg)
+        free_cuda()
+        row["wall_s"] = time.perf_counter() - t0
+        print(f"  {name} in {row['wall_s']:.1f} s")
+        out[name] = row
+    return out
 
 
 def sass_counts(lib: str) -> dict:
@@ -3017,22 +3275,19 @@ def main() -> int:
     cb = batcher_phase(dev, gn["lm"], bg["cache"].maintenance)
     print(f"  phase 8 in {time.perf_counter() - t8:.1f} s")
     del gn["lm"], gn["engine"], bg["cache"]
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cuda()
     print("  (b) float32 decode against forward_lm (teacher-forced)")
     df = decode_forward_phase(dev, dcfg)
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           " GB")
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cuda()
 
     print("phase 9: the online embedder refresh (untuned full-width "
           "encoder, phase 3's trace)")
     t9 = time.perf_counter()
     rp = refresh_phase(dev)
     print(f"  phase 9 in {time.perf_counter() - t9:.1f} s")
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cuda()
 
     print(f"phase 10: the MoE decoder (full-width {MOE_DECODER})")
     t10 = time.perf_counter()
@@ -3048,6 +3303,13 @@ def main() -> int:
              f"{ml['misses']}, phase 7(c) {ls['hits']} / {ls['misses']}")
     print(f"  phase 10 in {time.perf_counter() - t10:.1f} s")
     del mg["lm"], mg["engine"]
+    free_cuda()
+
+    print("phase 11: the rest of the decoder zoo (xLSTM-125M, Jamba cut to "
+          f"{JAMBA_POSITIONS} layers, MusicGen-large, Pixtral-12B)")
+    t11 = time.perf_counter()
+    zoo = zoo_phase(dev, tr["trainer"], tr["tok"], ls)
+    print(f"  phase 11 in {time.perf_counter() - t11:.1f} s")
     print(f"  all phases in {time.perf_counter() - t_start:.1f} s")
 
     n_flat = FLAT_CAPACITY
@@ -3066,6 +3328,8 @@ def main() -> int:
         "int8_plain_ms": kp["int8_plain_ms"],
         "int8_bound_ms": kp["int8_bound_ms"],
         "serving_p50_ms": sv["p50_ms"], "serving_hit_rate": sv["hit_rate"],
+        "zoo_llm_launches": zoo["xlstm-125m"]["llm"]["cascade_launches"],
+        "zoo_llm_plans": zoo["xlstm-125m"]["llm"]["plans"],
         "refresh_launches": rp["cascade_launches"],
         "refresh_plans": rp["plans"],
         "background_rebuild_launches": bg["launches"],
@@ -3145,15 +3409,15 @@ def main() -> int:
         "serving_p50_ms": es["p50_ms"], "serving_hit_rate": es["hit_rate"],
         "sass": sass["cascade_lookup"], "card": card,
     }]
-    for name, key, main_shape, moe_shape, src, replaces in (
+    for name, key, main_shape, moe_shape, src, replaces, step in (
             ("flash_attention", "flash", "phi3 prefill bfloat16",
              "granite prefill bfloat16",
              "flash_attention/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention/kernel.py:115"),
+             "src/repro/kernels/flash_attention/kernel.py:115", "prefill"),
             ("decode_attention", "decode", "phi3 decode bfloat16",
              "granite decode bfloat16",
              "decode_attention/csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention/kernel.py:74")):
+             "src/repro/kernels/decode_attention/kernel.py:74", "decode")):
         row = ap[key]["by_shape"][main_shape]
         kernels.append({
             "name": name, "route": "cuda",
@@ -3182,6 +3446,17 @@ def main() -> int:
             "moe_prefill_ms": mg["prefill_ms"],
             "moe_decode_ms": mg["decode_ms"],
             "moe_tokens_per_s": mg["tokens_per_s"],
+            "zoo": {z: {"at": (f"{z.split('-')[0]} {step} bfloat16"
+                               if z != "xlstm-125m" else None),
+                        "generate_launches": zoo[z]["launches"][name],
+                        "llm_launches": zoo[z].get("llm", {}).get(
+                            "launches", {}).get(name),
+                        "fp32_decode_vs_forward_max_abs_err":
+                            zoo[z]["decode_vs_forward"]["max_abs_err"],
+                        **{k: zoo[z][k] for k in (
+                            "prefill_ms", "decode_ms", "tokens_per_s",
+                            "peak_gb", "step_launches")}}
+                    for z in ZOO},
             "card": card,
         })
     print(card)

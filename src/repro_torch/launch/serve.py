@@ -7,11 +7,14 @@ optional semantic cache in front (the paper's deployment) — the port of
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --cache --requests 16 --batch 8 --max-new-tokens 4         # CPU
 
-``--smoke`` is on, as in the reference (it cannot be turned off): the
-decoder and the encoder run at their reduced sizes.  The full-width
-decoder is driven by ``chip_smoke.py`` through the library's entry
-points.  ``--tiered`` swaps the flat SemanticCache for the tiered
-CacheService; ``--warm-dtype int8`` scans the warm panel from its
+``--arch`` takes any decoder config of the registry (the ten assigned
+archs: attention with dense or MoE FFNs, Jamba's Mamba hybrid, xLSTM,
+MusicGen and Pixtral, whose frontends the launcher does not pass, as
+the reference's does not).  ``--smoke`` is on, as in the reference (it
+cannot be turned off): the decoder and the encoder run at their reduced
+sizes.  The full-width decoders are driven by ``chip_smoke.py`` through
+the library's entry points.  ``--tiered`` swaps the flat SemanticCache
+for the tiered CacheService; ``--warm-dtype int8`` scans the warm panel from its
 quantized form, ``--learned-admission`` learns the per-tenant operating
 points online (DESIGN.md §9), ``--warm-block N`` is accepted as in the
 reference and changes nothing (a TPU streaming knob with no counterpart

@@ -63,6 +63,22 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq_len: int, d_model: int, offset: int = 0,
+                         device=None) -> torch.Tensor:
+    """(seq_len, d_model) float32 classic sinusoidal table from position
+    ``offset`` (the audio backbone's stand-in for MusicGen's learned
+    absolute positions): sin on the even columns, cos on the odd, at
+    angle ``pos / 10000^(dim / d_model)``."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device) + offset
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+    angle = pos[:, None] / torch.pow(10_000.0, dim / d_model)[None, :]
+    emb = torch.zeros((seq_len, d_model), dtype=torch.float32,
+                      device=device)
+    emb[:, 0::2] = torch.sin(angle)
+    emb[:, 1::2] = torch.cos(angle)
+    return emb
+
+
 class MLP(nn.Module):
     """Dense FFN: gated (GeGLU for the encoder config, SwiGLU) or the
     plain GELU MLP with biases (``mlp_type="gelu"``, StarCoder2)."""

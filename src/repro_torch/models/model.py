@@ -12,13 +12,21 @@ reference's; "fixing" it would change every cache key.
 
 ``LM`` mirrors the reference's decoder functions (`repro/models/
 model.py` ``forward_lm``, ``init_lm_state``, ``prefill``,
-``decode_step``) for configs whose layers are all ``LayerSpec(ATTN,
-DENSE)`` or ``LayerSpec(ATTN, MOE)``: the decode state is ``{"layers":
-[one KV cache per layer], "cur_len": tokens consumed}``, updated in
-place by ``decode_step``.  ``forward_lm`` sums the MoE layers' aux
-losses; prefill and decode drop them, as the reference does.  Frontend
-configs (audio, vision) and the recurrent mixers arrive with later
-slices; ``lm_loss`` with the decoder-training slice.
+``decode_step``) for every decoder config: attention, Mamba, mLSTM and
+sLSTM mixers with dense, MoE or no FFN.  The decode state is
+``{"layers": [one state dict per layer], "cur_len": positions
+consumed}``, updated in place by ``prefill``'s layers and by
+``decode_step``.  ``forward_lm`` sums the MoE layers' aux losses;
+prefill and decode drop them, as the reference does.
+
+Frontend configs (MusicGen's audio, Pixtral's vision) take
+``frontend_embeds`` (B, frontend_len, d), prepended to the token
+embeddings in their dtype (`serving/frontend.py` draws the stubs), so
+logits and ``cur_len`` cover frontend + token positions.  The audio
+family without RoPE adds sinusoidal positions to the input (and one row
+at ``cur_len`` a decode step), as the reference's ``_input_embeds``;
+Jamba and xLSTM have no position signal at all.  ``lm_loss`` arrives
+with the decoder-training slice.
 """
 from __future__ import annotations
 
@@ -86,10 +94,6 @@ class LM(nn.Module):
         super().__init__()
         if cfg.is_encoder:
             raise ValueError(f"{cfg.name} is encoder-only; no decode path")
-        if cfg.frontend:
-            raise NotImplementedError(
-                f"{cfg.name} has a {cfg.frontend} frontend, which arrives "
-                "with the frontend slice of the port (ROADMAP.md queue A)")
         dev = resolve_device(device)
         ini = make_initializer(cfg, seed, dev)
         self.cfg = cfg
@@ -111,13 +115,38 @@ class LM(nn.Module):
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device)
 
-    def forward_lm(self, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens: (B, S) int.  Returns (logits (B, S, padded vocab) in
-        ``cfg.dtype``, aux loss () float32: the sum over the MoE layers
-        of their load-balance + z-losses, 0 without MoE)."""
+    def _sinusoidal(self) -> bool:
+        return not self.cfg.use_rope and self.cfg.family == "audio"
+
+    def _rope(self, positions: torch.Tensor):
+        """(sin, cos) for the attention layers, None without RoPE."""
+        if not self.cfg.use_rope:
+            return None, None
+        return layers.rope_frequencies(self.cfg, positions)
+
+    def _input_embeds(self, tokens, frontend_embeds) -> torch.Tensor:
+        """Token embeddings after the frontend's, plus the audio
+        family's sinusoidal positions (the reference's
+        ``_input_embeds``)."""
         x = self.embed(self._tokens(tokens))
+        if frontend_embeds is not None:
+            x = torch.cat([torch.as_tensor(frontend_embeds, device=x.device)
+                           .to(x.dtype), x], dim=1)
+        if self._sinusoidal():
+            x = x + layers.sinusoidal_positions(
+                x.shape[1], self.cfg.d_model, device=x.device).to(
+                    x.dtype)[None]
+        return x
+
+    def forward_lm(self, tokens, frontend_embeds=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens: (B, S) int; frontend_embeds: (B, S_fe, d) or None.
+        Returns (logits (B, S_fe + S, padded vocab) in ``cfg.dtype``, aux
+        loss () float32: the sum over the MoE layers of their load-balance
+        + z-losses, 0 without MoE)."""
+        x = self._input_embeds(tokens, frontend_embeds)
         positions = torch.arange(x.shape[1], device=x.device)
-        sin, cos = layers.rope_frequencies(self.cfg, positions)
+        sin, cos = self._rope(positions)
         aux = torch.zeros((), device=x.device)
         for blk in self.layers:
             x, a = blk(x, sin, cos)
@@ -126,24 +155,26 @@ class LM(nn.Module):
         return self._logits(x), aux
 
     def init_lm_state(self, batch: int, seq_len: int) -> Dict:
-        """Empty decode state: a KV cache per layer sized for
-        ``seq_len`` tokens (the window, if the config has one)."""
+        """Empty decode state: per layer a KV cache sized for
+        ``seq_len`` positions (the window, if the config has one) or a
+        recurrent mixer's fixed-size state."""
         return {"layers": [blocks.init_layer_state(self.cfg, spec, batch,
                                                    seq_len, self.device)
                            for spec in self.cfg.layer_specs()],
                 "cur_len": 0}
 
     @torch.no_grad()
-    def prefill(self, tokens, cache_len: int) -> Tuple[torch.Tensor, Dict]:
+    def prefill(self, tokens, cache_len: int, frontend_embeds=None
+                ) -> Tuple[torch.Tensor, Dict]:
         """The prompt's full forward, building the decode state.
-        tokens: (B, S) int.  Returns (last token's logits (B, padded
-        vocab), state)."""
-        tokens = self._tokens(tokens)
-        B, S = tokens.shape
+        tokens: (B, S) int; frontend_embeds: (B, S_fe, d) or None.
+        Returns (last position's logits (B, padded vocab), state with
+        ``cur_len`` = S_fe + S)."""
+        x = self._input_embeds(tokens, frontend_embeds)
+        B, S, _ = x.shape
         state = self.init_lm_state(B, cache_len)
-        x = self.embed(tokens)
         positions = torch.arange(S, device=x.device)
-        sin, cos = layers.rope_frequencies(self.cfg, positions)
+        sin, cos = self._rope(positions)
         for blk, st in zip(self.layers, state["layers"]):
             x, _ = blk.prefill(x, positions, sin, cos, st)
         state["cur_len"] = S
@@ -155,8 +186,11 @@ class LM(nn.Module):
         padded vocab), state) — the same state, advanced in place."""
         x = self.embed(self._tokens(tokens))
         cur = state["cur_len"]
-        pos = torch.full((1,), cur, device=x.device)
-        sin, cos = layers.rope_frequencies(self.cfg, pos)
+        if self._sinusoidal():       # one row at the current position
+            x = x + layers.sinusoidal_positions(
+                1, self.cfg.d_model, offset=cur, device=x.device).to(
+                    x.dtype)[None]
+        sin, cos = self._rope(torch.full((1,), cur, device=x.device))
         for blk, st in zip(self.layers, state["layers"]):
             x, _ = blk.decode(x, cur, sin, cos, st)
         state["cur_len"] = cur + 1

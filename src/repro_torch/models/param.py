@@ -7,7 +7,7 @@ layers stacked along a leading period axis (``layers/pos0/mixer/wq`` is
 ``nn.Module``s, one module per layer, in PyTorch's ``(out, in)`` linear
 layout.  ``Initializer`` draws every tensor from a seeded
 ``torch.Generator`` with the reference's distributions (lecun-normal,
-normal(0.02), ones, zeros); the numbers differ from ``jax.random``'s,
+normal(0.02), ones, zeros, constants); the numbers differ from ``jax.random``'s,
 so parity tests carry the reference's own weights across with
 ``state_dict_from_reference`` instead.
 """
@@ -19,7 +19,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.configs.base import MOE, ModelConfig
+from repro_torch.configs.base import (
+    ATTN, MAMBA, MLSTM, MOE, SLSTM, ModelConfig,
+)
 
 
 class Initializer:
@@ -49,6 +51,10 @@ class Initializer:
         return nn.Parameter(torch.ones(tuple(shape), dtype=self.dtype,
                                        device=self.device))
 
+    def constant(self, shape, value: float) -> nn.Parameter:
+        return nn.Parameter(torch.full(tuple(shape), value, dtype=self.dtype,
+                                       device=self.device))
+
 
 def make_initializer(cfg: ModelConfig, seed: int, device) -> Initializer:
     gen = torch.Generator(device=device)
@@ -68,6 +74,39 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+# the recurrent mixers' ``(in, out)`` matrices, carried transposed; their
+# depthwise ``conv_w`` (K, C) goes to ``F.conv1d``'s (C, 1, K); every
+# other leaf (biases, ``A_log``, ``D``, ``norm_scale``, sLSTM's
+# per-head ``r_gates``) as it is
+_TRANSPOSED = {
+    MAMBA: ("in_proj", "x_proj", "dt_w", "out_proj"),
+    MLSTM: ("w_up", "wq", "wk", "wv", "w_if", "w_down"),
+    SLSTM: ("w_gates", "ff_gate", "ff_up", "ff_down"),
+}
+
+
+def _mixer_leaf(mixer: str, leaf: str, a: np.ndarray):
+    """(port module attribute, array) for one ``mixer/<leaf>`` of a layer
+    whose mixer is ``mixer`` — dispatched on the mixer first, since an
+    mLSTM layer's ``wq``/``wk``/``wv`` are ``(d_in, d_in)`` matrices, not
+    attention's ``(d, h, hd)``."""
+    if mixer == ATTN:
+        if leaf in ("wq", "wk", "wv"):
+            return "attn." + leaf, a.reshape(a.shape[0], -1).T
+        if leaf == "wo":
+            return "attn.wo", a.reshape(-1, a.shape[-1]).T
+        if leaf in ("bq", "bk", "bv"):
+            return "attn." + leaf, a.reshape(-1)
+        raise KeyError(f"no port counterpart for attention leaf {leaf}")
+    if mixer not in _TRANSPOSED:
+        raise KeyError(f"no port counterpart for mixer {mixer}")
+    if leaf in _TRANSPOSED[mixer]:
+        a = a.T
+    elif leaf == "conv_w":
+        a = a.T[:, None, :]
+    return f"{mixer}.{leaf}", a
+
+
 def state_dict_from_reference(tree: Mapping, cfg: ModelConfig
                               ) -> Dict[str, torch.Tensor]:
     """The reference model's value tree (``split(init_lm(cfg))[0]``,
@@ -78,8 +117,14 @@ def state_dict_from_reference(tree: Mapping, cfg: ModelConfig
     reference multiplies ``x @ W`` with W in ``(in, out)`` order, the
     port uses ``F.linear`` with ``(out, in)``):
 
-    * ``mixer/wq``, ``wk``, ``wv``: ``(d, h, hd)`` -> ``(h*hd, d)``
-    * ``mixer/wo``: ``(h, hd, d)`` -> ``(d, h*hd)``
+    * attention's ``mixer/wq``, ``wk``, ``wv``: ``(d, h, hd)`` ->
+      ``(h*hd, d)``; ``mixer/wo``: ``(h, hd, d)`` -> ``(d, h*hd)``
+    * a Mamba layer's ``in_proj``, ``x_proj``, ``dt_w``, ``out_proj``;
+      an mLSTM layer's ``w_up``, ``wq``, ``wk``, ``wv``, ``w_if``,
+      ``w_down``; an sLSTM layer's ``w_gates`` (its columns keep their
+      gate-major order), ``ff_gate``, ``ff_up``, ``ff_down`` -> ``mamba.*``,
+      ``mlstm.*``, ``slstm.*``; the Mamba and mLSTM depthwise ``conv_w``
+      ``(K, C)`` -> ``(C, 1, K)``
     * ``ffn/w_gate``, ``w_up``: ``(d, f)`` -> ``(f, d)``;
       ``ffn/w_down``: ``(f, d)`` -> ``(d, f)``
 
@@ -92,8 +137,9 @@ def state_dict_from_reference(tree: Mapping, cfg: ModelConfig
 
     Not transposed: ``embed/table`` ``(vocab, d)``, every norm's
     ``scale``/``bias``, the attention biases (reshaped ``(h, hd)`` ->
-    ``(h*hd,)``) and the GELU MLP's ``b_up``/``b_down``.  The same
-    function carries an ``Encoder``'s and an ``LM``'s weights.
+    ``(h*hd,)``), the GELU MLP's ``b_up``/``b_down`` and the recurrent
+    mixers' other leaves.  The same function carries an ``Encoder``'s
+    and an ``LM``'s weights.
     """
     flat = _flatten(tree)
     P = len(cfg.period)
@@ -113,16 +159,13 @@ def state_dict_from_reference(tree: Mapping, cfg: ModelConfig
             continue
         _, pos, *rest = key.split("/")
         i = int(pos[3:])
+        spec = cfg.period[i]
         leaf = "/".join(rest)
         for j in range(arr.shape[0]):
             a = arr[j]
-            if leaf in ("mixer/wq", "mixer/wk", "mixer/wv"):
-                name, a = "attn." + leaf[6:], a.reshape(a.shape[0], -1).T
-            elif leaf == "mixer/wo":
-                name, a = "attn.wo", a.reshape(-1, a.shape[-1]).T
-            elif leaf in ("mixer/bq", "mixer/bk", "mixer/bv"):
-                name, a = "attn." + leaf[6:], a.reshape(-1)
-            elif leaf.startswith("ffn/") and cfg.period[i].ffn == MOE:
+            if leaf.startswith("mixer/"):
+                name, a = _mixer_leaf(spec.mixer, leaf[6:], a)
+            elif leaf.startswith("ffn/") and spec.ffn == MOE:
                 name = "moe." + leaf[4:]
             elif leaf.startswith("ffn/"):
                 name, a = "mlp." + leaf[4:], a.T

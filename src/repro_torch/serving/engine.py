@@ -9,6 +9,8 @@ port cannot reproduce ``jax.random``'s bits, so sampled tokens are
 compared with the reference by distribution, greedy tokens exactly.
 ``CachedLLMService`` answers each miss-group leader with ``engine``
 (or, with ``engine=None``, the echo ``answer(<query>)``).
+``generate(use_frontend=True)`` prepends the frontend stub's frames
+(`serving/frontend.py`) for the audio and vision configs.
 """
 from __future__ import annotations
 
@@ -21,10 +23,12 @@ import numpy as np
 import torch
 
 from repro_torch.cache_service.protocol import CacheBackend, CacheRequest
+from repro_torch.configs.base import ATTN
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.models.model import LM
 from repro_torch.obs import Telemetry
 from repro_torch.obs.registry import tenant_label
+from repro_torch.serving.frontend import stub_frontend_embeds
 
 
 @dataclass
@@ -40,8 +44,10 @@ class ServeEngine:
     prefill, then ``max_new_tokens`` decode steps, each feeding back the
     token chosen from the last logits (argmax, or argmax of logits /
     temperature + Gumbel noise).  The KV caches hold ``max_len`` slots,
-    which must cover prompt + new tokens unless the config has a window
-    (past them the ring wraps, as in the reference)."""
+    which must cover frontend frames + prompt + new tokens unless the
+    config has a window (a ring buffer) or no attention layer (a
+    recurrent state of fixed size); ``generate`` refuses a call that
+    would wrap them."""
 
     def __init__(self, model: LM, max_len: int = 512):
         self.model = model
@@ -53,13 +59,20 @@ class ServeEngine:
                  temperature: float = 0.0, seed: int = 0,
                  use_frontend: bool = False) -> GenerationResult:
         """prompts: (B, S) int ids below the config's vocab.  Greedy
-        (temperature=0) or sampled."""
-        if use_frontend:
-            raise NotImplementedError(
-                "frontend embeddings arrive with the frontend slice of the "
-                "port")
+        (temperature=0) or sampled.  ``use_frontend`` prepends the
+        config's stub frames drawn from ``seed`` (none without a
+        frontend)."""
         prompts = np.asarray(prompts)
         B, S = prompts.shape
+        n_fe = self.cfg.frontend_len if use_frontend and self.cfg.frontend \
+            else 0
+        need = n_fe + S + max_new_tokens
+        if need > self.max_len and not self.cfg.sliding_window and any(
+                spec.mixer == ATTN for spec in self.cfg.period):
+            raise ValueError(
+                f"{n_fe} frontend frames + {S} prompt + {max_new_tokens} "
+                f"new tokens = {need} positions exceed the KV caches' "
+                f"max_len {self.max_len}")
         if prompts.size and not 0 <= prompts.min() <= prompts.max() \
                 < self.cfg.vocab_size:
             raise ValueError(
@@ -68,9 +81,11 @@ class ServeEngine:
                 "prompts with HashTokenizer(vocab_size=cfg.vocab_size)")
         dev = self.model.device
         gen = torch.Generator(device=dev).manual_seed(int(seed))
+        fe = stub_frontend_embeds(self.cfg, B, seed, device=dev) \
+            if n_fe else None
         logits, state = self.model.prefill(
             torch.as_tensor(prompts, dtype=torch.int32, device=dev),
-            self.max_len)
+            self.max_len, frontend_embeds=fe)
         out = torch.empty((B, max_new_tokens), dtype=torch.int32,
                           device=dev)
         tok = self._select(logits, temperature, gen)

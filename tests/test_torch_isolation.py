@@ -16,7 +16,8 @@ PORT = ROOT / "src" / "repro_torch"
 STANDALONE = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "serve_with_cache_torch.py",
     ROOT / "examples" / "finetune_embedder_torch.py",
-    ROOT / "tests" / "test_torch_cuda_kernels.py"]     # runs on the card
+    ROOT / "tests" / "test_torch_cuda_kernels.py",      # run on the card
+    ROOT / "tests" / "test_torch_cuda_zoo.py"]
 KERNELS = ("cascade_lookup", "cosine_topk", "contrastive",
            "flash_attention", "decode_attention")
 
@@ -46,7 +47,9 @@ def test_the_slice_modules_are_covered():
                 "cache_service/tiers.py", "cache_service/service.py",
                 "training/optim.py", "kernels/_build.py",
                 "models/attention.py", "models/model.py",
-                "serving/engine.py", "launch/serve.py",
+                "models/mamba.py", "models/xlstm.py",
+                "serving/engine.py", "serving/frontend.py",
+                "launch/serve.py",
                 *(f"kernels/{k}/{f}.py" for k in KERNELS
                   for f in ("kernel", "ref", "ops"))):
         assert mod in names, mod
@@ -118,6 +121,7 @@ def test_entry_points_raise_without_a_card(no_card):
     )
     from repro_torch.launch import serve
     from repro_torch.models import LM, Encoder
+    from repro_torch.serving.frontend import stub_frontend_embeds
     cfg = get_config("modernbert-149m").reduced(n_layers=2)
     dec = get_config("phi3-mini-3.8b").reduced()
     for make in (lambda: resolve_device("cuda"),
@@ -128,6 +132,9 @@ def test_entry_points_raise_without_a_card(no_card):
                  lambda: SemanticCache(capacity=8, dim=16),
                  lambda: EncoderEmbedder(cfg),
                  lambda: LM(dec),
+                 lambda: LM(get_config("xlstm-125m").reduced()),
+                 lambda: stub_frontend_embeds(
+                     get_config("pixtral-12b").reduced(), 1),
                  lambda: serve.main(["--requests", "1"]),
                  lambda: CacheService(CacheConfig(dim=16), device="cuda:0")):
         with pytest.raises(RuntimeError, match="cuda"):
