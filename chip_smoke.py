@@ -37,7 +37,9 @@ or the port is not beside the script.  Phases, each fatal on failure:
      capacity) and N=65536, 25 % invalid rows, k in {1, 4}, a panel
      ragged across the kernel's tiles (Q=33, N=4099, k up to its
      maximum) and an all-invalid panel; indices equal, scores within
-     ``SCORE_ATOL``;
+     ``SCORE_ATOL``; and at N=4096 and 65536 with q and keys in bf16
+     (widened to float32 as staged), timed beside a bf16 ``torch.matmul``
+     + ``torch.topk``;
    * the contrastive forward and backward at B=16 (the paper's batch)
      and B=4096, D=768, on mixed, all-duplicate and all-distinct
      labels; components ``rtol 1e-5``, gradients within ``GRAD_ATOL``
@@ -201,16 +203,39 @@ or the port is not beside the script.  Phases, each fatal on failure:
    activations (Jamba's MoE at a capacity factor of experts / top-k, so
    that no assignment drops), teacher-forced decode against
    ``forward_lm`` at every position after a 32-token prompt (behind the
-   frontend frames), within ``DECODE_ATOL`` with equal argmax.
+   frontend frames), within ``DECODE_ATOL`` with equal argmax;
+12. decoder training, after phase 11's models are freed.  (a) Full-width
+   ``phi3-mini-3.8b`` (float32 master weights and Adam moments, bf16
+   activations, ``remat`` on) through ``launch/train.py``'s loop for
+   ``TRAIN_STEPS`` steps at B=1, S=4096 (``train_4k``'s sequence; its
+   global batch cut to 1): each step's loss, grad norm, lr and ms, the
+   tokens per second and the peak device memory; every loss and grad
+   norm finite, no attention kernel launched (training attention is
+   plain torch under autograd), every parameter's gradient present and
+   nonzero (each layer's ``attn.wq`` / ``wk`` / ``wv`` among them); then
+   3 steps at constant lr 1e-4 on one fixed batch, the last profiled
+   (device idle share), whose loss must fall.  (b) On (a)'s model, layer
+   0's flash kernel output at S=4096 against the plain chunked training
+   attention on the same q, k, v within ``ATTN_TOL``, and
+   ``lm_loss``'s NLL (the plain chunked attention) against the NLL of
+   ``forward_lm``'s logits (the flash kernel) within ``TRAIN_BF16_ATOL``,
+   and a float32 copy cut to 4 layers (the same two checks) within
+   ``TRAIN_FP32_RTOL`` relative.  (c) Full-width
+   ``granite-moe-3b-a800m``, 3 steps at B=1, S=1024: aux finite and
+   > 0, every router's gradient nonzero.  (d)
+   ``xlstm-125m``, 2 steps at B=2, S=256 (the recurrent token loops
+   under autograd).
 
 Prints the card's name and power limit, the stage latencies, a JSON
-line of per-kernel numbers and, last, ``{"ok": true, "device": ...}``.
+line of phase 12's training numbers, a JSON line of per-kernel numbers
+and, last, ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -326,6 +351,19 @@ MOE_FP32_STEPS = 8
 JAMBA = "jamba-1.5-large-398b"
 JAMBA_POSITIONS = 5
 ZOO = ("xlstm-125m", JAMBA, "musicgen-large", "pixtral-12b")
+# phase 12: decoder training.  (a) train_4k's sequence at a batch of 1
+# (its global batch of 256 does not fit one card beside 59.6 GB of
+# float32 parameters, grads and Adam moments); (b) the plain training
+# attention against the flash kernel: bf16 NLLs within TRAIN_BF16_ATOL
+# (each path rounds its bf16 attention at other places), float32 within
+# TRAIN_FP32_RTOL (sums in another order); (c) and (d) the MoE and the
+# recurrent decoders
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 1, 4096, 5
+TRAIN_FIXED_STEPS, TRAIN_FIXED_LR = 3, 1e-4
+TRAIN_BF16_ATOL = 2e-2
+TRAIN_FP32_LAYERS, TRAIN_FP32_RTOL = 4, 1e-4
+MOE_TRAIN = dict(batch=1, seq=1024, steps=3)
+XLSTM_TRAIN = dict(batch=2, seq=256, steps=2)
 
 
 def fail(msg: str) -> None:
@@ -753,12 +791,16 @@ def score_report(embed_fn, stream) -> dict:
     return out
 
 
-def topk_bound_ms(Q: int, N: int, D: int, k: int):
-    """Least time for one cosine top-k: queries, keys and the valid mask
-    read once and the outputs written once over HBM bandwidth, vs its
-    2 Q N D fp32 flops over the fp32 rate."""
-    n_bytes = 4 * Q * D + 4 * N * D + N + 8 * Q * k
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 2 * Q * N * D / FP32_FLOPS
+def topk_bound_ms(Q: int, N: int, D: int, k: int, elem: int = 4):
+    """Least time for one cosine top-k: queries, keys (``elem`` bytes a
+    value: 4 float32, 2 bf16) and the valid mask read once and the
+    outputs written once over HBM bandwidth, vs its 2 Q N D flops over
+    the card's rate for the inputs' type (bf16 products are exact in
+    float32, so bf16 tensor cores accumulating in float32 compute the
+    same function)."""
+    n_bytes = elem * Q * D + elem * N * D + N + 8 * Q * k
+    rate = BF16_FLOPS if elem == 2 else FP32_FLOPS
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 2 * Q * N * D / rate
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes >= t_ops else "operations"
 
@@ -787,7 +829,7 @@ def topk_phase(dev):
             fail(f"cosine_topk {what}: max |score diff| {err:.3g}")
         return err
 
-    out = {"max_abs_err": 0.0, "by_n": {}}
+    out = {"max_abs_err": 0.0, "by_n": {}, "bf16_by_n": {}}
     for N in TOPK_N:
         keys = unit(torch.randn(N, D, generator=g, device=dev))
         valid = torch.rand(N, generator=g, device=dev) >= 0.25
@@ -821,6 +863,38 @@ def topk_phase(dev):
             with forced(kernel, "key_tile", kt):
                 row["graph_ms_by_key_tile"][kt] = graph_ms(kern)
         out["by_n"][N] = row
+        # bf16 q and keys (the reference's bf16 panels), widened to
+        # float32 as the kernel stages them; the plain version multiplies
+        # the same values in float32
+        qb, kb = q.bfloat16(), keys.bfloat16()
+        for k in (1, 4):
+            err = check(qb, kb, valid, k, f"bf16 N={N} k={k}")
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+
+        def kern_b():
+            return ops.cosine_topk(qb, kb, valid, 1)
+
+        def plain_b():
+            return ref.cosine_topk(qb, kb, valid, 1)
+
+        def library_b():
+            # the kernel's function: float32 sums of the (exact) products
+            # of the bf16 values, so the matmul takes them widened (TF32
+            # off), not bf16 @ bf16, which rounds every score to bf16
+            return torch.topk(torch.where(valid, qb.float() @ kb.float().T,
+                                          -1e30), 1)
+        bound_b, by_b = topk_bound_ms(Q, N, D, 1, elem=2)
+        out["bf16_by_n"][N] = rb = dict(
+            ms=cuda_ms(kern_b), plain_ms=cuda_ms(plain_b, iters=5),
+            library_ms=cuda_ms(library_b), bound_ms=bound_b,
+            bound_by=by_b, graph_ms=graph_ms(kern_b),
+            plain_graph_ms=graph_ms(plain_b, iters=5),
+            library_graph_ms=graph_ms(library_b))
+        print(f"  cosine_topk bf16 N={N}: indices equal; k=1 graph: kernel "
+              f"{rb['graph_ms']:.4f} ms, plain {rb['plain_graph_ms']:.4f}, "
+              f"library (widened matmul + topk) "
+              f"{rb['library_graph_ms']:.4f}; "
+              f"bound {bound_b:.4f} ({by_b})")
         print(f"  cosine_topk N={N}: indices equal, max |dscore| "
               f"{out['max_abs_err']:.3g}; k=1 eager: kernel {row['ms']:.4f} "
               f"ms, plain {row['plain_ms']:.4f}, library "
@@ -3041,6 +3115,314 @@ def zoo_phase(dev, trainer, tok, ref_serving) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: decoder training
+# ---------------------------------------------------------------------------
+
+def train_steps(dev, lm, what: str, **kw) -> dict:
+    """``launch/train.py``'s loop on ``lm`` (AdamW under the launcher's
+    warm-up cosine, clip 1.0), each step's metrics and ms printed; fails
+    on a non-finite loss or grad norm or an attention kernel launch
+    (training attention is plain torch under autograd)."""
+    import torch
+    from repro_torch.launch import train as launch_train
+    torch.cuda.synchronize()
+    attention_counts(reset=True)
+    run = launch_train.train(lm, lr=3e-4, log=lambda _: None, **kw)
+    counts = attention_counts()
+    for i, (m, ms) in enumerate(zip(run["history"], run["step_ms"])):
+        print(f"    {what} step {i}: loss {m['loss']:.4f} (nll "
+              f"{m['nll']:.4f}, aux {m['aux']:.4g}), grad_norm "
+              f"{m['grad_norm']:.4f}, lr {m['lr']:.3e}, {ms:.1f} ms")
+        if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm",
+                                                  "aux")):
+            fail(f"{what} training step {i}: non-finite metrics {m}")
+    if any(counts.values()):
+        fail(f"{what} training launched attention kernels {counts}: the "
+             "train path must be plain attention under autograd")
+    print(f"    {what}: {run['tokens_per_s']:.1f} tokens/s over "
+          f"{len(run['step_ms'])} steps (first step included), peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return run
+
+
+def zero_grads(lm) -> list:
+    """Parameters whose gradient after the last step is None or all
+    zero."""
+    return [n for n, p in lm.named_parameters()
+            if p.grad is None or not bool(p.grad.any())]
+
+
+def kernel_nll(lm, tokens) -> float:
+    """Mean next-token NLL from ``forward_lm``'s logits (the flash
+    kernel), in float32."""
+    import torch
+    import torch.nn.functional as F
+    with torch.no_grad():
+        logits, _ = lm.forward_lm(tokens)
+        V = logits.shape[-1]
+        return float(F.cross_entropy(logits[:, :-1].float().reshape(-1, V),
+                                     tokens[:, 1:].long().reshape(-1)))
+
+
+def train_tokens(dev, cfg, B: int, S: int, seed: int):
+    import numpy as np
+    import torch
+    return torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32), device=dev)
+
+
+def optimizer_ms(lm, update, opt) -> float:
+    """One in-place AdamW update (clip, moments, parameters) on the
+    last step's gradients, host wall to the device's end."""
+    import torch
+    params = dict(lm.named_parameters())
+    grads = {n: p.grad for n, p in params.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    update.in_place(grads, opt, params)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    print(f"    one in-place AdamW update over {len(params)} tensors: "
+          f"{ms:.1f} ms")
+    return ms
+
+
+def flash_against_training_attention(dev, lm) -> float:
+    """Layer 0's attention at S = TRAIN_S: the flash kernel (serving)
+    against the plain ``gqa_attention`` that training takes (its chunked
+    branch at this length) on the same q, k, v, elementwise within
+    ``ATTN_TOL`` of the model's dtype.  Returns the max |diff|.  The
+    kernel's launches here are a comparison and are not counted."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import layers
+    from repro_torch.models.attention import gqa_attention
+    cfg = lm.cfg
+    attn = lm.layers[0].attn
+    pos = torch.arange(TRAIN_S, device=dev)
+    sin, cos = layers.rope_frequencies(cfg, pos)
+    x = torch.randn(TRAIN_B, TRAIN_S, cfg.d_model, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(6)
+                    ).to(getattr(torch, cfg.dtype))
+    with torch.no_grad():
+        q, k, v = attn._qkv(x, sin, cos)
+        plain = gqa_attention(q, k, v, q_pos=pos, kv_pos=pos, causal=True,
+                              window=cfg.sliding_window)
+        kern = flash_ops.flash_attention(attn._scaled(q), k, v, causal=True,
+                                         window=cfg.sliding_window,
+                                         scale=1.0)
+    tol = ATTN_TOL[cfg.dtype]
+    a, b = plain.float(), kern.float()
+    err = float((a - b).abs().max())
+    ok = bool(((a - b).abs() <= tol["atol"] + tol["rtol"] * a.abs()).all())
+    print(f"    {cfg.dtype} layer 0 at S={TRAIN_S}: flash kernel against "
+          f"the chunked training attention, max |diff| {err:.3g} "
+          f"(atol {tol['atol']}, rtol {tol['rtol']})")
+    if not ok:
+        fail(f"12(b) {cfg.dtype}: the flash kernel and the training "
+             f"attention differ (max |diff| {err:.3g})")
+    return err
+
+
+def train_attention_ms(dev, lm, reps: int = 3) -> dict:
+    """The training attention of one layer at S = TRAIN_S: the plain
+    ``gqa_attention`` (the chunked branch) forward + backward on layer
+    0's q, k, v against ``F.scaled_dot_product_attention`` (causal, the
+    library yardstick, never on the port's path) on the same tensors."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import layers
+    from repro_torch.models.attention import gqa_attention
+    cfg = lm.cfg
+    attn = lm.layers[0].attn
+    x = torch.randn(TRAIN_B, TRAIN_S, cfg.d_model, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5)
+                    ).to(getattr(torch, cfg.dtype))
+    pos = torch.arange(TRAIN_S, device=dev)
+    sin, cos = layers.rope_frequencies(cfg, pos)
+    with torch.no_grad():
+        q, k, v = (t.detach() for t in attn._qkv(x, sin, cos))
+    ct = torch.randn_like(q)
+
+    def plain():
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = gqa_attention(ts[0], ts[1], ts[2], q_pos=pos, kv_pos=pos,
+                          causal=True, window=0)
+        torch.autograd.grad(o, ts, ct)
+
+    def library():
+        ts = [t.transpose(1, 2).clone().requires_grad_() for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*ts, is_causal=True)
+        torch.autograd.grad(o, ts, ct.transpose(1, 2))
+
+    out = {}
+    for name, fn in (("plain", plain), ("library", library)):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        out[f"{name}_ms"] = statistics.median(times)
+    print(f"    one layer's attention forward + backward at S={TRAIN_S}: "
+          f"plain (chunked, float32) {out['plain_ms']:.2f} ms, SDPA "
+          f"(bf16, causal) {out['library_ms']:.2f} ms")
+    return out
+
+
+def decoder_training_phase(dev) -> dict:
+    """(a) full-width Phi-3-mini trained at S = 4096, then on one fixed
+    batch; (b) its ``lm_loss`` against the flash kernel's NLL, and a
+    float32 copy cut to 4 layers."""
+    import torch
+    from repro_torch.models import LM
+    from repro_torch.training import adamw, constant, make_train_step
+    cfg = decoder_config()
+    if not cfg.remat or cfg.param_dtype != "float32":
+        fail(f"{cfg.name}: remat {cfg.remat}, params {cfg.param_dtype}")
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for p in lm.parameters())
+    print(f"  (a) {cfg.name}: {n_params:,} {cfg.param_dtype} params, "
+          f"{cfg.dtype} activations, remat on, B={TRAIN_B} S={TRAIN_S}; "
+          "built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    run = train_steps(dev, lm, "phi3", steps=TRAIN_STEPS, batch=TRAIN_B,
+                      seq=TRAIN_S)
+    out = {"params": n_params, "step_ms": run["step_ms"],
+           "tokens_per_s": run["tokens_per_s"],
+           "history": run["history"]}
+    zero = zero_grads(lm)
+    if zero:
+        fail(f"phi3 training: {len(zero)} parameters with no or an all-"
+             f"zero gradient, e.g. {zero[:6]}")
+    n_qkv = sum(n.split(".")[-1] in ("wq", "wk", "wv") and ".attn." in n
+                for n, _ in lm.named_parameters())
+    print(f"    every parameter has a nonzero gradient ({n_qkv} attention "
+          "wq/wk/wv among them)")
+    # the fixed batch: the same optimizer state, a constant lr; the last
+    # two steps run under profile(), the second of them traced
+    _, update = adamw(constant(TRAIN_FIXED_LR), max_grad_norm=1.0)
+    step = make_train_step(lm, update)
+    batch = {"tokens": train_tokens(dev, cfg, TRAIN_B, TRAIN_S, 21)}
+    state = {"opt": run["opt"], "losses": []}
+    del run
+
+    def fixed_step():
+        state["opt"], m = step(state["opt"], batch)
+        state["losses"].append(float(m["loss"]))
+
+    fixed_step()
+    prof = profile(fixed_step, "train step (phi3, S=4096)")
+    losses = state["losses"]
+    print(f"    fixed batch at lr {TRAIN_FIXED_LR}: losses "
+          + ", ".join(f"{x:.5f}" for x in losses))
+    if len(losses) != TRAIN_FIXED_STEPS or not losses[-1] < losses[0]:
+        fail(f"phi3 training: the fixed batch's loss did not fall: "
+             f"{losses}")
+    out.update(fixed_losses=losses, peak_gb=torch.cuda.max_memory_allocated()
+               / 1e9, profile={k: prof[k] for k in (
+                   "wall_ms", "device_ms", "idle_share", "launches")},
+               top_kernels_ms=dict(sorted(
+                   prof["kernel_ms"].items(), key=lambda kv: -kv[1])[:8]))
+    print(f"    peak device memory {out['peak_gb']:.2f} GB "
+          f"(torch.cuda.max_memory_allocated)")
+    out["optimizer_ms"] = optimizer_ms(lm, update, state["opt"])
+    out["attention"] = train_attention_ms(dev, lm)
+    del state
+    for p in lm.parameters():
+        p.grad = None
+    free_cuda()
+
+    print("  (b) lm_loss (plain chunked attention) against forward_lm's NLL "
+          "(the flash kernel)")
+    attn_err = flash_against_training_attention(dev, lm)
+    toks = train_tokens(dev, cfg, TRAIN_B, TRAIN_S, 22)
+    attention_counts(reset=True)
+    with torch.no_grad():
+        plain = float(lm.lm_loss(toks)[1]["nll"])
+    nll_k = kernel_nll(lm, toks)
+    counts = attention_counts()
+    if counts["flash_attention"] != attention_layers(cfg):
+        fail(f"12(b) forward_lm: flash launches {counts}")
+    err = abs(plain - nll_k)
+    print(f"    bf16 S={TRAIN_S}: lm_loss nll {plain:.6f}, kernel "
+          f"{nll_k:.6f}, |diff| {err:.3g} (bound {TRAIN_BF16_ATOL})")
+    if not err <= TRAIN_BF16_ATOL:
+        fail(f"12(b) bf16: |lm_loss - kernel nll| {err:.3g}")
+    out["bf16_nll"] = {"plain": plain, "kernel": nll_k, "abs_err": err,
+                       "attention_max_abs_err": attn_err}
+    del lm
+    free_cuda()
+    f32 = LM(cfg.replace(n_layers=TRAIN_FP32_LAYERS, dtype="float32"),
+             seed=0, device=dev)
+    attn_err = flash_against_training_attention(dev, f32)
+    with torch.no_grad():
+        plain = float(f32.lm_loss(toks)[1]["nll"])
+    nll_k = kernel_nll(f32, toks)
+    rel = abs(plain - nll_k) / abs(nll_k)
+    print(f"    float32, {TRAIN_FP32_LAYERS} layers: lm_loss nll "
+          f"{plain:.7f}, kernel {nll_k:.7f}, relative diff {rel:.3g} "
+          f"(bound {TRAIN_FP32_RTOL})")
+    if not rel <= TRAIN_FP32_RTOL:
+        fail(f"12(b) float32: relative |lm_loss - kernel nll| {rel:.3g}")
+    out["fp32_nll"] = {"plain": plain, "kernel": nll_k, "rel_err": rel,
+                       "attention_max_abs_err": attn_err}
+    del f32
+    free_cuda()
+    return out
+
+
+def other_training_phase(dev) -> dict:
+    """(c) full-width Granite-MoE and (d) xLSTM-125M through the
+    launcher's loop."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    out = {}
+    for tag, name, kw in (("c", MOE_DECODER, MOE_TRAIN),
+                          ("d", "xlstm-125m", XLSTM_TRAIN)):
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(name)
+        lm = LM(cfg, seed=0, device=dev)
+        n_params = sum(p.numel() for p in lm.parameters())
+        print(f"  ({tag}) {name}: {n_params:,} params, B={kw['batch']} "
+              f"S={kw['seq']}")
+        run = train_steps(dev, lm, name.split("-")[0], **kw)
+        row = {"params": n_params, "step_ms": run["step_ms"],
+               "tokens_per_s": run["tokens_per_s"],
+               "history": run["history"],
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if cfg.moe is not None:
+            auxes = [m["aux"] for m in run["history"]]
+            router = [p.grad for n, p in lm.named_parameters()
+                      if n.endswith("moe.router")]
+            if not all(a > 0 for a in auxes):
+                fail(f"{name} training: aux {auxes} not all > 0")
+            if not router or not all(g is not None and bool(g.any())
+                                     for g in router):
+                fail(f"{name} training: a router has no gradient")
+            print(f"    aux {auxes}; all {len(router)} routers have "
+                  "nonzero gradients")
+        zero = zero_grads(lm)
+        if zero:
+            fail(f"{name} training: parameters with no or an all-zero "
+                 f"gradient, e.g. {zero[:6]}")
+        out[name] = row
+        del lm, run
+    free_cuda()
+    return out
+
+
 def sass_counts(lib: str) -> dict:
     """{kernel function (mangled): {"HMMA": n, "FFMA": n}} in a built
     library, from ``cuobjdump --dump-sass`` (beside ``nvcc``)."""
@@ -3310,6 +3692,13 @@ def main() -> int:
     t11 = time.perf_counter()
     zoo = zoo_phase(dev, tr["trainer"], tr["tok"], ls)
     print(f"  phase 11 in {time.perf_counter() - t11:.1f} s")
+
+    print(f"phase 12: decoder training (full-width {DECODER} at "
+          f"B={TRAIN_B} S={TRAIN_S}, {MOE_DECODER}, xlstm-125m)")
+    t12 = time.perf_counter()
+    dt = decoder_training_phase(dev)
+    ot = other_training_phase(dev)
+    print(f"  phase 12 in {time.perf_counter() - t12:.1f} s")
     print(f"  all phases in {time.perf_counter() - t_start:.1f} s")
 
     n_flat = FLAT_CAPACITY
@@ -3346,7 +3735,8 @@ def main() -> int:
         "launches": fl["launches"], "max_abs_err": tp["max_abs_err"],
         **tp["by_n"][n_flat],
         "at": f"Q=64 D=768 N={n_flat} k=1",
-        "by_n": tp["by_n"], "flat_p50_ms": fl["p50_ms"],
+        "by_n": tp["by_n"], "bf16_by_n": tp["bf16_by_n"],
+        "flat_p50_ms": fl["p50_ms"],
         "flat_hit_rate": fl["hit_rate"], "sass": sass["cosine_topk"],
         "card": card,
     }, {
@@ -3446,6 +3836,12 @@ def main() -> int:
             "moe_prefill_ms": mg["prefill_ms"],
             "moe_decode_ms": mg["decode_ms"],
             "moe_tokens_per_s": mg["tokens_per_s"],
+            "train_bf16_nll_abs_err": dt["bf16_nll"]["abs_err"],
+            "train_fp32_nll_rel_err": dt["fp32_nll"]["rel_err"],
+            "train_bf16_attention_max_abs_err":
+                dt["bf16_nll"]["attention_max_abs_err"],
+            "train_fp32_attention_max_abs_err":
+                dt["fp32_nll"]["attention_max_abs_err"],
             "zoo": {z: {"at": (f"{z.split('-')[0]} {step} bfloat16"
                                if z != "xlstm-125m" else None),
                         "generate_launches": zoo[z]["launches"][name],
@@ -3459,6 +3855,14 @@ def main() -> int:
                     for z in ZOO},
             "card": card,
         })
+    print(json.dumps({"training": {
+        DECODER: {k: dt[k] for k in ("params", "step_ms", "tokens_per_s",
+                                     "peak_gb", "fixed_losses", "profile",
+                                     "top_kernels_ms", "optimizer_ms",
+                                     "attention", "bf16_nll", "fp32_nll")},
+        **{n: {k: r[k] for k in ("params", "step_ms", "tokens_per_s",
+                                  "peak_gb")} for n, r in ot.items()},
+        "at": f"B={TRAIN_B} S={TRAIN_S}", "card": card}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

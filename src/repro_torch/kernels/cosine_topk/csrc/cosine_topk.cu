@@ -34,6 +34,16 @@
 // warp per query, merges the splits.  Arithmetic is float32 FMA: no TF32, no
 // bf16, no MMA (the flat cache's threshold sits in the 4th decimal).
 //
+// bf16 panels.  q and keys may both be bf16, as the Pallas kernel takes
+// them (it casts both to float32 on load).  Here too the conversion is on
+// load: the bf16 staging path reads 4 values (8 bytes) a thread from
+// global memory into registers, widens them to float32 (a 16-bit shift)
+// and stores the float4 into the same shared stage as the float32 path,
+// so the register-tiled float32 GEMM and the top-k are unchanged.  cp.async
+// cannot convert in flight, so these stages are written synchronously
+// (the float32 path keeps its copies in flight); bf16 halves the bytes
+// read, and the float32 FMA rate still bounds the lookup.
+//
 // Bound.  One lookup reads the keys once (N D 4 bytes) and does 2 Q N D
 // flops; at Q = 64, D = 768 that is ~32 flops per byte, above the float32
 // balance of the card (67 TFLOP/s over 3.35 TB/s = 20), so the float32
@@ -45,6 +55,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "ptx.cuh"
 
@@ -60,6 +72,21 @@ constexpr int kPitch = kDC + 4;       // floats per staged row (17 x 16 B)
 constexpr int kFold = kThreads / kBQ; // threads folding one query's scores
 constexpr float kNeg = -1e30f;
 constexpr int kPosPad = 0x7fffffff;
+
+using bf16_bits = uint16_t;           // a bf16 value's raw 16 bits
+
+// bf16 -> float32 is exact: the bf16 bits are a float32's high half
+__device__ __forceinline__ float bf16_to_float(bf16_bits b) {
+  return __uint_as_float(static_cast<uint32_t>(b) << 16);
+}
+
+// four bf16 (8 bytes, element 0 in the low half of x) -> float4
+__device__ __forceinline__ float4 bf16x4_to_float4(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
 
 // A thread's patch is 4 queries (ty + 16 i) x TN keys (tx + 8 j), so a
 // key tile is 8 TN rows: 32 at TN = 4 (more blocks, for the flat cache's
@@ -117,19 +144,19 @@ struct TopK {
   }
 };
 
-template <int KM, int TN, bool VEC>
+template <int KM, int TN, bool VEC, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-cosine_topk_partial_kernel(const float* __restrict__ q,
-                           const float* __restrict__ keys,
+cosine_topk_partial_kernel(const T* __restrict__ q,
+                           const T* __restrict__ keys,
                            const uint8_t* __restrict__ valid, int Q, int N,
                            int D, int k, int rows_per_split,
                            float* __restrict__ part_s,
                            int* __restrict__ part_i) {
-  using T = Tile<TN>;
-  constexpr int kBN = T::kBN;
-  constexpr int kStages = T::kStages;
+  using Tl = Tile<TN>;
+  constexpr int kBN = Tl::kBN;
+  constexpr int kStages = Tl::kStages;
   extern __shared__ __align__(16) float smem[];
-  float* planes = smem + kStages * T::kStageFloats;   // kGroups planes
+  float* planes = smem + kStages * Tl::kStageFloats;  // kGroups planes
 
   const int tid = threadIdx.x;
   const int grp = tid / kGroupThreads;
@@ -148,13 +175,41 @@ cosine_topk_partial_kernel(const float* __restrict__ q,
   const int n_steps = n_tiles * n_chunks;
 
   // stage step `it` (key tile it / n_chunks, D chunk it % n_chunks): rows
-  // 0..kBQ-1 the query slice, then kBN key rows; zeros past Q, r1 and D
+  // 0..kBQ-1 the query slice, then kBN key rows; zeros past Q, r1 and D.
+  // float32 by cp.async; bf16 through registers, widened on the way
   auto load = [&](int it) {
     const int t = it / n_chunks;
     const int d0 = (it - t * n_chunks) * kDC;
     const int kr0 = r0 + t * kBN;
-    float* st = smem + (it % kStages) * T::kStageFloats;
-    if (VEC) {
+    float* st = smem + (it % kStages) * Tl::kStageFloats;
+    if constexpr (std::is_same<T, bf16_bits>::value) {
+      if (VEC) {                      // 4 values (8 bytes) a thread
+        constexpr int kC4 = kDC / 4;
+        for (int i = tid; i < (kBQ + kBN) * kC4; i += kThreads) {
+          const int r = i / kC4, c = i - r * kC4;
+          const int d = d0 + c * 4;
+          const bool isq = r < kBQ;
+          const int row = isq ? q0 + r : kr0 + r - kBQ;
+          const bf16_bits* src = isq ? q : keys;
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (d < D && row < (isq ? Q : r1))
+            v = bf16x4_to_float4(*reinterpret_cast<const uint2*>(
+                src + (size_t)row * D + d));
+          *reinterpret_cast<float4*>(st + r * kPitch + c * 4) = v;
+        }
+      } else {
+        for (int i = tid; i < (kBQ + kBN) * kDC; i += kThreads) {
+          const int r = i / kDC, c = i - r * kDC;
+          const int d = d0 + c;
+          const bool isq = r < kBQ;
+          const int row = isq ? q0 + r : kr0 + r - kBQ;
+          const bf16_bits* src = isq ? q : keys;
+          st[r * kPitch + c] = d < D && row < (isq ? Q : r1)
+                                   ? bf16_to_float(src[(size_t)row * D + d])
+                                   : 0.f;
+        }
+      }
+    } else if (VEC) {
       constexpr int kC4 = kDC / 4;
       for (int i = tid; i < (kBQ + kBN) * kC4; i += kThreads) {
         const int r = i / kC4, c = i - r * kC4;
@@ -178,7 +233,7 @@ cosine_topk_partial_kernel(const float* __restrict__ q,
                         src + (in ? (size_t)row * D + d : 0), in);
       }
     }
-    ptx::cp_async_commit();
+    ptx::cp_async_commit();           // empty group on the bf16 path
   };
 
   TopK<KM> top;
@@ -204,7 +259,7 @@ cosine_topk_partial_kernel(const float* __restrict__ q,
 #pragma unroll
         for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
     }
-    const float* qs = smem + (it % kStages) * T::kStageFloats + grp * kDG;
+    const float* qs = smem + (it % kStages) * Tl::kStageFloats + grp * kDG;
     const float* ks = qs + kBQ * kPitch;
 #pragma unroll
     for (int d = 0; d < kDG; d += 4) {
@@ -229,12 +284,12 @@ cosine_topk_partial_kernel(const float* __restrict__ q,
     if (c == n_chunks - 1) {
       // the tile's scores: both groups' partial sums meet in the planes,
       // then each query's kFold threads fold its kBN scores
-      float* pl = planes + grp * T::kPlaneFloats;
+      float* pl = planes + grp * Tl::kPlaneFloats;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j)
-          pl[(ty + 16 * i) * T::kSPitch + tx + 8 * j] = acc[i][j];
+          pl[(ty + 16 * i) * Tl::kSPitch + tx + 8 * j] = acc[i][j];
       __syncthreads();
       const int kr0 = r0 + t * kBN;
 #pragma unroll
@@ -242,10 +297,10 @@ cosine_topk_partial_kernel(const float* __restrict__ q,
         const int key = fs + kFold * m;
         const int r = kr0 + key;
         if (r < r1) {
-          float sc = planes[fq * T::kSPitch + key];
+          float sc = planes[fq * Tl::kSPitch + key];
 #pragma unroll
           for (int gg = 1; gg < kGroups; ++gg)
-            sc += planes[gg * T::kPlaneFloats + fq * T::kSPitch + key];
+            sc += planes[gg * Tl::kPlaneFloats + fq * Tl::kSPitch + key];
           top.push(valid[r] ? sc : kNeg, r, k);
         }
       }
@@ -317,44 +372,58 @@ __global__ void cosine_topk_merge_kernel(const float* __restrict__ part_s,
 
 constexpr int kMergeThreads = 128;    // 4 query rows per block
 
-template <int KM, int TN, bool VEC>
-cudaError_t launch_partial(const float* q, const float* keys,
+template <int KM, int TN, bool VEC, typename T>
+cudaError_t launch_partial(const void* q, const void* keys,
                            const uint8_t* valid, int Q, int N, int D, int k,
                            int S, int rows_per_split, float* part_s,
                            int* part_i, cudaStream_t stream) {
-  auto kern = cosine_topk_partial_kernel<KM, TN, VEC>;
+  auto kern = cosine_topk_partial_kernel<KM, TN, VEC, T>;
   constexpr size_t smem = Tile<TN>::kSmemBytes;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Q + kBQ - 1) / kBQ, S);
-  kern<<<grid, kThreads, smem, stream>>>(q, keys, valid, Q, N, D, k,
-                                         rows_per_split, part_s, part_i);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(keys), valid, Q, N, D,
+      k, rows_per_split, part_s, part_i);
   return cudaGetLastError();
 }
 
-template <int KM>
-cudaError_t launch(const float* q, const float* keys, const uint8_t* valid,
-                   int Q, int N, int D, int k, int vec4, int key_tile, int S,
-                   int rows_per_split, float* part_s, int* part_i,
-                   float* out_s, int* out_i, cudaStream_t stream) {
-  cudaError_t err;
+template <int KM, typename T>
+cudaError_t launch_tiles(const void* q, const void* keys,
+                         const uint8_t* valid, int Q, int N, int D, int k,
+                         int vec, int key_tile, int S, int rows_per_split,
+                         float* part_s, int* part_i, cudaStream_t stream) {
   if (key_tile == 32)
-    err = vec4 ? launch_partial<KM, 4, true>(q, keys, valid, Q, N, D, k, S,
-                                             rows_per_split, part_s, part_i,
-                                             stream)
-               : launch_partial<KM, 4, false>(q, keys, valid, Q, N, D, k, S,
-                                              rows_per_split, part_s, part_i,
-                                              stream);
-  else if (key_tile == 64)
-    err = vec4 ? launch_partial<KM, 8, true>(q, keys, valid, Q, N, D, k, S,
-                                             rows_per_split, part_s, part_i,
-                                             stream)
-               : launch_partial<KM, 8, false>(q, keys, valid, Q, N, D, k, S,
-                                              rows_per_split, part_s, part_i,
-                                              stream);
-  else
-    return cudaErrorInvalidValue;
+    return vec ? launch_partial<KM, 4, true, T>(q, keys, valid, Q, N, D, k,
+                                                S, rows_per_split, part_s,
+                                                part_i, stream)
+               : launch_partial<KM, 4, false, T>(q, keys, valid, Q, N, D, k,
+                                                 S, rows_per_split, part_s,
+                                                 part_i, stream);
+  if (key_tile == 64)
+    return vec ? launch_partial<KM, 8, true, T>(q, keys, valid, Q, N, D, k,
+                                                S, rows_per_split, part_s,
+                                                part_i, stream)
+               : launch_partial<KM, 8, false, T>(q, keys, valid, Q, N, D, k,
+                                                 S, rows_per_split, part_s,
+                                                 part_i, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <int KM>
+cudaError_t launch(const void* q, const void* keys, const uint8_t* valid,
+                   int Q, int N, int D, int k, int bf16, int vec,
+                   int key_tile, int S, int rows_per_split, float* part_s,
+                   int* part_i, float* out_s, int* out_i,
+                   cudaStream_t stream) {
+  const cudaError_t err =
+      bf16 ? launch_tiles<KM, bf16_bits>(q, keys, valid, Q, N, D, k, vec,
+                                         key_tile, S, rows_per_split, part_s,
+                                         part_i, stream)
+           : launch_tiles<KM, float>(q, keys, valid, Q, N, D, k, vec,
+                                     key_tile, S, rows_per_split, part_s,
+                                     part_i, stream);
   if (err != cudaSuccess) return err;
   const int rows_per_block = kMergeThreads / 32;
   cosine_topk_merge_kernel<KM>
@@ -376,26 +445,27 @@ int cosine_topk_query_tile() { return kBQ; }
 
 // Two launches on `stream`: the partial top-k of every (query tile, split
 // of rows_per_split key rows, a multiple of key_tile) into part_s/part_i
-// (Q * S * k each), then the merge into out_s/out_i (Q * k each).  vec4:
-// q and keys 16-byte aligned with D % 4 == 0 (16-byte copies; else 4-byte
-// ones).  Returns cudaGetLastError() after them (0 = launched), or
-// cudaErrorInvalidValue for a key tile other than 32 or 64.
-int cosine_topk_launch(const float* q, const float* keys,
-                       const uint8_t* valid, int Q, int N, int D, int k,
-                       int vec4, int key_tile, int S, int rows_per_split,
-                       float* part_s, int* part_i, float* out_s, int* out_i,
-                       void* stream) {
+// (Q * S * k each), then the merge into out_s/out_i (Q * k each).  q and
+// keys are both float32 (bf16 = 0) or both bf16 (bf16 = 1).  vec: D % 4 ==
+// 0 with q and keys 16-byte aligned (float32: 16-byte copies) or 8-byte
+// aligned (bf16: 8-byte loads); else element-wide copies.  Returns
+// cudaGetLastError() after them (0 = launched), or cudaErrorInvalidValue
+// for a key tile other than 32 or 64.
+int cosine_topk_launch(const void* q, const void* keys, const uint8_t* valid,
+                       int Q, int N, int D, int k, int bf16, int vec,
+                       int key_tile, int S, int rows_per_split, float* part_s,
+                       int* part_i, float* out_s, int* out_i, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= 1) return launch<1>(q, keys, valid, Q, N, D, k, vec4, key_tile, S,
-                               rows_per_split, part_s, part_i, out_s, out_i,
-                               s);
-  if (k <= 4) return launch<4>(q, keys, valid, Q, N, D, k, vec4, key_tile, S,
-                               rows_per_split, part_s, part_i, out_s, out_i,
-                               s);
-  if (k <= 8) return launch<8>(q, keys, valid, Q, N, D, k, vec4, key_tile, S,
-                               rows_per_split, part_s, part_i, out_s, out_i,
-                               s);
-  return launch<16>(q, keys, valid, Q, N, D, k, vec4, key_tile, S,
+  if (k <= 1) return launch<1>(q, keys, valid, Q, N, D, k, bf16, vec,
+                               key_tile, S, rows_per_split, part_s, part_i,
+                               out_s, out_i, s);
+  if (k <= 4) return launch<4>(q, keys, valid, Q, N, D, k, bf16, vec,
+                               key_tile, S, rows_per_split, part_s, part_i,
+                               out_s, out_i, s);
+  if (k <= 8) return launch<8>(q, keys, valid, Q, N, D, k, bf16, vec,
+                               key_tile, S, rows_per_split, part_s, part_i,
+                               out_s, out_i, s);
+  return launch<16>(q, keys, valid, Q, N, D, k, bf16, vec, key_tile, S,
                     rows_per_split, part_s, part_i, out_s, out_i, s);
 }
 

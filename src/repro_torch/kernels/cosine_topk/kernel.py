@@ -29,7 +29,7 @@ _I = ctypes.c_int
 
 def _declare(lib: ctypes.CDLL) -> None:
     lib.cosine_topk_launch.argtypes = [
-        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
     lib.cosine_topk_launch.restype = ctypes.c_int
     for fn in (lib.cosine_topk_max_k, lib.cosine_topk_query_tile):
         fn.argtypes = []
@@ -74,8 +74,18 @@ def splits(Q: int, N: int, n_sm: int, q_tile: int, k_tile: int):
     return -(-N // rows), rows
 
 
+def vector_loads(q, keys) -> bool:
+    """Whether the staging copies may move 16 bytes (float32, 4 values)
+    or 8 bytes (bf16, 4 values) at a time: D a multiple of 4 and both
+    base pointers aligned to that width (row strides then are too)."""
+    width = 4 * q.element_size()
+    return q.shape[1] % 4 == 0 and q.data_ptr() % width == 0 \
+        and keys.data_ptr() % width == 0
+
+
 def launch(q, keys, valid, k: int):
-    """q: (Q, D), keys: (N, D) float32, valid: (N,) bool — checked,
+    """q: (Q, D), keys: (N, D), both float32 or both bfloat16 (widened
+    to float32 as they are staged), valid: (N,) bool — checked,
     contiguous CUDA tensors (see `ops.cosine_topk`), 1 <= k <= N.
     Returns ((Q, k) float32 scores, (Q, k) int32 indices).  Launches on
     the current stream, does not synchronise; raises if a launch is
@@ -93,11 +103,10 @@ def launch(q, keys, valid, k: int):
     S, rows = splits(Q, N, n_sm, query_tile(), kt)
     part_s = torch.empty((Q, S, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((Q, S, k), dtype=torch.int32, device=dev)
-    vec4 = D % 4 == 0 and q.data_ptr() % 16 == 0 \
-        and keys.data_ptr() % 16 == 0
     err = lib.cosine_topk_launch(
         q.data_ptr(), keys.data_ptr(), valid.data_ptr(), Q, N, D, k,
-        int(vec4), kt, S, rows, part_s.data_ptr(), part_i.data_ptr(),
+        int(q.dtype == torch.bfloat16), int(vector_loads(q, keys)), kt, S,
+        rows, part_s.data_ptr(), part_i.data_ptr(),
         out_s.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -16,7 +16,8 @@ NEG_INF = -1e30
 
 
 def cosine_topk(q, keys, valid, k: int = 1):
-    """q: (Q, D) unit-norm queries; keys: (N, D) unit-norm rows; valid:
+    """q: (Q, D) unit-norm queries; keys: (N, D) unit-norm rows (float32
+    or bfloat16, multiplied in float32 as the Pallas kernel does); valid:
     (N,) bool.  Returns (scores (Q, k) float32 desc, indices (Q, k)
     int32)."""
     scores = q.float() @ keys.float().T                    # (Q, N)

@@ -5,13 +5,15 @@ a card go to the hand-written CUDA kernel (`kernel.py`) or raise — there
 is no fallback from the card.  The kernel takes float32 or bfloat16,
 head widths 32, 64, 96 and 128, any number of query heads per KV head,
 and 16-byte aligned q, k and v (the decoder's caches and projections
-are whole allocations).
+are whole allocations).  The kernel has no backward: on a card it
+refuses inputs that require grad while autograd records
+(`refuse_autograd`).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import check_tensor
+from repro_torch.kernels import check_tensor, refuse_autograd
 from repro_torch.kernels.decode_attention import kernel as _kernel
 from repro_torch.kernels.decode_attention import ref as _ref
 
@@ -29,6 +31,7 @@ def decode_attention(q, k, v, kv_valid, *, scale=None):
     if dev.type != "cuda":
         raise ValueError(f"decode_attention runs on cpu or cuda tensors, "
                          f"got {dev}")
+    refuse_autograd("decode_attention", q, k, v)
     if q.dim() != 4 or q.shape[1] != 1 or k.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)} must be (B, 1, H, hd) and k "
                          f"{tuple(k.shape)} (B, L, KV, hd)")

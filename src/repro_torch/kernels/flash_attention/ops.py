@@ -9,12 +9,15 @@ tensors also need 16-byte aligned base pointers and (b, s, h) strides
 (its tensor-core kernel copies rows with 16-byte ``cp.async``); the
 model's separate q, k and v projections are.  It refuses a window that
 leaves some query row with no key in reach (Sq >= Skv + W), where the
-plain version averages v over every key.
+plain version averages v over every key.  The kernel has no backward:
+on a card it refuses inputs that require grad while autograd records
+(`refuse_autograd`); the CPU path stays the differentiable plain version.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.flash_attention import kernel as _kernel
 from repro_torch.kernels.flash_attention import ref as _ref
 
@@ -33,6 +36,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, "
                          f"got {dev}")
+    refuse_autograd("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)} must be (B, Sq, H, hd), k and "
                          f"v {tuple(k.shape)}/{tuple(v.shape)} (B, Skv, KV, "

@@ -1,6 +1,7 @@
-"""GQA/MQA attention: the encoder's full sequence, the decoder's full
-sequence (``forward_lm``) and prefill (with its KV-cache build), and
-single-token decode against a (possibly ring-buffer) KV cache.
+"""GQA/MQA attention: the training and encoder full sequence
+(``forward_full``), the decoder's serving full sequence (``forward_lm``)
+and prefill (with its KV-cache build), and single-token decode against a
+(possibly ring-buffer) KV cache.
 
 Order of operations follows the reference (`repro/models/attention.py`
 ``gqa_attention``, ``apply_full``, ``apply_prefill``, ``apply_decode``):
@@ -10,13 +11,17 @@ accumulates in float32 and the output is cast back.  RoPE is applied to
 k before the cache write, so decode needs no position recompute; the
 ring buffer stores each slot's absolute position for masking.
 
-* The encoder's non-causal path is plain ``torch.einsum`` / ``softmax``
-  (`gqa_attention`), as the reference leaves it to its compiler; the
-  chunked branch the reference takes above ``CHUNK_THRESHOLD`` tokens
-  arrives with a later slice.
-* Causal or windowed attention over a sequence (prefill, ``forward_lm``)
-  goes through `kernels.flash_attention.ops.flash_attention` with
-  implicit positions — on a card the hand-written CUDA kernel.  The
+* Training (``Attention.forward_full``, the reference's ``apply_full``,
+  which ``LM.lm_loss`` runs) and the encoder's non-causal path are plain
+  torch under autograd, as the reference leaves them to XLA: the masked
+  `gqa_attention`, dense up to ``CHUNK_THRESHOLD`` keys and above it an
+  online softmax over ``KV_CHUNK``-key chunks, and for a causal window
+  shorter than half the sequence `local_window_attention`.  Neither side
+  has a kernel with a backward; the serving kernels below refuse inputs
+  that require grad.
+* Causal or windowed attention over a sequence at serving time (prefill,
+  ``forward_lm``) goes through `kernels.flash_attention.ops.flash_attention`
+  with implicit positions — on a card the hand-written CUDA kernel.  The
   reference's dense, chunked (above 2048 tokens) and local-window
   branches all compute this one function.
 * Decode builds one (B, L) mask ``(pos >= 0) & (pos <= cur) &
@@ -34,7 +39,7 @@ decode step writes one slot per layer instead of copying the cache.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -47,20 +52,124 @@ from repro_torch.models import layers
 from repro_torch.models.param import Initializer
 
 CHUNK_THRESHOLD = 2048
+KV_CHUNK = 1024
+NEG_INF = -1e30
 
 
-def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+def _mask_logits(scores: torch.Tensor, q_pos: torch.Tensor,
+                 kv_pos: torch.Tensor, *, causal: bool, window: int,
+                 kv_valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """scores: (B, KV, G, Sq, Skv); q_pos: (Sq,) absolute positions;
+    kv_pos: (Skv,) or (B, Skv); kv_valid: (B, Skv) bool or None.  Masked
+    logits are set to ``NEG_INF`` (the reference's ``_mask_logits``)."""
+    if not (causal or window > 0 or kv_valid is not None):
+        return scores                 # nothing masked (the encoder)
+    if kv_pos.dim() == 1:
+        kv_pos = kv_pos[None]
+    rel_q = q_pos[None, :, None]
+    rel_k = kv_pos[:, None, :]
+    ok = torch.ones((), dtype=torch.bool, device=scores.device)
+    if causal:
+        ok = ok & (rel_k <= rel_q)
+    if window > 0:
+        ok = ok & ((rel_q - rel_k) < window)
+        if not causal:
+            ok = ok & ((rel_k - rel_q) < window)
+    if kv_valid is not None:
+        ok = ok & kv_valid[:, None, :]
+    return torch.where(ok[:, None, None], scores, NEG_INF)
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
+                  window: int, kv_valid: Optional[torch.Tensor] = None,
+                  chunked: Optional[bool] = None,
                   acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Non-causal, unmasked.  q: (B, Sq, H, hd), k/v: (B, Skv, KV, hd)
-    -> (B, Sq, H, hd)."""
+    """Masked GQA attention in plain torch, differentiable: the
+    reference's ``gqa_attention``.  q: (B, Sq, H, hd), k/v: (B, Skv, KV,
+    hd) -> (B, Sq, H, hd) in q's dtype.
+
+    q is scaled by ``hd ** -0.5`` in its own dtype, the logits and their
+    running max and denominator are float32, and ``acc_dtype`` is the
+    dtype of the softmax weights and the PV accumulator (bf16 is the
+    config's ``attn_f32=False``).  Above ``CHUNK_THRESHOLD`` keys (and
+    more than one query) the keys are taken ``KV_CHUNK`` at a time with
+    an online softmax, so the (Sq, Skv) logits never exist whole; the
+    ragged last chunk is padded with position -1 and ``valid=False``.
+    """
     B, Sq, H, hd = q.shape
-    KV = k.shape[2]
+    Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
-    qg = q.reshape(B, Sq, KV, G, hd) * hd ** -0.5
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
-    w = torch.softmax(s, dim=-1).to(acc_dtype)
-    o = torch.einsum("bkgqs,bskh->bqkgh", w, v.to(acc_dtype))
-    return o.reshape(B, Sq, H, hd).to(q.dtype)
+    qf = (q.reshape(B, Sq, KV, G, hd) * hd ** -0.5).float()
+    if chunked is None:
+        chunked = Skv > CHUNK_THRESHOLD and Sq > 1
+    if not chunked:
+        s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.float())
+        s = _mask_logits(s, q_pos, kv_pos, causal=causal, window=window,
+                         kv_valid=kv_valid)
+        w = torch.softmax(s, dim=-1).to(acc_dtype)
+        o = torch.einsum("bkgqs,bskh->bqkgh", w, v.to(acc_dtype))
+        return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+    C = KV_CHUNK
+    n_chunks = -(-Skv // C)
+    pad = n_chunks * C - Skv
+    valid = kv_valid if kv_valid is not None else torch.ones(
+        (B, Skv), dtype=torch.bool, device=q.device)
+    if kv_pos.dim() == 1:
+        kv_pos = kv_pos[None].expand(B, Skv)
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = F.pad(kv_pos, (0, pad), value=-1)
+        valid = F.pad(valid, (0, pad), value=False)
+    m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, hd), dtype=acc_dtype, device=q.device)
+    for i in range(n_chunks):
+        sl = slice(i * C, (i + 1) * C)
+        s = torch.einsum("bqkgh,bskh->bkgqs", qf, k[:, sl].float())
+        s = _mask_logits(s, q_pos, kv_pos[:, sl], causal=causal,
+                         window=window, kv_valid=valid[:, sl])
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None]).to(acc_dtype)
+        l = l * alpha + p.sum(dim=-1, dtype=torch.float32)
+        acc = acc * alpha[..., None].to(acc_dtype) + torch.einsum(
+            "bkgqs,bskh->bkgqh", p, v[:, sl].to(acc_dtype))
+        m = m_new
+    o = acc.float() / l[..., None].clamp_min(1e-30)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def local_window_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, positions: torch.Tensor,
+                           window: int, causal: bool,
+                           acc_dtype: torch.dtype = torch.float32,
+                           q_chunk: int = 1024) -> torch.Tensor:
+    """Sliding-window attention that gives each chunk of ``q_chunk``
+    queries only its (window + chunk) keys, O(S W) instead of O(S^2) with
+    masking: the reference's ``local_window_attention``.  The ragged last
+    chunk's queries are padded (at the last position) and cut off."""
+    B, S = q.shape[:2]
+    C = min(q_chunk, S)
+    nq = -(-S // C)
+    pad = nq * C - S
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        positions = F.pad(positions, (0, pad), value=positions.shape[0] - 1)
+    outs = []
+    for iq in range(nq):
+        q_lo = iq * C
+        q_hi = min(q_lo + C, S)
+        kv_lo = max(0, q_lo - window + 1)
+        outs.append(gqa_attention(
+            q[:, q_lo:q_lo + C], k[:, kv_lo:q_hi], v[:, kv_lo:q_hi],
+            q_pos=positions[q_lo:q_lo + C], kv_pos=positions[kv_lo:q_hi],
+            causal=causal, window=window, chunked=False,
+            acc_dtype=acc_dtype))
+    return torch.cat(outs, dim=1)[:, :S]
 
 
 def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
@@ -138,25 +247,51 @@ class Attention(nn.Module):
         if not self.cfg.attn_f32:
             raise NotImplementedError(
                 "attn_f32=False (bf16 softmax weights) is not supported by "
-                "the attention kernels, which accumulate in float32")
+                "the serving attention kernels, which accumulate in float32 "
+                "(ROADMAP queue A item 2); training through LM.lm_loss "
+                "honours it")
         return q * self.cfg.head_dim ** -0.5
 
     def forward(self, x: torch.Tensor, sin: torch.Tensor,
                 cos: torch.Tensor) -> torch.Tensor:
-        """Full sequence.  x: (B, S, d) in the compute dtype."""
+        """Full sequence at serving time.  x: (B, S, d) in the compute
+        dtype.  Causal or windowed attention goes through the flash
+        kernel (no backward); the encoder's bidirectional attention is
+        `forward_full`'s."""
         cfg = self.cfg
+        if not (cfg.causal or cfg.sliding_window):
+            return self.forward_full(x, sin, cos)
         q, k, v = self._qkv(x, sin, cos)
-        if cfg.causal or cfg.sliding_window:
-            o = flash_ops.flash_attention(
-                self._scaled(q), k, v, causal=cfg.causal,
-                window=cfg.sliding_window, scale=1.0)
-            return self._out(o)
-        if x.shape[1] > CHUNK_THRESHOLD:
-            raise NotImplementedError(
-                f"sequence {x.shape[1]} > {CHUNK_THRESHOLD}: the encoder's "
-                "chunked attention arrives with a later slice of the port")
+        o = flash_ops.flash_attention(
+            self._scaled(q), k, v, causal=cfg.causal,
+            window=cfg.sliding_window, scale=1.0)
+        return self._out(o)
+
+    def forward_full(self, x: torch.Tensor, sin: torch.Tensor,
+                     cos: torch.Tensor) -> torch.Tensor:
+        """Full sequence in plain torch under autograd: the reference's
+        ``apply_full`` (training, the encoder).  x: (B, S, d) at positions
+        0..S-1.  A causal window W with S > 2W goes through
+        `local_window_attention` (query chunks of min(1024, W)), anything
+        else through the masked `gqa_attention`; ``attn_f32=False`` makes
+        the softmax weights and the PV sum bf16.  The config's ``unroll``
+        and ``unroll_inner`` are the reference's levers for XLA's cost
+        analysis in its dry runs; they do not change the result and are
+        ignored here."""
+        cfg = self.cfg
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device)
+        q, k, v = self._qkv(x, sin, cos)
         acc = torch.float32 if cfg.attn_f32 else torch.bfloat16
-        return self._out(gqa_attention(q, k, v, acc))
+        W = cfg.sliding_window
+        if W > 0 and cfg.causal and S > 2 * W:
+            o = local_window_attention(q, k, v, positions=positions,
+                                       window=W, causal=True, acc_dtype=acc,
+                                       q_chunk=min(1024, W))
+        else:
+            o = gqa_attention(q, k, v, q_pos=positions, kv_pos=positions,
+                              causal=cfg.causal, window=W, acc_dtype=acc)
+        return self._out(o)
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor,
                 sin: torch.Tensor, cos: torch.Tensor,

@@ -2,9 +2,11 @@
 residual + a dense, MoE or no FFN.
 
 The reference's ``LayerSpec(mixer, ffn)`` layers (`repro/models/
-blocks.py`) in their three entry points: ``forward`` (``apply_full``,
-the encoder and ``forward_lm``), ``prefill`` (``apply_prefill``: the
-full prompt, filling the layer's decode state) and ``decode``
+blocks.py`) in their entry points: ``forward_full`` (``apply_full``
+under autograd: training and the encoder, attention in plain torch),
+``forward`` (the same at serving time, ``forward_lm``: causal attention
+through the flash kernel), ``prefill`` (``apply_prefill``: the full
+prompt, filling the layer's decode state) and ``decode``
 (``apply_decode``: one token against it).  Each returns ``(x, aux)``:
 the MoE FFN's load-balance + z-loss, or ``None`` for a dense FFN or none
 (the reference's zero, without a device op per layer).  With ``ffn =
@@ -82,6 +84,17 @@ class Block(nn.Module):
         h = self.norm1(x)
         if self.kind == ATTN:
             return self._ffn(x + self.attn(h, sin, cos))
+        return self._ffn(x + getattr(self, self.kind)(h))
+
+    def forward_full(self, x: torch.Tensor, sin: Optional[torch.Tensor],
+                     cos: Optional[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The training forward: attention through
+        ``Attention.forward_full``, the recurrent mixers through their
+        full-sequence forwards."""
+        h = self.norm1(x)
+        if self.kind == ATTN:
+            return self._ffn(x + self.attn.forward_full(h, sin, cos))
         return self._ffn(x + getattr(self, self.kind)(h))
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor,

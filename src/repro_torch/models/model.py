@@ -25,8 +25,17 @@ embeddings in their dtype (`serving/frontend.py` draws the stubs), so
 logits and ``cur_len`` cover frontend + token positions.  The audio
 family without RoPE adds sinusoidal positions to the input (and one row
 at ``cur_len`` a decode step), as the reference's ``_input_embeds``;
-Jamba and xLSTM have no position signal at all.  ``lm_loss`` arrives
-with the decoder-training slice.
+Jamba and xLSTM have no position signal at all.
+
+``LM.lm_loss`` is the reference's ``lm_loss``: next-token cross entropy
+in float32 over the padded vocab (the padding columns are -1e30) plus
+the MoE aux loss, through ``Block.forward_full`` (attention in plain
+torch under autograd; the serving kernels have no backward).  With
+``cfg.remat`` each period of blocks is recomputed in the backward pass
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
+scanned period body); the recompute sets ``MoE.dropped`` again, to the
+same count.  ``cfg.loss_chunk`` sums the loss over sequence chunks so
+the (B, S, vocab) logits never exist whole.
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -154,6 +164,67 @@ class LM(nn.Module):
                 aux = aux + a
         return self._logits(x), aux
 
+    def _run_full(self, x: torch.Tensor, sin: Optional[torch.Tensor],
+                  cos: Optional[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every block's training forward; returns (x, aux summed in
+        layer order).  With ``cfg.remat`` (and autograd recording) each
+        period of ``len(cfg.period)`` blocks is checkpointed."""
+        P = len(self.cfg.period)
+
+        def period(j: int, x: torch.Tensor, aux: torch.Tensor):
+            for blk in self.layers[j * P:(j + 1) * P]:
+                x, a = blk.forward_full(x, sin, cos)
+                if a is not None:
+                    aux = aux + a
+            return x, aux
+
+        aux = torch.zeros((), device=x.device)
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for j in range(len(self.layers) // P):
+            if remat:
+                x, aux = checkpoint(period, j, x, aux, use_reentrant=False)
+            else:
+                x, aux = period(j, x, aux)
+        return x, aux
+
+    def _nll(self, x_pred: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+        """Summed NLL of ``tgt`` (B, T) under the logits of the normed
+        hidden states ``x_pred`` (B, T, d), in float32."""
+        logits = layers.unembed(self.cfg, self.embed.table, self.unembed,
+                                x_pred).float()
+        gold = logits.gather(-1, tgt[..., None])[..., 0]
+        return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+    def lm_loss(self, tokens, frontend_embeds=None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross entropy (+ MoE aux).  tokens: (B, S) int;
+        frontend_embeds: (B, S_fe, d) or None (the prediction of token
+        t + 1 comes from stream position S_fe + t).  Returns (loss, {"nll",
+        "aux"}), 0-d float32 tensors; differentiable in every
+        parameter."""
+        cfg = self.cfg
+        tokens = self._tokens(tokens)
+        x = self._input_embeds(tokens, frontend_embeds)
+        positions = torch.arange(x.shape[1], device=x.device)
+        sin, cos = self._rope(positions)
+        x, aux = self._run_full(x, sin, cos)
+        x = self.final_norm(x)
+        n_fe = 0 if frontend_embeds is None else frontend_embeds.shape[1]
+        x_pred = x[:, n_fe:-1]
+        tgt = tokens[:, 1:].long()
+        B, T = tgt.shape
+        C = cfg.loss_chunk
+        if C and C < T:
+            total = torch.zeros((), device=x.device)
+            for lo in range(0, T, C):
+                total = total + self._nll(x_pred[:, lo:lo + C],
+                                          tgt[:, lo:lo + C])
+            nll = total / (B * T)
+        else:
+            nll = self._nll(x_pred, tgt) / (B * T)
+        return nll + aux, {"nll": nll, "aux": aux}
+
     def init_lm_state(self, batch: int, seq_len: int) -> Dict:
         """Empty decode state: per layer a KV cache sized for
         ``seq_len`` positions (the window, if the config has one) or a
@@ -195,3 +266,11 @@ class LM(nn.Module):
             x, _ = blk.decode(x, cur, sin, cos, st)
         state["cur_len"] = cur + 1
         return self._logits(x)[:, 0], state
+
+
+def lm_loss(lm: LM, tokens, frontend_embeds=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``lm.lm_loss(tokens, frontend_embeds)``: the reference's
+    ``repro.models.lm_loss`` with the model in place of its params and
+    config."""
+    return lm.lm_loss(tokens, frontend_embeds)

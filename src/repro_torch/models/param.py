@@ -175,3 +175,72 @@ def state_dict_from_reference(tree: Mapping, cfg: ModelConfig
                 raise KeyError(f"no port counterpart for {key}")
             sd[f"layers.{j * P + i}.{name}"] = t(a)
     return sd
+
+
+def _host(t: torch.Tensor):
+    """A tensor as the reference's leaf: a numpy array, or a CPU torch
+    tensor for bfloat16 (numpy has no bfloat16 type of its own)."""
+    t = t.detach().cpu().contiguous()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _to_mixer_leaf(cfg: ModelConfig, mod: str, leaf: str,
+                   a: torch.Tensor) -> torch.Tensor:
+    """The inverse of `_mixer_leaf`: a port mixer attribute ``mod.leaf``
+    back to the reference's ``mixer/<leaf>`` layout."""
+    hd = cfg.head_dim
+    if mod == "attn":
+        heads = cfg.n_heads if leaf in ("wq", "bq", "wo") else cfg.n_kv_heads
+        if leaf in ("wq", "wk", "wv"):
+            return a.T.reshape(a.shape[1], heads, hd)
+        if leaf == "wo":
+            return a.T.reshape(heads, hd, a.shape[0])
+        return a.reshape(heads, hd)
+    if leaf in _TRANSPOSED[mod]:
+        return a.t()
+    if leaf == "conv_w":
+        return a[:, 0, :].t()
+    return a
+
+
+def state_dict_to_reference(state_dict: Mapping[str, torch.Tensor],
+                            cfg: ModelConfig) -> Dict:
+    """This port's ``LM`` state dict -> the reference's value tree, the
+    inverse of `state_dict_from_reference`: layer ``j * len(cfg.period) +
+    i`` is stacked as period ``j`` of ``layers/pos{i}``, the transposes
+    and reshapes are undone, and leaves come out as numpy arrays (bfloat16
+    ones as CPU torch tensors).  A checkpoint of this tree is one the
+    reference's ``load_checkpoint`` + ``forward_lm`` read."""
+    P = len(cfg.period)
+    tree: Dict = {"embed": {"table": _host(state_dict["embed.table"])}}
+    if "unembed" in state_dict:
+        tree["embed"]["unembed"] = _host(state_dict["unembed"].t())
+    tree["final_norm"] = {k.split(".", 1)[1]: _host(v)
+                          for k, v in state_dict.items()
+                          if k.startswith("final_norm.")}
+    stacks: Dict[int, Dict[str, Dict[int, torch.Tensor]]] = {}
+    for key, a in state_dict.items():
+        if not key.startswith("layers."):
+            continue
+        _, n, mod, leaf = key.split(".", 3)
+        j, i = divmod(int(n), P)
+        if mod in ("attn", *_TRANSPOSED):
+            path, a = f"mixer/{leaf}", _to_mixer_leaf(cfg, mod, leaf, a)
+        elif mod == "moe":
+            path = f"ffn/{leaf}"
+        elif mod == "mlp":
+            path, a = f"ffn/{leaf}", a.t()
+        elif mod in ("norm1", "norm2"):
+            path = f"{mod}/{leaf}"
+        else:
+            raise KeyError(f"no reference counterpart for {key}")
+        stacks.setdefault(i, {}).setdefault(path, {})[j] = a.detach()
+    tree["layers"] = {}
+    for i in sorted(stacks):
+        pos: Dict = {}
+        for path, by_j in stacks[i].items():
+            group, leaf = path.split("/")
+            pos.setdefault(group, {})[leaf] = _host(torch.stack(
+                [by_j[j] for j in range(len(by_j))]))
+        tree["layers"][f"pos{i}"] = pos
+    return tree

@@ -23,7 +23,6 @@ import numpy as np
 import torch
 
 from repro_torch.cache_service.protocol import CacheBackend, CacheRequest
-from repro_torch.configs.base import ATTN
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.models.model import LM
 from repro_torch.obs import Telemetry
@@ -43,11 +42,11 @@ class ServeEngine:
     """Batched autoregressive serving for a decoder ``LM``: the prompt's
     prefill, then ``max_new_tokens`` decode steps, each feeding back the
     token chosen from the last logits (argmax, or argmax of logits /
-    temperature + Gumbel noise).  The KV caches hold ``max_len`` slots,
-    which must cover frontend frames + prompt + new tokens unless the
-    config has a window (a ring buffer) or no attention layer (a
-    recurrent state of fixed size); ``generate`` refuses a call that
-    would wrap them."""
+    temperature + Gumbel noise).  The KV caches hold ``max_len`` slots.
+    Past them the caches wrap, as the reference's do: prefill keeps the
+    last ``max_len`` positions and decode writes slot ``cur_len %
+    max_len``, so a call whose frontend frames + prompt + new tokens
+    exceed ``max_len`` attends to the newest ``max_len`` positions."""
 
     def __init__(self, model: LM, max_len: int = 512):
         self.model = model
@@ -66,13 +65,6 @@ class ServeEngine:
         B, S = prompts.shape
         n_fe = self.cfg.frontend_len if use_frontend and self.cfg.frontend \
             else 0
-        need = n_fe + S + max_new_tokens
-        if need > self.max_len and not self.cfg.sliding_window and any(
-                spec.mixer == ATTN for spec in self.cfg.period):
-            raise ValueError(
-                f"{n_fe} frontend frames + {S} prompt + {max_new_tokens} "
-                f"new tokens = {need} positions exceed the KV caches' "
-                f"max_len {self.max_len}")
         if prompts.size and not 0 <= prompts.min() <= prompts.max() \
                 < self.cfg.vocab_size:
             raise ValueError(

@@ -13,6 +13,18 @@ parameter.
 
 The clip of the paper's recipe (max_grad_norm 0.5, §3.2) is part of the
 catastrophic-forgetting control, which is why it lives here.
+
+``update_fn.in_place(grads, state, params)`` is the same update applied
+where the tensors are: the grads scaled in place, each parameter's
+moments updated in place and its update added before the next parameter
+is touched, so its temporaries are a few tensors of one parameter's size
+(``update_fn`` builds each intermediate for the whole tree: at
+Phi-3-mini's 3.72 B float32 parameters that is 14.9 GB a list, beside
+59.6 GB of parameters, grads and moments).  Both run one helper's
+``_foreach`` ops, ``update_fn`` on the whole tree's lists and
+``in_place`` on one-parameter lists, so their numbers are equal bit for
+bit on either device; ``make_train_step`` applies updates through
+``in_place``.
 """
 from __future__ import annotations
 
@@ -38,13 +50,17 @@ def global_norm(tree: Tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(tree: Tensors, max_norm: float):
     """(tree scaled so its global norm is at most ``max_norm``, raw
     norm).  The scale stays on the tensors' device: no host sync."""
     norm = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     names = list(tree)
-    scaled = torch._foreach_mul([tree[n] for n in names], scale)
+    scaled = torch._foreach_mul([tree[n] for n in names],
+                                _clip_scale(norm, max_norm))
     return dict(zip(names, scaled)), norm
 
 
@@ -65,6 +81,36 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.999,
                     for n, p in params.items()}
         return AdamState(step=0, m=zeros(), v=zeros())
 
+    def scalars(step: int):
+        """(lr, bias corrections 1 - b ** step) in float32."""
+        t = torch.tensor(step, dtype=torch.float32)
+        lr_t = torch.as_tensor(lr_fn(step), dtype=torch.float32)
+        bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** t)
+        bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** t)
+        return lr_t, bc1, bc2
+
+    def adam_update(g, m, v, p, bc1, bc2, neg_lr):
+        """The AdamW arithmetic on float32 lists: ``m`` and ``v`` are
+        updated in place; returns the updates (float32, times -lr)."""
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, torch._foreach_mul(g, 1 - b1))
+        gg = torch._foreach_mul(g, g)
+        torch._foreach_mul_(gg, 1 - b2)
+        torch._foreach_mul_(v, b2)
+        torch._foreach_add_(v, gg)
+        del gg
+        u = torch._foreach_div(m, bc1)
+        d = torch._foreach_div(v, bc2)
+        torch._foreach_sqrt_(d)
+        torch._foreach_add_(d, eps)
+        torch._foreach_div_(u, d)
+        del d
+        if weight_decay:
+            torch._foreach_add_(
+                u, torch._foreach_mul([x.float() for x in p], weight_decay))
+        torch._foreach_mul_(u, neg_lr)
+        return u
+
     def update_fn(grads: Tensors, state: AdamState, params: Tensors):
         metrics = {}
         if max_grad_norm is not None:
@@ -72,36 +118,50 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.999,
             metrics["grad_norm"] = raw_norm
         names = list(params)
         step = state.step + 1
-        t = torch.tensor(step, dtype=torch.float32)
-        lr_t = torch.tensor(lr_fn(step), dtype=torch.float32)
-        bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** t)
-        bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** t)
+        lr_t, bc1, bc2 = scalars(step)
 
         def f32(ts: List[torch.Tensor]) -> List[torch.Tensor]:
-            return [x.float() for x in ts]
+            return [x.to(torch.float32, copy=True) for x in ts]
 
-        g = f32([grads[n] for n in names])
-        m = torch._foreach_add(
-            torch._foreach_mul(f32([state.m[n] for n in names]), b1),
-            torch._foreach_mul(g, 1 - b1))
-        v = torch._foreach_add(
-            torch._foreach_mul(f32([state.v[n] for n in names]), b2),
-            torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2))
-        mhat = torch._foreach_div(m, bc1)
-        vhat = torch._foreach_div(v, bc2)
-        u = torch._foreach_div(
-            mhat, torch._foreach_add(torch._foreach_sqrt(vhat), eps))
-        if weight_decay:
-            u = torch._foreach_add(
-                u, torch._foreach_mul(f32([params[n] for n in names]),
-                                      weight_decay))
-        upd = torch._foreach_mul(u, -float(lr_t))
+        m = f32([state.m[n] for n in names])
+        v = f32([state.v[n] for n in names])
+        upd = adam_update([grads[n].float() for n in names], m, v,
+                          [params[n] for n in names], bc1, bc2,
+                          -float(lr_t))
         updates = {n: x.to(params[n].dtype) for n, x in zip(names, upd)}
         new_m = {n: x.to(state.m[n].dtype) for n, x in zip(names, m)}
         new_v = {n: x.to(state.v[n].dtype) for n, x in zip(names, v)}
         metrics["lr"] = lr_t
         return updates, AdamState(step=step, m=new_m, v=new_v), metrics
 
+    @torch.no_grad()
+    def in_place(grads: Tensors, state: AdamState, params: Tensors):
+        """``update_fn`` + `apply_updates` in place: scales ``grads``,
+        updates ``state.m`` / ``state.v`` and ``params`` where they are.
+        Returns (the state, advanced a step; metrics)."""
+        metrics = {}
+        names = list(params)
+        if max_grad_norm is not None:
+            norm = global_norm(grads)
+            torch._foreach_mul_([grads[n] for n in names],
+                                _clip_scale(norm, max_grad_norm))
+            metrics["grad_norm"] = norm
+        step = state.step + 1
+        lr_t, bc1, bc2 = scalars(step)
+        for n in names:
+            p, m, v = params[n], state.m[n], state.v[n]
+            m32, v32 = [m.float()], [v.float()]    # m, v themselves in fp32
+            u = adam_update([grads[n].float()], m32, v32, [p], bc1, bc2,
+                            -float(lr_t))
+            p.add_(u[0].to(p.dtype))
+            if m32[0] is not m:
+                m.copy_(m32[0])
+            if v32[0] is not v:
+                v.copy_(v32[0])
+        metrics["lr"] = lr_t
+        return AdamState(step=step, m=state.m, v=state.v), metrics
+
+    update_fn.in_place = in_place
     return init_fn, update_fn
 
 

@@ -88,6 +88,29 @@ def test_cosine_topk_matches_pallas_kernel(k, block_n):
                                atol=SCORE_ATOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cosine_topk_dtypes_match_pallas_kernel(dtype):
+    """The reference's dtype case (Q=4, N=128, D=64, k=2, block 64): q
+    and keys in float32 or bfloat16, multiplied in float32 on both sides.
+    Scores ``atol 2e-2``, the reference test's own bound; indices are not
+    compared, since bf16 rounding can reorder near-ties."""
+    rng = np.random.default_rng(42)
+    q = jnp.asarray(_unit(rng.standard_normal((4, 64))), dtype)
+    keys = jnp.asarray(_unit(rng.standard_normal((128, 64))), dtype)
+    valid = np.ones(128, bool)
+    ws, _ = jkernel.cosine_topk(q, keys, jnp.asarray(valid), 2, block_n=64,
+                                interpret=True)
+
+    def port(a):          # bf16 -> float32 -> bf16 is exact
+        return torch.tensor(np.asarray(a, np.float32)).to(
+            getattr(torch, dtype))
+
+    s, i = ops.cosine_topk(port(q), port(keys), torch.tensor(valid), 2)
+    assert s.dtype == torch.float32 and i.dtype == torch.int32
+    np.testing.assert_allclose(s.numpy(), np.asarray(ws), rtol=0,
+                               atol=2e-2)
+
+
 def test_cosine_topk_plain_version_only_for_cpu_tensors(monkeypatch):
     def forbidden(*a, **k):
         raise AssertionError("plain version called for non-CPU tensors")

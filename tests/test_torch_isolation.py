@@ -17,7 +17,8 @@ STANDALONE = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "serve_with_cache_torch.py",
     ROOT / "examples" / "finetune_embedder_torch.py",
     ROOT / "tests" / "test_torch_cuda_kernels.py",      # run on the card
-    ROOT / "tests" / "test_torch_cuda_zoo.py"]
+    ROOT / "tests" / "test_torch_cuda_zoo.py",
+    ROOT / "tests" / "test_torch_cuda_train.py"]
 KERNELS = ("cascade_lookup", "cosine_topk", "contrastive",
            "flash_attention", "decode_attention")
 
@@ -36,7 +37,8 @@ def _imported_roots(path: Path):
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     roots = set(_imported_roots(path))
-    assert not roots & {"jax", "jaxlib", "repro", "flax", "optax"}, roots
+    assert not roots & {"jax", "jaxlib", "repro", "flax", "optax",
+                        "msgpack", "ml_dtypes"}, roots
 
 
 def test_the_slice_modules_are_covered():
@@ -49,7 +51,10 @@ def test_the_slice_modules_are_covered():
                 "models/attention.py", "models/model.py",
                 "models/mamba.py", "models/xlstm.py",
                 "serving/engine.py", "serving/frontend.py",
-                "launch/serve.py",
+                "launch/serve.py", "launch/train.py",
+                "models/blocks.py", "models/param.py",
+                "training/schedule.py", "training/train.py",
+                "training/checkpoint.py", "training/msgpack_lite.py",
                 *(f"kernels/{k}/{f}.py" for k in KERNELS
                   for f in ("kernel", "ref", "ops"))):
         assert mod in names, mod
@@ -119,7 +124,7 @@ def test_entry_points_raise_without_a_card(no_card):
     from repro_torch.core import (
         EmbedderTrainer, EncoderEmbedder, SemanticCache,
     )
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import LM, Encoder
     from repro_torch.serving.frontend import stub_frontend_embeds
     cfg = get_config("modernbert-149m").reduced(n_layers=2)
@@ -136,6 +141,7 @@ def test_entry_points_raise_without_a_card(no_card):
                  lambda: stub_frontend_embeds(
                      get_config("pixtral-12b").reduced(), 1),
                  lambda: serve.main(["--requests", "1"]),
+                 lambda: train.main(["--smoke", "--steps", "1"]),
                  lambda: CacheService(CacheConfig(dim=16), device="cuda:0")):
         with pytest.raises(RuntimeError, match="cuda"):
             make()

@@ -283,16 +283,35 @@ def test_only_the_audio_family_without_rope_adds_positions():
     assert not any(s.mixer == ATTN for s in get_config("xlstm-125m").period)
 
 
-def test_engine_refuses_a_call_past_its_caches():
-    """Frontend frames + prompt + new tokens must fit the KV caches of a
-    config with attention and no window; a recurrent-only config has
-    no cache to overflow."""
-    _, _, lm = _models("musicgen")
-    prompts = _tokens(lm.cfg, B=1, S=9)
-    with pytest.raises(ValueError, match="max_len"):
-        ServeEngine(lm, max_len=24).generate(prompts, 8, use_frontend=True)
-    assert ServeEngine(lm, max_len=25).generate(
-        prompts, 8, use_frontend=True).tokens.shape == (1, 8)
-    _, _, xl = _models("xlstm")
-    assert ServeEngine(xl, max_len=4).generate(
-        prompts, 8).tokens.shape == (1, 8)
+@pytest.mark.parametrize("case", ["musicgen", "phi3", "xlstm"])
+def test_engine_wraps_past_its_caches_as_the_reference(case, monkeypatch):
+    """Frontend frames + prompt + new tokens past ``max_len``: the KV
+    caches wrap (prefill keeps the last ``max_len`` positions, decode
+    writes slot ``cur_len % max_len``) and the greedy tokens equal the
+    reference's.  MusicGen (8 frames + 9 + 8 = 25 > 24) wraps in decode;
+    Phi-3-mini without a frontend (prompt 9 > 6) wraps at prefill; the
+    recurrent xLSTM has no cache to wrap."""
+    if case == "phi3":
+        jcfg = jget_config("phi3-mini-3.8b").reduced()
+        pv, _ = split(init_lm(jcfg, jax.random.PRNGKey(0)))
+        lm = LM(get_config("phi3-mini-3.8b").reduced(), device="cpu")
+        lm.load_state_dict(state_dict_from_reference(
+            jax.tree_util.tree_map(np.asarray, pv), lm.cfg))
+        max_len = 6
+    else:
+        jcfg, pv, lm = _models(case)
+        max_len = 24 if case == "musicgen" else 4
+    use_fe = bool(jcfg.frontend)
+    if use_fe:
+        monkeypatch.setattr(
+            engine_mod, "stub_frontend_embeds",
+            lambda cfg, B, seed, device: _frontend(jcfg, B, seed)[1])
+    prompts = _tokens(jcfg, B=2, S=9, seed=3)
+    n_fe = jcfg.frontend_len if use_fe else 0
+    assert n_fe + 9 + 8 > max_len
+    want = JServeEngine(jcfg, pv, max_len=max_len).generate(
+        prompts, 8, use_frontend=use_fe)
+    got = ServeEngine(lm, max_len=max_len).generate(prompts, 8,
+                                                   use_frontend=use_fe)
+    assert got.tokens.shape == (2, 8)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
