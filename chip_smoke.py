@@ -224,7 +224,27 @@ or the port is not beside the script.  Phases, each fatal on failure:
    ``granite-moe-3b-a800m``, 3 steps at B=1, S=1024: aux finite and
    > 0, every router's gradient nonzero.  (d)
    ``xlstm-125m``, 2 steps at B=2, S=256 (the recurrent token loops
-   under autograd).
+   under autograd);
+13. the sharded warm tier (DESIGN.md §8), after phase 12.  (a) The
+   stacked form in this process: phase 2's hot tier and queries, its
+   16384 warm rows round-robin over ``SHARDS`` = 4 rings of 4096 rows
+   with 16 local clusters each (bucket 256, n_probe 8, tail 256 per
+   shard), fp32 and int8: every shard's cascade and E=3 ensemble kernel
+   against ``ref.py`` (ints exactly, scores within ``SCORE_ATOL``), the
+   stacked lookup must launch S kernels per plan; then, with every row
+   indexed, the sharded full probe (n_probe = local clusters) must equal
+   one ring of the same rows and lists probed in full (cascade and
+   ensemble, fp32, k 1 and 4: ids, slots, flags exactly).  (b)
+   ``MESH_RANKS`` = 2 processes on this card over a gloo group (a
+   ``FileStore``): each rank's mesh lookup (cascade and ensemble, fp32
+   and int8) must equal the S=2 stacked oracle built here bit for bit,
+   with one launch per rank per plan.  (c) On those ranks
+   ``CacheService(mesh=make_cache_mesh(2))`` over phase 3's trace (its
+   keys, threshold 0.999): every hit answered with its own text,
+   launches equal to plans on each rank, ``warm_shards == 2``, every
+   rank the same hits; hit rate and plan / commit p50 printed beside the
+   unsharded service's run of the same trace here.  A rank that fails or
+   does not report in time fails the phase.
 
 Prints the card's name and power limit, the stage latencies, a JSON
 line of phase 12's training numbers, a JSON line of per-kernel numbers
@@ -364,6 +384,13 @@ TRAIN_BF16_ATOL = 2e-2
 TRAIN_FP32_LAYERS, TRAIN_FP32_RTOL = 4, 1e-4
 MOE_TRAIN = dict(batch=1, seq=1024, steps=3)
 XLSTM_TRAIN = dict(batch=2, seq=256, steps=2)
+# phase 13: the sharded warm tier.  (a) phase 2's 16384 warm rows over
+# SHARDS rings in one process; (b, c) MESH_RANKS ranks on the one card
+# (gloo: NCCL takes one rank per device), each failing the phase unless
+# it reports within MESH_TIMEOUT_S
+SHARDS = 4
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 300
 
 
 def fail(msg: str) -> None:
@@ -3423,6 +3450,482 @@ def other_training_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the sharded warm tier
+# ---------------------------------------------------------------------------
+
+def sharded_states(dev, S: int, indexed_only: bool = False, seed: int = 7):
+    """Phase 2's tiers with the warm ring split into S shards: the hot
+    tier and the query batch as `build_states` makes them, the 16384
+    warm rows round-robin over S rings of 16384 / S rows with 64 / S
+    local clusters each (flushes of 256 rows, the ring wrapped, a
+    per-shard rebuild, an unindexed tail of 50 rows per shard unless
+    ``indexed_only``, 10 % invalid rows)."""
+    import torch
+    from repro_torch.cache_service import tiers
+    s = SHAPES
+    D, Nh, cap = s["D"], s["Nh"], s["cap"] // S
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def unit(x):
+        return x / x.norm(dim=-1, keepdim=True)
+
+    centres = unit(torch.randn(512, D, generator=g, device=dev))
+
+    def rows(n, noise=0.03):
+        c = torch.randint(0, 512, (n,), generator=g, device=dev)
+        return unit(centres[c] + noise * torch.randn(n, D, generator=g,
+                                                     device=dev))
+
+    def tenants(n):
+        return torch.randint(0, 4, (n,), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    hot = tiers.init_hot(Nh, D, dev)
+    hot, _ = tiers.hot_insert_batch(
+        hot, rows(Nh), torch.arange(Nh, device=dev, dtype=torch.int32),
+        tenants(Nh))
+    hot = hot._replace(valid=hot.valid & (torch.rand(
+        Nh, generator=g, device=dev) > 0.2))
+    warm = tiers.init_warm_sharded(S, cap, D, s["K"] // S, s["bucket"], dev)
+    vid = 10_000
+
+    def append(warm, n):
+        nonlocal vid
+        dem = tiers.Demoted(
+            keys=rows(n), tenants=tenants(n),
+            value_ids=torch.arange(vid, vid + n, device=dev,
+                                   dtype=torch.int32),
+            mask=torch.ones(n, dtype=torch.bool, device=dev))
+        vid += n
+        return tiers.warm_append_sharded(warm, dem)[0]
+
+    for _ in range((s["cap"] + 4096) // 256):         # wraps every ring
+        warm = append(warm, 256)
+    if indexed_only:
+        warm = tiers.warm_rebuild_sharded(append(warm, 200), 4, seed)
+    else:
+        warm = append(tiers.warm_rebuild_sharded(warm, 4, seed), 200)
+    warm = warm._replace(valid=warm.valid & (torch.rand(
+        warm.valid.shape, generator=g, device=dev) > 0.1))
+    Q = s["Q"]
+    flat_keys, flat_valid = warm.keys.reshape(-1, D), warm.valid.reshape(-1)
+    flat_ten = warm.tenants.reshape(-1)
+    live_w = torch.nonzero(flat_valid).squeeze(1)
+    src_w = live_w[torch.randint(0, len(live_w), (Q // 2,), generator=g,
+                                 device=dev)]
+    live_h = torch.nonzero(hot.valid).squeeze(1)
+    src_h = live_h[torch.randint(0, len(live_h), (Q // 4,), generator=g,
+                                 device=dev)]
+    n_new = Q - len(src_w) - len(src_h)
+    q = torch.cat([flat_keys[src_w], hot.keys[src_h], rows(n_new)])
+    q = unit(q + 0.015 * torch.randn(Q, D, generator=g, device=dev))
+    qt = torch.cat([flat_ten[src_w], hot.tenants[src_h], tenants(n_new)])
+    thr = 0.6 + 0.35 * torch.rand(Q, generator=g, device=dev)
+    return hot, tiers.requantize(warm), q.contiguous(), qt, thr
+
+
+def unsharded_view(swarm):
+    """The S shards of an all-indexed stacked ring as ONE ring of S x cap
+    rows whose IVF is the shards' lists side by side (row ids offset by
+    shard), every row indexed: probing all of its S x K lists scores
+    exactly the rows the S shards' full probes score."""
+    import torch
+    from repro_torch.cache_service import tiers
+    S, cap = swarm.valid.shape
+    off = (torch.arange(S, device=swarm.members.device, dtype=torch.int32)
+           * cap)[:, None, None]
+    members = torch.where(swarm.members >= 0, swarm.members + off, -1)
+    top = swarm.total.max()
+    return tiers.WarmState(
+        keys=swarm.keys.reshape(S * cap, -1), valid=swarm.valid.reshape(-1),
+        tenants=swarm.tenants.reshape(-1),
+        value_ids=swarm.value_ids.reshape(-1),
+        write_seq=swarm.write_seq.reshape(-1), cursor=swarm.cursor[0],
+        total=swarm.total.sum().to(torch.int32),
+        centroids=swarm.centroids.reshape(
+            -1, swarm.centroids.shape[-1]),
+        members=members.reshape(-1, swarm.members.shape[-1]),
+        sizes=swarm.sizes.reshape(-1), indexed_total=top,
+        keys_q=swarm.keys_q.reshape(S * cap, -1),
+        scales=swarm.scales.reshape(-1),
+        expires_at=swarm.expires_at.reshape(-1))
+
+
+def same_result(a, b, what: str, exact: bool = False) -> float:
+    """Two lookup results: ints and flags equal, scores within
+    SCORE_ATOL (or bit for bit); returns the max |score difference|."""
+    import torch
+    err = 0.0
+    for name in a._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if x.shape != y.shape or x.dtype != y.dtype:
+            fail(f"{what}: {name} {tuple(y.shape)}/{y.dtype} vs "
+                 f"{tuple(x.shape)}/{x.dtype}")
+        if x.dtype.is_floating_point and not exact:
+            if not torch.isfinite(y[y > -1e29]).all():
+                fail(f"{what}: non-finite {name}")
+            err = max(err, float((x - y).abs().max()))
+            if err > SCORE_ATOL:
+                fail(f"{what}: max |{name} diff| {err:.3g} > {SCORE_ATOL}")
+        elif not torch.equal(x, y):
+            fail(f"{what}: {name} differs in {int((x != y).sum())} entries")
+    return err
+
+
+def sharded_stacked_phase(dev) -> dict:
+    """13(a): the stacked form in this process at S = SHARDS, fp32 and
+    int8; the per-shard kernels against their plain versions, the
+    sharded full probe against the unsharded one, and the same for the
+    E = 3 ensemble; the S = MESH_RANKS oracle for 13(b)."""
+    import torch
+    from repro_torch.cache_service import tiers
+    from repro_torch.kernels.cascade_lookup import kernel, ops, ref
+    s, S = SHAPES, SHARDS
+    K = s["K"] // S
+    kw = dict(k=1, n_probe=s["n_probe"], tail=s["tail"])
+    hot, swarm, q, qt, thr = sharded_states(dev, S)
+    ens, qe, w = ensemble_states(dev, hot, swarm, q)
+    ens = ens._replace(warm_keys=ens.warm_keys.transpose(0, 1).contiguous(),
+                       warm_keys_q=ens.warm_keys_q.transpose(0, 1)
+                       .contiguous(),
+                       warm_scales=ens.warm_scales.transpose(0, 1)
+                       .contiguous())                   # (S, E, cap, ...)
+    q_e = qe.transpose(0, 1).contiguous()               # (Q, E, D)
+    out = {"shards": S, "rows_per_shard": s["cap"] // S,
+           "clusters_per_shard": K, "max_abs_err": 0.0}
+    print(f"  S={S} shards of {s['cap'] // S} rows, {K} local clusters, "
+          f"bucket {s['bucket']}, n_probe {s['n_probe']}, tail "
+          f"{s['tail']} per shard; hot {s['Nh']}; Q={s['Q']}, D={s['D']}")
+    for quantized in (False, True):
+        tag = "int8" if quantized else "fp32"
+        for i in range(S):
+            h = tiers._hot_on_shard(hot, i)
+            w_i = tiers._shard(swarm, i)
+            args = lookup_args(h, w_i, q, qt, thr)
+            err = compare(ref.cascade_lookup(*args, quantized=quantized,
+                                             **kw),
+                          ops.cascade_lookup(*args, quantized=quantized,
+                                             **kw),
+                          f"shard {i} cascade {tag}")
+            eargs = (qe, w, qt, thr, ens.hot_keys, h.valid, h.tenants,
+                     h.value_ids, ens.warm_keys[i], w_i.valid, w_i.tenants,
+                     w_i.value_ids, w_i.write_seq, w_i.centroids,
+                     w_i.members, w_i.cursor, w_i.indexed_total,
+                     ens.warm_keys_q[i], ens.warm_scales[i])
+            err = max(err, compare(
+                ref.ensemble_lookup(*eargs, quantized=quantized, **kw),
+                ops.ensemble_lookup(*eargs, quantized=quantized, **kw),
+                f"shard {i} ensemble {tag}"))
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+        kernel.COUNTS.update(cascade_lookup=0, cascade_lookup_ensemble=0)
+        res = tiers.cascade_query(hot, swarm, q, qt, thr, fused=True,
+                                  quantized=quantized, **kw)
+        eres = tiers.ensemble_cascade_query(hot, swarm, ens, q_e, w, qt, thr,
+                                            fused=True, quantized=quantized,
+                                            **kw)
+        torch.cuda.synchronize()
+        launches = dict(kernel.COUNTS)
+        if launches != {"cascade_lookup": S, "cascade_lookup_ensemble": S}:
+            fail(f"stacked sharded lookup ({tag}): launches {launches}, "
+                 f"expected {S} of each")
+        out[f"{tag}_launches_per_plan"] = launches
+        out[f"{tag}_ms"] = cuda_ms(lambda: tiers.cascade_query(
+            hot, swarm, q, qt, thr, fused=True, quantized=quantized, **kw))
+        out[f"{tag}_ensemble_ms"] = cuda_ms(
+            lambda: tiers.ensemble_cascade_query(
+                hot, swarm, ens, q_e, w, qt, thr, fused=True,
+                quantized=quantized, **kw))
+        print(f"  {tag}: every shard's cascade and ensemble kernel equal to "
+              f"ref.py (ints / flags exactly, scores within {SCORE_ATOL}); "
+              f"launches per plan {launches}; hits {int(res.hit.sum())}/"
+              f"{s['Q']} (hot {int(res.hot_hit.sum())}), ensemble hits "
+              f"{int(eres.hit.sum())}; stacked lookup "
+              f"{out[f'{tag}_ms']:.4f} ms, ensemble "
+              f"{out[f'{tag}_ensemble_ms']:.4f} ms (eager, CUDA events)")
+    # full probe: every indexed row of every shard against one ring of
+    # the same rows and the same lists
+    hot, swarm, q, qt, thr = sharded_states(dev, S, indexed_only=True)
+    ens, qe, w = ensemble_states(dev, hot, swarm, q)
+    flat = unsharded_view(swarm)
+    fens = ens._replace(warm_keys=ens.warm_keys.reshape(ENS_E, -1, s["D"]),
+                        warm_keys_q=ens.warm_keys_q.reshape(
+                            ENS_E, -1, s["D"]),
+                        warm_scales=ens.warm_scales.reshape(ENS_E, -1))
+    sens = ens._replace(warm_keys=ens.warm_keys.transpose(0, 1).contiguous(),
+                        warm_keys_q=ens.warm_keys_q.transpose(0, 1)
+                        .contiguous(),
+                        warm_scales=ens.warm_scales.transpose(0, 1)
+                        .contiguous())
+    q_e = qe.transpose(0, 1).contiguous()
+    for k in (1, 4):
+        a = tiers.cascade_query(hot, swarm, q, qt, thr, k=k, n_probe=K,
+                                tail=s["tail"], fused=True)
+        b = tiers.cascade_query(hot, flat, q, qt, thr, k=k, n_probe=S * K,
+                                tail=s["tail"], fused=True)
+        err = same_result(b, a, f"full probe sharded vs unsharded k={k}")
+        ea = tiers.ensemble_cascade_query(hot, swarm, sens, q_e, w, qt, thr,
+                                          k=k, n_probe=K, tail=s["tail"],
+                                          fused=True)
+        eb = tiers.ensemble_cascade_query(hot, flat, fens, q_e, w, qt, thr,
+                                          k=k, n_probe=S * K,
+                                          tail=s["tail"], fused=True)
+        err = max(err, same_result(
+            eb, ea, f"ensemble full probe sharded vs unsharded k={k}"))
+        out["full_probe_max_abs_err"] = max(
+            out.get("full_probe_max_abs_err", 0.0), err)
+        print(f"  full probe, k={k}: sharded ({S} x {K} lists) equal to "
+              f"unsharded ({S * K} lists) for the cascade and the E={ENS_E} "
+              f"ensemble (fp32): ids, slots and flags exactly, max |dscore| "
+              f"{err:.3g}; hits {int(a.hit.sum())}/{s['Q']}")
+    return out
+
+
+def mesh_oracle(dev, path: str) -> None:
+    """The S = MESH_RANKS stacked state and its oracle results, saved to
+    ``path`` for the ranks of 13(b)."""
+    import torch
+    from repro_torch.cache_service import tiers
+    s = SHAPES
+    kw = dict(k=1, n_probe=s["n_probe"], tail=s["tail"])
+    hot, swarm, q, qt, thr = sharded_states(dev, MESH_RANKS)
+    ens, qe, w = ensemble_states(dev, hot, swarm, q)
+    ens = ens._replace(warm_keys=ens.warm_keys.transpose(0, 1).contiguous(),
+                       warm_keys_q=ens.warm_keys_q.transpose(0, 1)
+                       .contiguous(),
+                       warm_scales=ens.warm_scales.transpose(0, 1)
+                       .contiguous())
+    q_e = qe.transpose(0, 1).contiguous()
+    oracle = {}
+    for quantized in (False, True):
+        oracle[("cascade", quantized)] = tiers.cascade_query(
+            hot, swarm, q, qt, thr, fused=True, quantized=quantized, **kw)
+        oracle[("ensemble", quantized)] = tiers.ensemble_cascade_query(
+            hot, swarm, ens, q_e, w, qt, thr, fused=True,
+            quantized=quantized, **kw)
+    torch.save({"hot": hot._asdict(), "swarm": swarm._asdict(),
+                "ens": ens._asdict(), "q": q, "qt": qt, "thr": thr,
+                "q_e": q_e, "w": w, "kw": kw,
+                "oracle": {key: r._asdict() for key, r in oracle.items()}},
+               path)
+
+
+def mesh_rank_main(rank: int, workdir: str, device: str, out) -> None:
+    """One rank of 13(b) / 13(c): a gloo group over a ``FileStore`` (two
+    ranks on one card; NCCL takes one rank per device)."""
+    import traceback
+    try:
+        import torch
+        import torch.distributed as dist
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        # the ranks share the host's cores with each other and the parent
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // (
+            2 * MESH_RANKS)))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group(
+            "gloo", init_method=f"file://{workdir}/store", rank=rank,
+            world_size=MESH_RANKS)
+        out.put((rank, True, mesh_rank_phase(rank, workdir, dev)))
+    except BaseException:
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def mesh_rank_phase(rank: int, workdir: str, dev) -> dict:
+    """13(b): this rank's `_cascade_sharded` / `_ensemble_sharded` against
+    the stacked oracle, bit for bit; 13(c): the sharded CacheService over
+    phase 3's trace (its keys), answers checked as phase 3's."""
+    import numpy as np
+    import torch
+    from repro_torch.cache_service import (
+        CacheConfig, CacheService, ShardingConfig, TieringConfig, tiers,
+    )
+    from repro_torch.kernels.cascade_lookup import kernel
+    from repro_torch.launch.mesh import make_cache_mesh
+    from repro_torch.obs import Telemetry
+    mesh = make_cache_mesh(MESH_RANKS, device=dev.type)
+    st = torch.load(f"{workdir}/state.pt", map_location=dev)
+    kw = st["kw"]
+    hot = tiers.HotState(**st["hot"])
+    local = tiers.place_warm_sharded(tiers.WarmState(**st["swarm"]), mesh)
+    ens = tiers.place_ensemble_sharded(tiers.EnsembleState(**st["ens"]),
+                                       mesh)
+    q, qt, thr, q_e, w = (st[k] for k in ("q", "qt", "thr", "q_e", "w"))
+    out = {"rank": rank, "local_rows": int(local.valid.shape[1])}
+    for quantized in (False, True):
+        tag = "int8" if quantized else "fp32"
+        for what in ("cascade", "ensemble"):
+            def run():
+                if what == "cascade":
+                    return tiers.cascade_query(
+                        hot, local, q, qt, thr, fused=True,
+                        quantized=quantized, mesh=mesh, **kw)
+                return tiers.ensemble_cascade_query(
+                    hot, local, ens, q_e, w, qt, thr, fused=True,
+                    quantized=quantized, mesh=mesh, **kw)
+            kernel.COUNTS.update(cascade_lookup=0, cascade_lookup_ensemble=0)
+            got = run()
+            sync(dev)
+            out[f"{what}_{tag}_launches"] = sum(kernel.COUNTS.values())
+            want = type(got)(**st["oracle"][(what, quantized)])
+            same_result(want, got, f"rank {rank} mesh {what} {tag} vs the "
+                        "stacked oracle", exact=True)
+            walls = []
+            for _ in range(20):
+                sync(dev)
+                t0 = time.perf_counter()
+                run()
+                sync(dev)
+                walls.append(1e3 * (time.perf_counter() - t0))
+            out[f"{what}_{tag}_ms"] = statistics.median(walls)
+    # 13(c): the sharded service on phase 3's trace
+    texts = json.load(open(f"{workdir}/texts.json"))
+    embs = list(np.load(f"{workdir}/embs.npy"))
+    telemetry = Telemetry()
+    cache = CacheService(CacheConfig(
+        dim=embs[0].shape[1], threshold=THRESHOLD, telemetry=telemetry,
+        tiering=TieringConfig(fused=True),
+        sharding=ShardingConfig(mesh=mesh)), device=dev)
+    kernel.COUNTS["cascade_lookup"] = 0
+    t0 = time.perf_counter()
+    served = drive_echo(cache, embs, texts)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    snap = cache.stats_snapshot()
+    out.update(service_summary(cache, telemetry, served, wall))
+    out["launches"] = kernel.COUNTS["cascade_lookup"]
+    out["warm_shards"] = snap.tiers["warm_shards"]
+    out["local_warm_rows"] = int(cache.warm.valid.sum())
+    return out
+
+
+def sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def service_summary(cache, telemetry, served, wall) -> dict:
+    snap = cache.stats_snapshot()
+    p50 = stage_hist_ms(telemetry, ("plan", "commit"))
+    return {"hits": served["hits"], "misses": served["misses"],
+            "value_ids": served["value_ids"].tolist(),
+            "hit_rate": served["hits"] / (served["hits"] + served["misses"]),
+            "plans": snap.traffic["plans"],
+            "warm_hits": snap.traffic["warm_hits"],
+            "demotions": snap.tiers["demotions"],
+            "rebuilds": snap.rebuild["rebuilds"],
+            "plan_p50_ms": p50["plan"][0], "commit_p50_ms": p50["commit"][0],
+            "plan_mean_ms": p50["plan"][1],
+            "commit_mean_ms": p50["commit"][1], "wall_s": wall}
+
+
+def sharded_mesh_phase(dev, embs, texts) -> dict:
+    """13(b) and 13(c) on MESH_RANKS ranks spawned on this card, after
+    the unsharded service's run of (c) here for comparison."""
+    import multiprocessing
+    import queue
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.cache_service import (
+        CacheConfig, CacheService, TieringConfig,
+    )
+    from repro_torch.obs import Telemetry
+    telemetry = Telemetry()
+    cache = CacheService(CacheConfig(
+        dim=embs[0].shape[1], threshold=THRESHOLD, telemetry=telemetry,
+        tiering=TieringConfig(fused=True)), device=dev)
+    t0 = time.perf_counter()
+    served = drive_echo(cache, embs, texts)
+    sync(dev)
+    single = service_summary(cache, telemetry, served,
+                             time.perf_counter() - t0)
+    del cache
+    free_cuda()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
+        mesh_oracle(dev, f"{wd}/state.pt")
+        np.save(f"{wd}/embs.npy", np.stack(embs))
+        json.dump(texts, open(f"{wd}/texts.json", "w"))
+        sync(dev)
+        ctx = multiprocessing.get_context("spawn")
+        q = ctx.Queue()
+        where = f"cuda:{torch.cuda.current_device()}" \
+            if dev.type == "cuda" else "cpu"
+        procs = [ctx.Process(target=mesh_rank_main, args=(r, wd, where, q),
+                             daemon=True) for r in range(MESH_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        ranks = {}
+        try:
+            for _ in procs:
+                try:
+                    r, ok, val = q.get(timeout=max(
+                        MESH_TIMEOUT_S - (time.perf_counter() - t0), 1))
+                except queue.Empty:
+                    fail(f"13(b): ranks {sorted(set(range(MESH_RANKS)) - set(ranks))}"
+                         f" did not report within {MESH_TIMEOUT_S} s")
+                if not ok:
+                    fail(f"13(b): rank {r} failed:\n{val}")
+                ranks[r] = val
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=30)
+        spawn_s = time.perf_counter() - t0
+    ranks = [ranks[r] for r in range(MESH_RANKS)]
+    for r in ranks:
+        for key in ("cascade_fp32", "cascade_int8", "ensemble_fp32",
+                    "ensemble_int8"):
+            if r[f"{key}_launches"] != 1:
+                fail(f"13(b) rank {r['rank']}: {key} launched "
+                     f"{r[f'{key}_launches']} kernels for one plan")
+        if r["warm_shards"] != MESH_RANKS:
+            fail(f"13(c): warm_shards {r['warm_shards']}")
+        if r["launches"] != r["plans"]:
+            fail(f"13(c) rank {r['rank']}: {r['launches']} cascade launches "
+                 f"for {r['plans']} plans")
+        for key in ("hits", "value_ids", "plans", "demotions"):
+            if r[key] != ranks[0][key]:
+                fail(f"13(c): rank {r['rank']} {key} differs from rank 0's")
+    print(f"  (b) {MESH_RANKS} ranks on one card (gloo, FileStore), "
+          f"{spawn_s:.1f} s with start-up: every rank's cascade and "
+          "ensemble (fp32, int8) equal to the stacked oracle bit for bit, "
+          "one kernel launch per rank per plan; mesh lookup host wall "
+          + ", ".join(f"{k} {ranks[0][f'{k}_ms']:.3f} ms" for k in (
+              "cascade_fp32", "cascade_int8", "ensemble_fp32",
+              "ensemble_int8")) + " (rank 0, median of 20, synced)")
+    sh = ranks[0]
+    both = [(a, b) for a, b in zip(single["value_ids"], sh["value_ids"])
+            if a >= 0 and b >= 0]
+    print(f"  (c) CacheService on {MESH_RANKS} shards over phase 3's "
+          f"{len(texts)} queries: hits {sh['hits']} (warm {sh['warm_hits']}),"
+          f" hit rate {sh['hit_rate']:.4f}; unsharded here {single['hits']} "
+          f"(warm {single['warm_hits']}), hit rate "
+          f"{single['hit_rate']:.4f}; {len(both)} queries hit by both, each "
+          f"answered with its own text; plan p50 {sh['plan_p50_ms']:.3f} ms"
+          f" vs {single['plan_p50_ms']:.3f} ms, commit p50 "
+          f"{sh['commit_p50_ms']:.3f} ms vs {single['commit_p50_ms']:.3f} "
+          f"ms (sharded vs unsharded); demotions {sh['demotions']}, "
+          f"rebuilds {sh['rebuilds']}; warm rows per rank "
+          f"{[r['local_warm_rows'] for r in ranks]}; launches "
+          f"{[r['launches'] for r in ranks]} for {sh['plans']} plans")
+    drop = ("value_ids",)
+    return {"ranks": [{k: v for k, v in r.items() if k not in drop}
+                      for r in ranks],
+            "unsharded": {k: v for k, v in single.items() if k not in drop},
+            "spawn_s": spawn_s, "hit_by_both": len(both)}
+
+
 def sass_counts(lib: str) -> dict:
     """{kernel function (mangled): {"HMMA": n, "FFMA": n}} in a built
     library, from ``cuobjdump --dump-sass`` (beside ``nvcc``)."""
@@ -3699,6 +4202,15 @@ def main() -> int:
     dt = decoder_training_phase(dev)
     ot = other_training_phase(dev)
     print(f"  phase 12 in {time.perf_counter() - t12:.1f} s")
+    free_cuda()
+
+    print(f"phase 13: the sharded warm tier ({SHARDS} stacked shards; "
+          f"{MESH_RANKS} ranks on one card)")
+    t13 = time.perf_counter()
+    print(f"  (a) the stacked form, one process, S={SHARDS}")
+    sa = sharded_stacked_phase(dev)
+    sm = sharded_mesh_phase(dev, embs, sv["texts"])
+    print(f"  phase 13 in {time.perf_counter() - t13:.1f} s")
     print(f"  all phases in {time.perf_counter() - t_start:.1f} s")
 
     n_flat = FLAT_CAPACITY
@@ -3727,6 +4239,14 @@ def main() -> int:
         "cold_tier_plans": ct["plans"],
         "cold_tier_stage_p50_mean_ms": ct["stage_ms"],
         "cold_tier": ct["cold"],
+        "sharded": {
+            "stacked": {k: v for k, v in sa.items()
+                        if not k.startswith(("fp32_ens", "int8_ens"))},
+            "mesh_ranks": [{k: v for k, v in r.items()
+                            if not k.startswith("ensemble")}
+                           for r in sm["ranks"]],
+            "mesh_service_launches": [r["launches"] for r in sm["ranks"]],
+            "unsharded_service": sm["unsharded"]},
         "sass": sass["cascade_lookup"], "card": card,
     }, {
         "name": "cosine_topk", "route": "cuda",
@@ -3797,6 +4317,14 @@ def main() -> int:
         "learning_launches": el["launches"],
         "conformal_launches": elc["launches"],
         "serving_p50_ms": es["p50_ms"], "serving_hit_rate": es["hit_rate"],
+        "sharded_stacked_launches_per_plan": {
+            t: sa[f"{t}_launches_per_plan"]["cascade_lookup_ensemble"]
+            for t in ("fp32", "int8")},
+        "sharded_stacked_ms": {t: sa[f"{t}_ensemble_ms"]
+                               for t in ("fp32", "int8")},
+        "sharded_mesh_ms": [{k: v for k, v in r.items()
+                             if k.startswith("ensemble")}
+                            for r in sm["ranks"]],
         "sass": sass["cascade_lookup"], "card": card,
     }]
     for name, key, main_shape, moe_shape, src, replaces, step in (

@@ -29,26 +29,6 @@ from typing import Callable, Optional, Sequence, Union
 
 from repro_torch.cache_service.policy import ColdRoutingPolicy, EmbedderRefreshPolicy
 
-# Features of the reference service that this port does not run yet,
-# each with the ROADMAP.md slice that brings it.  They are refused at
-# construction, never accepted and then ignored.  (``warm_block`` is not
-# one of them: the reference's warm-panel streaming block never changes
-# results, so the port accepts it and its CUDA kernel has no use for it.)
-_NOT_PORTED = {
-    "mesh": "the sharded-warm-tier slice",
-}
-
-
-def _refuse_unported(cfg) -> None:
-    """Raise for any set field whose feature the port lacks."""
-    for name, slice_name in _NOT_PORTED.items():
-        v = getattr(cfg, name, None)
-        if v is not None and v is not False and v != 0:
-            raise ValueError(
-                f"{type(cfg).__name__}.{name}={v!r} is not supported by "
-                f"the PyTorch port yet; it arrives with {slice_name} "
-                "(ROADMAP.md queue A)")
-
 
 def _require(cond: bool, msg: str) -> None:
     if not cond:
@@ -102,12 +82,11 @@ class TieringConfig:
 @dataclass(frozen=True)
 class ShardingConfig:
     """Warm tier sharding over a device mesh axis (§8)."""
-    mesh: Optional[object] = None        # device mesh
+    mesh: Optional[object] = None        # torch DeviceMesh
     shard_axis: str = "model"
 
     def __post_init__(self) -> None:
         _require(bool(self.shard_axis), "shard_axis must be non-empty")
-        _refuse_unported(self)
 
 
 @dataclass(frozen=True)

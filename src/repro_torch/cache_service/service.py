@@ -1,11 +1,11 @@
 """CacheService — the serving-path facade over the tiered store.
 
-The port of `repro/cache_service/service.py` for one device.  The host
-half owns response strings (a dict keyed by value id, garbage-collected
-from the eviction reports every device op returns) and the per-tenant
-policy table; the device half is `tiers`: a hot exact store, a warm IVF
-ring and one cascaded lookup, on the service's ``device`` (the card
-unless the caller asks for the CPU).
+The port of `repro/cache_service/service.py`.  The host half owns
+response strings (a dict keyed by value id, garbage-collected from the
+eviction reports every device op returns) and the per-tenant policy
+table; the device half is `tiers`: a hot exact store, a warm IVF ring
+and one cascaded lookup, on the service's ``device`` (the card unless
+the caller asks for the CPU).
 
 Lifecycle of an entry:
 
@@ -54,8 +54,18 @@ pools labeled query *text* pairs, and ``maintenance()`` runs a one-epoch
 contrastive fine-tune of a candidate embedder on a host thread, judges
 it on a held-out slice, re-embeds both tiers' retained texts and
 hot-swaps the new keys and weights in with a versioned publish (or rolls
-the candidate back).  The sharded warm tier is refused by the port's
-``CacheConfig`` until the slice that brings it lands (ROADMAP.md).
+the candidate back).
+
+The sharded warm tier (DESIGN.md §8): with ``ShardingConfig(mesh=...)``
+(a ``DeviceMesh``) the warm ring splits into one ring and local IVF per
+rank of the mesh's shard axis, flushes round-robin over the shards, and
+lookups merge the shards' local top-k with one tiny collective.  The
+service is SPMD: every rank runs the same calls on the same requests,
+so the replicated state (hot tier, policies, response strings) stays
+equal; what differs per rank (its warm shard) reaches the host only
+through collectives, and every decision that depends on a shard —
+backlog, occupancy, a finished shadow build or refresh — is reduced
+over the ranks before it is taken.
 """
 from __future__ import annotations
 
@@ -67,6 +77,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.cache_service import tiers
 from repro_torch.cache_service.cold import ColdTier
@@ -81,6 +92,7 @@ from repro_torch.cache_service.protocol import (
     CacheCapabilities, CachePlan, CacheRequest, CommitReceipt,
     MaintenanceReport, coalesce_misses, ungrouped_misses,
 )
+from repro_torch.core import distrib
 from repro_torch.core.calibration import Calibration
 from repro_torch.device import resolve_device
 from repro_torch.obs import Telemetry
@@ -182,6 +194,13 @@ class CacheService:
         the default mixture.  ``embedders`` excludes
         ``learned_embedder`` (the §11 refresh retrains the single pilot
         embedder), and ``weights`` needs ``embedders``.
+
+        ``ShardingConfig(mesh=...)`` shards the warm tier over the
+        mesh's ``shard_axis`` (DESIGN.md §8): ``S`` per-shard rings,
+        with capacity, clusters and the tail window split per shard and
+        ``flush_size`` snapped to a multiple of ``S``; each rank holds
+        its own shard.  Every rank must make the same calls in the same
+        order.  A cold tier needs the unsharded warm ring.
         """
         if not isinstance(config, CacheConfig):
             raise TypeError(f"CacheService takes a CacheConfig, got "
@@ -212,7 +231,10 @@ class CacheService:
         cold_capacity = tc.cold_capacity
         if tc.cold_policy is not None and cold_capacity <= 0:
             cold_capacity = 4 * tc.warm_capacity
-        if cold_capacity > 0 and cfg.sharding.mesh is not None:
+        mesh, shard_axis = cfg.sharding.mesh, cfg.sharding.shard_axis
+        sharded = mesh is not None
+        shards = distrib.axis_size(mesh, shard_axis) if sharded else 1
+        if cold_capacity > 0 and sharded:
             raise ValueError(
                 "cold_capacity > 0 requires the unsharded warm tier: "
                 "demotion capture reads the single warm ring's int8 "
@@ -222,12 +244,24 @@ class CacheService:
         if flush_size is None:
             flush_size = max(hot_capacity // 4, 1)
         flush_size = min(flush_size, hot_capacity, warm_capacity)
+        if sharded:
+            if hot_capacity < shards:
+                raise ValueError(
+                    f"hot_capacity {hot_capacity} < {shards} shards: one "
+                    "demotion flush cannot feed every warm shard")
+            # flushes split round-robin over shards: keep them divisible
+            flush_size = max(shards, (flush_size // shards) * shards)
+            warm_capacity = -(-warm_capacity // shards) * shards
         rebuild_every = max(tc.rebuild_every, 1)
-        if flush_size * rebuild_every > warm_capacity:
+        cap_local = warm_capacity // shards
+        flush_local = flush_size // shards
+        # every row appended since the last rebuild lies in the tail
+        # window (per shard: each flush lands flush_local rows on each)
+        if flush_local * rebuild_every > cap_local:
             warnings.warn(
-                f"tail window flush_size*rebuild_every ({flush_size}*"
-                f"{rebuild_every}={flush_size * rebuild_every} per shard) "
-                f"exceeds the per-shard warm capacity {warm_capacity}; "
+                f"tail window flush_size*rebuild_every ({flush_local}*"
+                f"{rebuild_every}={flush_local * rebuild_every} per shard) "
+                f"exceeds the per-shard warm capacity {cap_local}; "
                 "clamping and forcing IVF rebuilds before the unindexed "
                 "backlog outgrows the window (the configured rebuild "
                 "cadence will not be honored)", stacklevel=2)
@@ -239,19 +273,29 @@ class CacheService:
         self.rebuild_every = rebuild_every
         self.topk = cfg.topk
         self.background_rebuild = bool(tc.background_rebuild)
-        self.warm_shards = 1
+        self.warm_shards = shards
         self.warm_dtype = tc.warm_dtype
         self.warm_block = tc.warm_block
+        self._mesh, self._shard_axis = mesh, shard_axis
+        self._group = mesh.get_group(shard_axis) if sharded else None
+        self._flush_local = flush_local
         self._kmeans_iters = tc.kmeans_iters
         self._seed = cfg.seed
-        self._tail = min(flush_size * rebuild_every, warm_capacity)
+        self._tail = min(flush_local * rebuild_every, cap_local)
         self._n_probe = tc.n_probe
         self.cold: Optional[ColdTier] = \
             ColdTier(cold_capacity, dim, policy=tc.cold_policy,
                      device=self.device) if cold_capacity > 0 else None
         self.hot = tiers.init_hot(hot_capacity, dim, self.device)
-        self.warm = tiers.init_warm(warm_capacity, dim, tc.n_clusters,
-                                    tc.bucket, self.device)
+        if sharded:
+            # this rank's own (1, …) shard: what `place_warm_sharded`
+            # keeps of the stacked state, without building the others
+            self.warm = tiers.init_warm_sharded(
+                1, cap_local, dim, max(tc.n_clusters // shards, 1),
+                tc.bucket, self.device)
+        else:
+            self.warm = tiers.init_warm(warm_capacity, dim, tc.n_clusters,
+                                        tc.bucket, self.device)
         self.policies = PolicyTable(TenantPolicy(cfg.threshold,
                                                  cfg.admission_margin))
         # §13: E row-aligned key panels over the shared tiers; panel 0
@@ -415,15 +459,33 @@ class CacheService:
         return tiers.cascade_query(
             hot, warm, q, qt, thr, k=self.topk, n_probe=self._n_probe,
             tail=self._tail, fused=self.fused,
-            quantized=self.warm_dtype == "int8",
-            warm_block_n=self.warm_block)
+            quantized=self.warm_dtype == "int8", mesh=self._mesh,
+            axis=self._shard_axis, warm_block_n=self.warm_block)
 
     def _ens_lookup(self, hot, warm, q, w, qt, thr) -> tiers.EnsembleResult:
         return tiers.ensemble_cascade_query(
             hot, warm, self.ens, q, w, qt, thr, k=self.topk,
             n_probe=self._n_probe, tail=self._tail, fused=self.fused,
-            quantized=self.warm_dtype == "int8",
-            warm_block_n=self.warm_block)
+            quantized=self.warm_dtype == "int8", mesh=self._mesh,
+            axis=self._shard_axis, warm_block_n=self.warm_block)
+
+    def _over_shards(self, x: torch.Tensor, op=dist.ReduceOp.SUM
+                     ) -> int:
+        """A count of this rank's warm shard reduced over every shard
+        (as is without a mesh)."""
+        if self._group is not None:
+            x = distrib.all_reduce(self._group, x, op)
+        return int(x)
+
+    def _finished(self, thread: threading.Thread) -> bool:
+        """``thread`` is done on every rank, so all ranks publish its
+        result at the same call."""
+        done = int(not thread.is_alive())
+        if self._group is None:
+            return bool(done)
+        return bool(self._over_shards(
+            torch.tensor(done, device=self.device),
+            dist.ReduceOp.MIN))
 
     def _t(self, a, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype,
@@ -454,11 +516,12 @@ class CacheService:
         """Versioned publish of ONE embedder's key panels (DESIGN.md
         §13): ``hot_keys`` (Nh, D) and ``warm_keys`` (Nw, D) are the
         full-capacity panels under the candidate embedder (valid rows
-        re-embedded, every other row carrying its current key).  Per-slot
-        metadata and the pilot-built IVF are untouched.  Publishing the
-        pilot (e=0) swaps the base tiers' keys too.  The embedder version
-        bumps either way, so plans embedded under the old panel set are
-        rejected at commit."""
+        re-embedded, every other row carrying its current key); a
+        sharded warm panel is (S, Nw_local, D) stacked, or this rank's
+        (1, Nw_local, D) shard.  Per-slot metadata and the pilot-built
+        IVF are untouched.  Publishing the pilot (e=0) swaps the base
+        tiers' keys too.  The embedder version bumps either way, so plans
+        embedded under the old panel set are rejected at commit."""
         if self.ens is None:
             raise ValueError("publish_panel needs embedders=")
         if not 0 <= int(e) < self.n_embedders:
@@ -466,6 +529,8 @@ class CacheService:
                              f"[0, {self.n_embedders})")
         hk = self._t(hot_keys, torch.float32)
         wk = self._t(warm_keys, torch.float32)
+        if self._mesh is not None:
+            wk = tiers.local_shard(wk, self._mesh, self._shard_axis)
         self.ens = tiers.publish_panel(self.ens, int(e), hk, wk)
         if int(e) == 0:
             self.hot, self.warm = tiers.publish_reembedded_keys(
@@ -479,7 +544,8 @@ class CacheService:
         return CacheCapabilities(tenants=True, fused_lookup=True,
                                  admission=True,
                                  background_rebuild=self.background_rebuild,
-                                 tiered=True, warm_sharded=False,
+                                 tiered=True,
+                                 warm_sharded=self._mesh is not None,
                                  warm_dtype=self.warm_dtype,
                                  learned_admission=self.learned_admission,
                                  learned_embedder=self.trainer is not None,
@@ -501,8 +567,8 @@ class CacheService:
         hot_view, warm_view = self.hot, self.warm
         n_masked = 0
         if now is not None:
-            hot_view, warm_view, nm = tiers.mask_expired(self.hot,
-                                                         self.warm, now)
+            hot_view, warm_view, nm = tiers.mask_expired(
+                self.hot, self.warm, now, self._group)
             n_masked = int(nm)
             if n_masked:
                 self._c_expired_masked.inc(n_masked)
@@ -698,7 +764,7 @@ class CacheService:
         published = started = False
         wall = 0.0
         if self._shadow_thread is not None and (
-                block or not self._shadow_thread.is_alive()):
+                block or self._finished(self._shadow_thread)):
             wall = self._publish_shadow()
             published = True
         if (not block and self.background_rebuild
@@ -711,7 +777,7 @@ class CacheService:
         r_wall = 0.0
         if self.trainer is not None:
             if self._refresh_thread is not None and (
-                    block or not self._refresh_thread.is_alive()):
+                    block or self._finished(self._refresh_thread)):
                 r_wall, r_published, r_rolled = self._finish_refresh()
             if (not block and self._refresh_thread is None
                     and self._refresh_due()):
@@ -750,7 +816,7 @@ class CacheService:
         if self._ttl_active:
             now = float(self._clock())
             self.hot, self.warm, h_ev, w_ev = tiers.reap_expired(
-                self.hot, self.warm, now)
+                self.hot, self.warm, now, self._group)
             expired_reaped = self._gc(h_ev) + self._gc(w_ev)
             if self.cold is not None:
                 expired_reaped += self._gc(self.cold.reap_expired(now))
@@ -904,7 +970,7 @@ class CacheService:
         host strings.  Returns the number of entries evicted."""
         self._epoch += 1
         self.hot, self.warm, h_ev, w_ev = tiers.evict_tenant(
-            self.hot, self.warm, int(tenant))
+            self.hot, self.warm, int(tenant), self._group)
         n = self._gc(h_ev) + self._gc(w_ev)
         if self.cold is not None:
             # also purges the tenant's queued promotions: an evicted
@@ -984,13 +1050,17 @@ class CacheService:
         return n
 
     def _backlog(self) -> int:
-        """Rows appended since the published index was built."""
-        return int(self.warm.total - self.warm.indexed_total)
+        """Rows appended since the published index was built (the worst
+        shard's in the sharded tier: each shard has its own ring, so the
+        window must cover the deepest one)."""
+        return self._over_shards(
+            (self.warm.total - self.warm.indexed_total).max(),
+            dist.ReduceOp.MAX)
 
     def _tail_pressure(self) -> bool:
         """One more flush would push the unindexed backlog past the
         tail window."""
-        return self._backlog() + self.flush_size > self._tail
+        return self._backlog() + self._flush_local > self._tail
 
     def _rebuild_due(self) -> bool:
         """A maintenance() call now would publish or start a rebuild."""
@@ -1143,11 +1213,12 @@ class CacheService:
         a re-embedding replaced by it; only those rows cross to the
         device."""
         keys = state.keys.clone()
-        vids = _np(state.value_ids)
-        rows = [i for i in np.nonzero(_np(state.valid))[0]
+        flat = keys.view(-1, keys.shape[-1])      # either warm form
+        vids = _np(state.value_ids).reshape(-1)
+        rows = [i for i in np.nonzero(_np(state.valid).reshape(-1))[0]
                 if int(vids[i]) in emb]
         if rows:
-            keys[torch.as_tensor(rows, device=self.device)] = self._t(
+            flat[torch.as_tensor(rows, device=self.device)] = self._t(
                 np.stack([emb[int(vids[i])] for i in rows]), torch.float32)
         return keys
 
@@ -1160,7 +1231,9 @@ class CacheService:
     def _rebuild(self, warm: tiers.WarmState) -> tiers.WarmState:
         """One IVF re-cluster of ``warm`` (inline or on the shadow
         thread), finished on the device before it returns."""
-        out = tiers.warm_rebuild(warm, self._kmeans_iters, self._seed)
+        rebuild = tiers.warm_rebuild_sharded if self._mesh is not None \
+            else tiers.warm_rebuild
+        out = rebuild(warm, self._kmeans_iters, self._seed)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return out
@@ -1250,7 +1323,11 @@ class CacheService:
         if self.ens is not None and panel_keys is None:
             panel_keys = dem.keys[None].expand(
                 (self.n_embedders,) + tuple(dem.keys.shape))
-        if self.cold is None:
+        if self._mesh is not None:
+            self.warm, evicted = tiers.warm_append_sharded(
+                self.warm, dem, self._mesh, self._shard_axis)
+            self._c_ev_dropped.inc(self._gc(evicted))
+        elif self.cold is None:
             self.warm, evicted = tiers.warm_append(self.warm, dem)
             self._c_ev_dropped.inc(self._gc(evicted))
         else:
@@ -1272,7 +1349,11 @@ class CacheService:
             # the append's own eviction report covers exactly the
             # captured rows: their strings live on behind the cold copies
             self.warm, _ = tiers.warm_append(self.warm, dem)
-        if self.ens is not None:
+        if self.ens is not None and self._mesh is not None:
+            self.ens = tiers.ensemble_warm_append_sharded(
+                self.ens, warm_pre, dem, panel_keys, self._mesh,
+                self._shard_axis)
+        elif self.ens is not None:
             self.ens = tiers.ensemble_warm_append(self.ens, warm_pre, dem,
                                                   panel_keys)
 
@@ -1323,7 +1404,7 @@ class CacheService:
         # double-buffered: publish any finished shadow, then make sure
         # the window still covers the backlog before serving resumes
         if self._shadow_thread is not None \
-                and not self._shadow_thread.is_alive():
+                and self._finished(self._shadow_thread):
             self._publish_shadow()
         if self._backlog() > self._tail:
             if self._shadow_thread is not None:
@@ -1351,18 +1432,21 @@ class CacheService:
     def hot_occupancy(self) -> float:
         return int(self.hot.valid.sum()) / self.hot_capacity
 
+    def _warm_rows(self) -> int:
+        return self._over_shards(self.warm.valid.sum())
+
     @property
     def warm_occupancy(self) -> float:
-        return int(self.warm.valid.sum()) / self.warm_capacity
+        return self._warm_rows() / self.warm_capacity
 
     @property
     def occupancy(self) -> float:
         """Drop-in parity with SemanticCache (fraction of total rows)."""
-        n = int(self.hot.valid.sum()) + int(self.warm.valid.sum())
+        n = int(self.hot.valid.sum()) + self._warm_rows()
         return n / (self.hot_capacity + self.warm_capacity)
 
     def __len__(self) -> int:
-        n = int(self.hot.valid.sum()) + int(self.warm.valid.sum())
+        n = int(self.hot.valid.sum()) + self._warm_rows()
         return n + len(self.cold) if self.cold is not None else n
 
 

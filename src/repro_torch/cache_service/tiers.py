@@ -27,8 +27,22 @@ plain torch version for CPU tensors).
 
 The multi-embedder ensemble (DESIGN.md §13) keeps E row-aligned key
 panels beside the tiers (`EnsembleState`); `ensemble_cascade_query`
-scores all of them in one pass with per-query mixture weights.  The
-sharded warm tier arrives with a later slice of the port.
+scores all of them in one pass with per-query mixture weights.
+
+Scale-out (DESIGN.md §8): the warm tier also exists in a *sharded* form,
+a ``WarmState`` whose every leaf carries a leading shard axis, one
+independent ring and local IVF per shard.  Each shard probes its own
+centroids and computes a local top-k (one cascade kernel launch per
+shard); the only cross-shard step is the tiny (Q, k · shards) candidate
+merge of `core.distrib`, shared with `store.query_sharded`.  The
+stacked (S, …) form in one process (``mesh=None``) runs the S shards
+one after another and merges with `merge_stacked_topk`: it is the
+oracle, and the single-process path.  With a ``DeviceMesh`` the form is
+SPMD: each rank holds its own shard as a (1, …) state of plain tensors
+(`place_warm_sharded`), every rank runs the same code on the same
+replicated hot tier, queries and thresholds, and only four things cross
+ranks: the merge's candidate panels, shard 0's hot slots, the ensemble
+winner's panel keys, and the warm evictions the host must free.
 """
 from __future__ import annotations
 
@@ -37,6 +51,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import distrib
 from repro_torch.core import ivf as ivf_lib
 from repro_torch.kernels.cascade_lookup import ops as casc_ops
 from repro_torch.kernels.cascade_lookup import ref as casc_ref
@@ -386,6 +401,110 @@ def warm_publish_index(current: WarmState, shadow: WarmState) -> WarmState:
                             indexed_total=shadow.indexed_total)
 
 
+# ---------------------------------------------------------------------------
+# the sharded warm tier (DESIGN.md §8)
+# ---------------------------------------------------------------------------
+
+def init_warm_sharded(shards: int, capacity: int, dim: int, n_clusters: int,
+                      bucket: int, device="cpu") -> WarmState:
+    """Stacked warm tier: ``shards`` independent rings of ``capacity``
+    rows and ``n_clusters`` local centroids each."""
+    one = init_warm(capacity, dim, n_clusters, bucket, device)
+    return WarmState(*(x[None].expand((shards,) + x.shape).clone()
+                       for x in one))
+
+
+def stack_warm(states) -> WarmState:
+    """Stack per-shard WarmStates into the sharded (leading-axis) form."""
+    return WarmState(*(torch.stack(xs) for xs in zip(*states)))
+
+
+def _shard(state: WarmState, j: int) -> WarmState:
+    return WarmState(*(x[j] for x in state))
+
+
+def local_shard(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """``x``'s leading shard axis cut to this rank's (1, …) slice; a leaf
+    whose leading axis is 1 is already local and is returned as is."""
+    if x.shape[0] == 1:
+        return x
+    S = distrib.axis_size(mesh, axis)
+    if x.shape[0] != S:
+        raise ValueError(f"leading axis {x.shape[0]} is neither 1 nor the "
+                         f"{S} shards of mesh axis {axis!r}")
+    i = mesh.get_local_rank(axis)
+    return x[i:i + 1].contiguous()
+
+
+def place_warm_sharded(warm: WarmState, mesh, axis: str = "model"
+                       ) -> WarmState:
+    """Commit a stacked warm state to the mesh: this rank keeps its own
+    shard as a (1, …) state of plain contiguous tensors (the reference
+    lays the leading axis over ``axis``; the CUDA kernels take plain
+    tensors, so no DTensor).  Every later op keeps the (1, …) form."""
+    return WarmState(*(local_shard(x, mesh, axis) for x in warm))
+
+
+def _round_robin(x: torch.Tensor, shards: int) -> torch.Tensor:
+    """(m, …) -> (S, m/S, …): batch row j goes to shard ``j % S``."""
+    return x.reshape((x.shape[0] // shards, shards) + x.shape[1:]) \
+        .transpose(0, 1)
+
+
+def _demoted_per_shard(dem: Demoted, shards: int) -> Demoted:
+    m = dem.keys.shape[0]
+    if m % shards:
+        raise ValueError(f"demoted batch {m} not divisible by {shards} "
+                         "shards")
+    exp = dem.expires if dem.expires is not None else torch.full(
+        dem.mask.shape, float("inf"), device=dem.keys.device)
+    return Demoted(*(_round_robin(x, shards)
+                     for x in dem._replace(expires=exp.float())))
+
+
+def _held_shards(state: WarmState, mesh, axis: str):
+    """(shard count, the shard index of each stacked position held
+    here): every shard in the stacked form, this rank's on a mesh."""
+    if mesh is None:
+        S = state.keys.shape[0]
+        return S, list(range(S))
+    return distrib.axis_size(mesh, axis), [mesh.get_local_rank(axis)]
+
+
+def warm_append_sharded(state: WarmState, dem: Demoted, mesh=None,
+                        axis: str = "model"
+                        ) -> Tuple[WarmState, torch.Tensor]:
+    """Round-robin a demoted batch over the shard rings: row j lands on
+    shard ``j % S``, so every flush loads the shards evenly.  ``m`` must
+    divide by the shard count (`CacheService` snaps ``flush_size`` to a
+    multiple of it).  Returns (state, evicted (m,) int32) in the
+    reference's shard-major order; on a mesh each rank appends its own
+    rows and the evicted ids are all-gathered, so every rank frees the
+    same strings."""
+    S, held = _held_shards(state, mesh, axis)
+    dem_s = _demoted_per_shard(dem, S)
+    out, evicted = [], []
+    for j, s in enumerate(held):
+        st, ev = warm_append(_shard(state, j), Demoted(*(x[s] for x in dem_s)))
+        out.append(st)
+        evicted.append(ev)
+    evicted = torch.stack(evicted)
+    if mesh is not None:
+        evicted = distrib.all_gather(mesh.get_group(axis), evicted)
+    return stack_warm(out), evicted.reshape(-1)
+
+
+def warm_rebuild_sharded(state: WarmState, iters: int = 8, seed: int = 0,
+                         first=None) -> WarmState:
+    """Per-shard re-cluster of the stacked warm tier: each shard its own
+    spherical k-means over its local rows, with the same ``seed``
+    (``first``: one injected seed row per shard, or None)."""
+    n = state.keys.shape[0]
+    first = [None] * n if first is None else list(first)
+    return stack_warm([warm_rebuild(_shard(state, j), iters, seed, first[j])
+                       for j in range(n)])
+
+
 def _warm_candidates(state: WarmState, qn, q_tenants, n_probe: int,
                      tail: int):
     """IVF probe + unindexed-tail candidate panel: (safe (Q, C) row
@@ -509,10 +628,82 @@ def _requantized_result(qn, warm, s, vids, wslots, hslots, thresholds, k
                          hot_hit=hit & (wslots[:, 0] < 0), hit=hit)
 
 
+def _cascade_ops(hot: HotState, warm: WarmState, qn, qt, thr, k, n_probe,
+                 tail, fused, quantized):
+    """The flat-array cascade: the kernel dispatch (``fused``: the CUDA
+    kernel on a card, its plain version for CPU tensors) or the four-op
+    plain version itself.  Returns the 6-tuple (scores, vids,
+    warm_slots, hot_slots, hot_hit, hit)."""
+    lookup = casc_ops.cascade_lookup if fused else casc_ref.cascade_lookup
+    return lookup(
+        qn, qt, thr, hot.keys, hot.valid, hot.tenants, hot.value_ids,
+        warm.keys, warm.valid, warm.tenants, warm.value_ids,
+        warm.write_seq, warm.centroids, warm.members, warm.cursor,
+        warm.indexed_total, warm.keys_q, warm.scales, k=k,
+        n_probe=n_probe, tail=tail, quantized=quantized)
+
+
+def _hot_on_shard(hot: HotState, shard_index: int) -> HotState:
+    """The replicated hot tier is attributed to shard 0 (its valid mask
+    is cleared elsewhere), so the merge never sees a hot row twice."""
+    return hot if shard_index == 0 else \
+        hot._replace(valid=torch.zeros_like(hot.valid))
+
+
+def _shard_cascade(hot: HotState, warm: WarmState, qn, qt, thr, k, n_probe,
+                   tail, fused, quantized, shard_index: int):
+    """One shard's candidates for the sharded cascade: (scores (Q, k),
+    vids (Q, k), is_hot (Q, k) int32, hot_slots (Q,)), exact-rescored
+    when quantized, so the merge compares true cosines."""
+    s, vids, wslots, hslots, _, _ = _cascade_ops(
+        _hot_on_shard(hot, shard_index), warm, qn, qt, thr, k, n_probe,
+        tail, fused, quantized)
+    if quantized:
+        s = _rescore_exact(qn, warm.keys, s, wslots)
+    return s, vids, ((wslots < 0) & (s > NEG / 2)).to(_I32), hslots
+
+
+def _sharded_result(s, vids, is_hot, hslots, thr) -> CascadeResult:
+    hit = s[:, 0] >= thr
+    return CascadeResult(scores=s, value_ids=vids, hot_slots=hslots,
+                         hot_hit=hit & (is_hot[:, 0] != 0), hit=hit)
+
+
+def _cascade_sharded_oracle(hot: HotState, swarm: WarmState, qn, qt, thr,
+                            k, n_probe, tail, fused, quantized
+                            ) -> CascadeResult:
+    """The sharded schedule in one process: shard s's candidates occupy
+    columns [s·k, (s+1)·k) of the merge panel, as the all-gather's."""
+    per = [_shard_cascade(hot, _shard(swarm, i), qn, qt, thr, k, n_probe,
+                          tail, fused, quantized, i)
+           for i in range(swarm.keys.shape[0])]
+    s, vids, is_hot = distrib.merge_stacked_topk(
+        k, *(torch.stack([p[j] for p in per]) for j in range(3)))
+    return _sharded_result(s, vids, is_hot, per[0][3], thr)
+
+
+def _cascade_sharded(hot: HotState, swarm: WarmState, qn, qt, thr, k,
+                     n_probe, tail, fused, quantized, mesh, axis
+                     ) -> CascadeResult:
+    """The sharded schedule on a mesh: this rank's (1, …) shard, one
+    (Q, k · S) all-gather merge over ``axis``."""
+    i = mesh.get_local_rank(axis)
+    group = mesh.get_group(axis)
+    s, vids, is_hot, hslots = _shard_cascade(
+        hot, _shard(swarm, 0), qn, qt, thr, k, n_probe, tail, fused,
+        quantized, i)
+    sm, vm, hm = distrib.merge_local_topk(group, k, s, vids, is_hot)
+    # only shard 0 computed real hot slots; the sum hands them to all
+    hslot0 = distrib.all_reduce(
+        group, hslots if i == 0 else torch.zeros_like(hslots))
+    return _sharded_result(sm, vm, hm, hslot0, thr)
+
+
 def cascade_query(hot: HotState, warm: WarmState, q: torch.Tensor,
                   q_tenants: torch.Tensor, thresholds: torch.Tensor,
                   k: int = 1, n_probe: int = 8, tail: int = 0,
                   fused: bool = False, quantized: bool = False,
+                  mesh=None, axis: str = "model",
                   warm_block_n: Optional[int] = None) -> CascadeResult:
     """Cascade lookup with a selectable execution path.
 
@@ -523,23 +714,38 @@ def cascade_query(hot: HotState, warm: WarmState, q: torch.Tensor,
     either way, up to float32 summation order.  ``quantized=True`` scans
     the warm panel from its int8 form and re-scores the selected rows
     exactly (reported scores are fp32 cosines either way).
+
+    A stacked ``warm`` (leading shard axis, ``keys.ndim == 3``) selects
+    the sharded schedule (DESIGN.md §8): a local probe and top-k per
+    shard (one cascade launch each, fused or four-op), then the tiny
+    (Q, k · shards) merge.  With ``mesh`` this rank runs its own (1, …)
+    shard and the merge is a collective over ``axis``; without, the
+    stacked oracle runs every shard here (same results bit for bit).
+    ``tail`` is then the *per-shard* tail window.
     ``warm_block_n`` is accepted for the reference's signature: it is a
     TPU VMEM-residency knob that never changes results, and the CUDA
     kernel tiles the warm panel internally.
     """
     del warm_block_n
+    sharded = warm.keys.ndim == 3
+    if mesh is not None and not sharded:
+        raise ValueError("cascade_query(mesh=...) needs the stacked "
+                         "(sharded) WarmState; see init_warm_sharded")
     qt = q_tenants.to(_I32)
     thr = thresholds.float()
+    if sharded:
+        qn = _unit(q.float())
+        if mesh is None:
+            return _cascade_sharded_oracle(hot, warm, qn, qt, thr, k,
+                                           n_probe, tail, fused, quantized)
+        return _cascade_sharded(hot, warm, qn, qt, thr, k, n_probe, tail,
+                                fused, quantized, mesh, axis)
     if not fused:
         return cascade_lookup(hot, warm, q, qt, thr, k=k, n_probe=n_probe,
                               tail=tail, quantized=quantized)
     qn = _unit(q.float())
-    s, vids, wslots, hslots, hot_hit, hit = casc_ops.cascade_lookup(
-        qn, qt, thr, hot.keys, hot.valid, hot.tenants, hot.value_ids,
-        warm.keys, warm.valid, warm.tenants, warm.value_ids,
-        warm.write_seq, warm.centroids, warm.members, warm.cursor,
-        warm.indexed_total, warm.keys_q, warm.scales, k=k,
-        n_probe=n_probe, tail=tail, quantized=quantized)
+    s, vids, wslots, hslots, hot_hit, hit = _cascade_ops(
+        hot, warm, qn, qt, thr, k, n_probe, tail, True, quantized)
     if quantized:
         return _requantized_result(qn, warm, s, vids, wslots, hslots, thr,
                                    k)
@@ -547,17 +753,27 @@ def cascade_query(hot: HotState, warm: WarmState, q: torch.Tensor,
                          hot_hit=hot_hit, hit=hit)
 
 
-def evict_tenant(hot: HotState, warm: WarmState, tenant
+def _gathered(warm_ids: torch.Tensor, group) -> torch.Tensor:
+    """A warm op's (1, cap) eviction report, all-gathered over the mesh
+    axis's ``group`` into the stacked (S, cap) form (as is without)."""
+    return warm_ids if group is None else distrib.all_gather(group,
+                                                             warm_ids)
+
+
+def evict_tenant(hot: HotState, warm: WarmState, tenant, group=None
                  ) -> Tuple[HotState, WarmState, torch.Tensor, torch.Tensor]:
-    """Invalidate every row of one tenant in both tiers.  Returns (hot,
-    warm, hot_evicted, warm_evicted): capacity-sized value-id lists
-    (-1 padding) for host GC."""
+    """Invalidate every row of one tenant in both tiers (either warm
+    form: the masks are elementwise).  Returns (hot, warm, hot_evicted,
+    warm_evicted): capacity-sized value-id lists (-1 padding) for host
+    GC; on a mesh pass the shard axis's ``group``, and every rank gets
+    every shard's warm list."""
     h_kill = hot.valid & (hot.tenants == tenant)
     w_kill = warm.valid & (warm.tenants == tenant)
     h_ev = torch.where(h_kill, hot.value_ids, -1)
     w_ev = torch.where(w_kill, warm.value_ids, -1)
     return (hot._replace(valid=hot.valid & ~h_kill),
-            warm._replace(valid=warm.valid & ~w_kill), h_ev, w_ev)
+            warm._replace(valid=warm.valid & ~w_kill), h_ev,
+            _gathered(w_ev, group))
 
 
 # ---------------------------------------------------------------------------
@@ -573,7 +789,9 @@ class EnsembleState(NamedTuple):
     panels are the same rows under the other embedders, kept aligned by
     mirroring every slot decision of the base mutation
     (`ensemble_hot_insert_batch`, `ensemble_warm_append`); `warm_rebuild`
-    never moves rows.
+    never moves rows.  In the sharded form the warm leaves gain a leading
+    shard axis ((S, E, cap, D) keys, detected by ``warm_keys.ndim == 4``;
+    (1, E, cap, D) on a mesh rank) while ``hot_keys`` stays replicated.
     """
     hot_keys: torch.Tensor     # (E, Nh, D) float32 unit-norm
     warm_keys: torch.Tensor    # (E, Nw, D) float32 unit-norm
@@ -596,13 +814,25 @@ class EnsembleResult(NamedTuple):
 def init_ensemble(n_embedders: int, hot: HotState,
                   warm: WarmState) -> EnsembleState:
     """E copies of the base key panels (a fresh service starts
-    all-zero)."""
-    def exp(x):
-        return x[None].expand((n_embedders,) + x.shape).clone()
+    all-zero); a sharded warm (S, cap, D) gives (S, E, cap, D)."""
+    def exp(x, at=0):
+        return x.unsqueeze(at).expand(
+            x.shape[:at] + (n_embedders,) + x.shape[at:]).clone()
 
-    return EnsembleState(hot_keys=exp(hot.keys), warm_keys=exp(warm.keys),
-                         warm_keys_q=exp(warm.keys_q),
-                         warm_scales=exp(warm.scales).float())
+    at = 1 if warm.keys.ndim == 3 else 0
+    return EnsembleState(hot_keys=exp(hot.keys), warm_keys=exp(warm.keys, at),
+                         warm_keys_q=exp(warm.keys_q, at),
+                         warm_scales=exp(warm.scales, at).float())
+
+
+def place_ensemble_sharded(ens: "EnsembleState", mesh, axis: str = "model"
+                           ) -> "EnsembleState":
+    """Commit stacked panels to the mesh: the warm leaves cut to this
+    rank's (1, E, …) shard, the hot panels replicated (mirrors
+    `place_warm_sharded`)."""
+    return ens._replace(warm_keys=local_shard(ens.warm_keys, mesh, axis),
+                        warm_keys_q=local_shard(ens.warm_keys_q, mesh, axis),
+                        warm_scales=local_shard(ens.warm_scales, mesh, axis))
 
 
 def make_ensemble(hot_panels: torch.Tensor,
@@ -665,6 +895,29 @@ def ensemble_warm_append(ens: EnsembleState, warm: WarmState, dem: Demoted,
     return ens._replace(warm_keys=wk, warm_keys_q=wq, warm_scales=ws)
 
 
+def ensemble_warm_append_sharded(ens: EnsembleState, warm: WarmState,
+                                 dem: Demoted, panel_keys: torch.Tensor,
+                                 mesh=None, axis: str = "model"
+                                 ) -> EnsembleState:
+    """`warm_append_sharded`'s round robin mirrored onto the stacked
+    panels: batch row j lands on shard ``j % S`` exactly as the base
+    append routes it, so each shard's rows stay aligned.  ``warm`` is
+    the *pre-append* sharded state; on a mesh each rank writes its own
+    shard's rows."""
+    S, held = _held_shards(warm, mesh, axis)
+    dem_s = _demoted_per_shard(dem, S)
+    E, m = panel_keys.shape[:2]
+    pk_s = panel_keys.reshape(E, m // S, S, -1).permute(2, 0, 1, 3)
+    out = [ensemble_warm_append(
+        EnsembleState(ens.hot_keys, ens.warm_keys[j], ens.warm_keys_q[j],
+                      ens.warm_scales[j]),
+        _shard(warm, j), Demoted(*(x[s] for x in dem_s)), pk_s[s])
+        for j, s in enumerate(held)]
+    return ens._replace(warm_keys=torch.stack([o.warm_keys for o in out]),
+                        warm_keys_q=torch.stack([o.warm_keys_q for o in out]),
+                        warm_scales=torch.stack([o.warm_scales for o in out]))
+
+
 def publish_panel(ens: EnsembleState, e: int, hot_keys: torch.Tensor,
                   warm_keys: torch.Tensor) -> EnsembleState:
     """Swap ONE embedder's key panels — the E-panel generalization of
@@ -676,10 +929,14 @@ def publish_panel(ens: EnsembleState, e: int, hot_keys: torch.Tensor,
     hk = _unit(hot_keys.float())
     wk = _unit(warm_keys.float())
     q8, sc = quantize_rows(wk)
+    sharded = ens.warm_keys.ndim == 4        # warm leaves (S, E, cap, …)
     out = []
-    for panel, new in zip(ens, (hk, wk, q8, sc)):
+    for j, (panel, new) in enumerate(zip(ens, (hk, wk, q8, sc))):
         panel = panel.clone()
-        panel[e] = new
+        if j and sharded:
+            panel[:, e] = new
+        else:
+            panel[e] = new
         out.append(panel)
     return EnsembleState(*out)
 
@@ -725,29 +982,124 @@ def _ensemble_ops(hot: HotState, warm: WarmState, ens: EnsembleState,
         n_probe=n_probe, tail=tail, quantized=quantized)
 
 
+def _shard_ensemble(hot: HotState, warm: WarmState, ens: EnsembleState,
+                    qe, w, qt, thr, k, n_probe, tail, fused, quantized,
+                    shard_index: int):
+    """One shard's fused-ensemble candidates (mirrors `_shard_cascade`:
+    hot attributed to shard 0, the exact fused re-score before the
+    merge).  Returns (scores, vids, is_hot, hot_slots, warm_slots)."""
+    s, vids, wslots, hslots, _, _ = _ensemble_ops(
+        _hot_on_shard(hot, shard_index), warm, ens, qe, w, qt, thr, k,
+        n_probe, tail, fused, quantized)
+    if quantized:
+        s = _rescore_exact_fused(qe, w, ens.warm_keys, s, wslots)
+    return s, vids, ((wslots < 0) & (s > NEG / 2)).to(_I32), hslots, wslots
+
+
+def _ens_shard(ens: EnsembleState, i: int) -> EnsembleState:
+    """One shard's panel view ((S, E, …) -> (E, …)); the hot panels are
+    replicated, so only the warm leaves index."""
+    return ens._replace(warm_keys=ens.warm_keys[i],
+                        warm_keys_q=ens.warm_keys_q[i],
+                        warm_scales=ens.warm_scales[i])
+
+
+def _ensemble_result(qe, hot_panels, s, vids, is_hot, hslots, wslot0, wwin,
+                     thr) -> EnsembleResult:
+    hit = s[:, 0] >= thr
+    ps = _top1_panel_scores(qe, hot_panels, wwin, wslot0, hslots,
+                            vids[:, 0] >= 0)
+    return EnsembleResult(scores=s, value_ids=vids, hot_slots=hslots,
+                          hot_hit=hit & (is_hot[:, 0] != 0), hit=hit,
+                          panel_scores=ps)
+
+
+def _ensemble_sharded_oracle(hot, swarm, ens, qe, w, qt, thr, k, n_probe,
+                             tail, fused, quantized) -> EnsembleResult:
+    """The sharded fused-ensemble schedule in one process: the merge
+    carries (vid, is_hot, warm slot, shard), so the winner's panel keys
+    are gathered after it."""
+    S = swarm.keys.shape[0]
+    per = [_shard_ensemble(hot, _shard(swarm, i), _ens_shard(ens, i), qe, w,
+                           qt, thr, k, n_probe, tail, fused, quantized, i)
+           for i in range(S)]
+    cols = torch.stack([torch.full_like(per[0][1], i) for i in range(S)])
+    s, vids, is_hot, wslot, wshard = distrib.merge_stacked_topk(
+        k, *(torch.stack([p[j] for p in per]) for j in (0, 1, 2, 4)), cols)
+    cap = ens.warm_keys.shape[2]
+    wwin = ens.warm_keys[wshard[:, 0].clamp(0, S - 1).long(), :,
+                         wslot[:, 0].clamp(0, cap - 1).long()]  # (Q, E, D)
+    return _ensemble_result(qe, ens.hot_keys, s, vids, is_hot, per[0][3],
+                            wslot[:, 0], wwin, thr)
+
+
+def _ensemble_sharded(hot, swarm, ens, qe, w, qt, thr, k, n_probe, tail,
+                      fused, quantized, mesh, axis) -> EnsembleResult:
+    """The sharded fused ensemble on a mesh: this rank's (1, …) tiers and
+    panels, one (Q, k · S) merge over (vid, is_hot, warm slot, shard).
+    Only the owning rank holds the winner's warm rows: it writes its
+    (Q, E, D) winners, the others zeros, and one sum hands every rank
+    the same keys."""
+    i = mesh.get_local_rank(axis)
+    group = mesh.get_group(axis)
+    s, vids, is_hot, hslots, wslots = _shard_ensemble(
+        hot, _shard(swarm, 0), _ens_shard(ens, 0), qe, w, qt, thr, k,
+        n_probe, tail, fused, quantized, i)
+    sm, vm, hm, wm, cm = distrib.merge_local_topk(
+        group, k, s, vids, is_hot, wslots, torch.full_like(vids, i))
+    hslot0 = distrib.all_reduce(
+        group, hslots if i == 0 else torch.zeros_like(hslots))
+    S = distrib.axis_size(mesh, axis)
+    cap = ens.warm_keys.shape[2]
+    mine = cm[:, 0].clamp(0, S - 1) == i
+    local = ens.warm_keys[0][:, wm[:, 0].clamp(0, cap - 1).long()]
+    wwin = distrib.all_reduce(group, torch.where(
+        mine[:, None, None], local.transpose(0, 1), 0.0))  # (Q, E, D)
+    return _ensemble_result(qe, ens.hot_keys, sm, vm, hm, hslot0, wm[:, 0],
+                            wwin, thr)
+
+
 def ensemble_cascade_query(hot: HotState, warm: WarmState,
                            ens: EnsembleState, q: torch.Tensor,
                            weights: torch.Tensor, q_tenants: torch.Tensor,
                            thresholds: torch.Tensor, k: int = 1,
                            n_probe: int = 8, tail: int = 0,
                            fused: bool = False, quantized: bool = False,
+                           mesh=None, axis: str = "model",
                            warm_block_n: Optional[int] = None
                            ) -> EnsembleResult:
     """Fused multi-embedder cascade lookup (DESIGN.md §13).
 
     q: (Q, E, D), one embedding per embedder per query, panel 0 the
-    pilot; weights: (Q, E) per-query mixture weights.  Paths and
-    quantization mirror `cascade_query` (``warm_block_n`` likewise has
-    no effect); scores are the weighted fused cosine, and routing runs
-    on the pilot against the base tier's IVF.  The result adds
-    ``panel_scores``, the top-1 candidate's unweighted per-embedder
-    cosines, which the feedback loop records to learn the weights.
+    pilot; weights: (Q, E) per-query mixture weights.  Paths, sharding
+    (stacked oracle or ``mesh``) and quantization mirror `cascade_query`
+    (``warm_block_n`` likewise has no effect); scores are the weighted
+    fused cosine, and routing runs on the pilot against the base tier's
+    IVF.  The result adds ``panel_scores``, the top-1 candidate's
+    unweighted per-embedder cosines, which the feedback loop records to
+    learn the weights.
     """
     del warm_block_n
+    sharded = ens.warm_keys.ndim == 4
+    if sharded != (warm.keys.ndim == 3):
+        raise ValueError("ensemble/warm sharding mismatch: warm keys "
+                         f"ndim {warm.keys.ndim}, ensemble warm ndim "
+                         f"{ens.warm_keys.ndim}")
+    if mesh is not None and not sharded:
+        raise ValueError("ensemble_cascade_query(mesh=...) needs the "
+                         "stacked (sharded) panels; see "
+                         "place_ensemble_sharded")
     qe = _unit(q.float()).transpose(0, 1).contiguous()        # (E, Q, D)
     qt = q_tenants.to(_I32)
     thr = thresholds.float()
     w = weights.float().contiguous()
+    if sharded:
+        if mesh is None:
+            return _ensemble_sharded_oracle(hot, warm, ens, qe, w, qt, thr,
+                                            k, n_probe, tail, fused,
+                                            quantized)
+        return _ensemble_sharded(hot, warm, ens, qe, w, qt, thr, k, n_probe,
+                                 tail, fused, quantized, mesh, axis)
     s, vids, wslots, hslots, hot_hit, hit = _ensemble_ops(
         hot, warm, ens, qe, w, qt, thr, k, n_probe, tail, fused, quantized)
     if quantized:
@@ -768,26 +1120,31 @@ def ensemble_cascade_query(hot: HotState, warm: WarmState,
 
 
 # ---------------------------------------------------------------------------
-# TTL / staleness (DESIGN.md §14)
+# TTL / staleness (DESIGN.md §14); elementwise, so either warm form
 # ---------------------------------------------------------------------------
 
-def mask_expired(hot: HotState, warm: WarmState, now: float
+def mask_expired(hot: HotState, warm: WarmState, now: float, group=None
                  ) -> Tuple[HotState, WarmState, torch.Tensor]:
     """Plan-time staleness mask: views of both tiers with every expired
     row's ``valid`` bit cleared; the stored state is untouched.
-    Returns (hot_view, warm_view, n_masked)."""
+    Returns (hot_view, warm_view, n_masked); on a mesh pass the shard
+    axis's ``group``, and the warm count covers every shard."""
     now = torch.tensor(now, dtype=torch.float32)
     h_live = hot.expires_at > now.to(hot.expires_at.device)
     w_live = warm.expires_at > now.to(warm.expires_at.device)
-    n = (hot.valid & ~h_live).sum() + (warm.valid & ~w_live).sum()
+    n_warm = (warm.valid & ~w_live).sum()
+    if group is not None:
+        n_warm = distrib.all_reduce(group, n_warm)
+    n = (hot.valid & ~h_live).sum() + n_warm
     return (hot._replace(valid=hot.valid & h_live),
             warm._replace(valid=warm.valid & w_live), n.to(_I32))
 
 
-def reap_expired(hot: HotState, warm: WarmState, now: float
+def reap_expired(hot: HotState, warm: WarmState, now: float, group=None
                  ) -> Tuple[HotState, WarmState, torch.Tensor, torch.Tensor]:
     """Free every expired row in both tiers.  Returns (hot, warm,
-    hot_reaped, warm_reaped) value-id lists (-1 padding) for host GC."""
+    hot_reaped, warm_reaped) value-id lists (-1 padding) for host GC
+    (``group`` as in `evict_tenant`)."""
     now = torch.tensor(now, dtype=torch.float32)
     h_kill = hot.valid & (hot.expires_at <= now.to(hot.expires_at.device))
     w_kill = warm.valid & (warm.expires_at
@@ -795,4 +1152,5 @@ def reap_expired(hot: HotState, warm: WarmState, now: float
     h_ev = torch.where(h_kill, hot.value_ids, -1)
     w_ev = torch.where(w_kill, warm.value_ids, -1)
     return (hot._replace(valid=hot.valid & ~h_kill),
-            warm._replace(valid=warm.valid & ~w_kill), h_ev, w_ev)
+            warm._replace(valid=warm.valid & ~w_kill), h_ev,
+            _gathered(w_ev, group))

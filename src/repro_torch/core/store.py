@@ -10,7 +10,8 @@ TTL eviction is a mask update on int32 clock differences.
 
 `query` scores through `kernels.cosine_topk.ops` (the CUDA kernel on a
 card, its plain version on the CPU), or an injected ``topk_fn``.
-``query_sharded`` waits for the sharded slice of the port.
+`query_sharded` splits the corpus over a mesh axis (one rank per
+block) and merges the blocks' local top-k (`core.distrib`).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.topk import topk_stable
 from repro_torch.kernels.cosine_topk import ops as _topk_ops
 
 
@@ -116,6 +118,45 @@ def query(state: StoreState, q: torch.Tensor, threshold: float,
     hit = scores[:, 0] >= threshold
     return QueryResult(scores=scores, slots=slots, value_ids=value_ids,
                        hit=hit)
+
+
+def query_sharded(state: StoreState, q: torch.Tensor, threshold: float,
+                  k: int, mesh, axis: str = "model") -> QueryResult:
+    """Distributed lookup with the explicit local-top-k + tiny-merge
+    schedule (DESIGN.md §3): the corpus rows split into contiguous
+    blocks over ``axis`` (rank i of the axis scores rows
+    [i·N/S, (i+1)·N/S) of ``state``), each block's local top-k, then one
+    all-gather of (Q, k) candidates per rank (`distrib.merge_local_topk`)
+    instead of a (Q, N) score matrix.  The queries split over the mesh's
+    other axes where the batch divides, and the result is gathered back,
+    so every rank returns the whole (Q, k) answer.  As in the reference,
+    each block is scored with a plain matmul, outside the cosine top-k
+    kernel."""
+    from repro_torch.core import distrib
+    n_total = state.keys.shape[0]
+    n_shards = distrib.axis_size(mesh, axis)
+    if n_total % n_shards:
+        raise ValueError(f"store of {n_total} rows does not split over "
+                         f"{n_shards} shards")
+    shard_n = n_total // n_shards
+    lo = mesh.get_local_rank(axis) * shard_n
+    qn = _normalise(q)
+    batch_axes = [a for a in mesh.mesh_dim_names if a != axis
+                  and distrib.axis_size(mesh, a) > 1
+                  and q.shape[0] % distrib.axis_size(mesh, a) == 0]
+    for a in batch_axes:
+        qn = qn.chunk(distrib.axis_size(mesh, a))[mesh.get_local_rank(a)]
+    scores = qn @ state.keys[lo:lo + shard_n].T                 # (Q, N_loc)
+    scores = torch.where(state.valid[None, lo:lo + shard_n], scores, -1e30)
+    s, i_loc = topk_stable(scores, k)
+    vals = state.value_ids[lo:lo + shard_n][i_loc]
+    s, slots, vals = distrib.merge_local_topk(
+        mesh.get_group(axis), k, s, (i_loc + lo).to(torch.int32), vals)
+    for a in reversed(batch_axes):
+        s, slots, vals = (distrib.all_gather(mesh.get_group(a), x)
+                          for x in (s, slots, vals))
+    return QueryResult(scores=s, slots=slots, value_ids=vals,
+                       hit=s[:, 0] >= threshold)
 
 
 def touch(state: StoreState, slots: torch.Tensor,

@@ -1,11 +1,12 @@
 """Batch iterators over pair datasets — the port of
 `repro/data/pairs.py` (numpy; batches move to the device in the
-trainer)."""
+trainer, or onto a device mesh through `shard_batch`)."""
 from __future__ import annotations
 
 from typing import Iterator
 
 import numpy as np
+import torch
 
 from repro_torch.data.corpora import PairDataset
 from repro_torch.data.tokenizer import HashTokenizer
@@ -33,9 +34,14 @@ def iter_batches(arrays: dict, batch_size: int, *, seed: int = 0,
             yield {k: v[ix] for k, v in arrays.items()}
 
 
-def shard_batch(batch: dict, mesh, batch_axes=("pod", "data")):
-    """Placing a batch over a device mesh arrives with the sharded slice
-    of the port."""
-    raise NotImplementedError(
-        "shard_batch arrives with the sharded slice of the port "
-        "(torch.distributed); single-card training needs no sharding")
+def shard_batch(batch: dict, mesh, batch_axes=("pod", "data")) -> dict:
+    """The host batch as DTensors on ``mesh`` with dim 0 sharded over the
+    mesh's batch axes that are present (``Shard(0)`` on each, replicated
+    over the others), the reference's ``NamedSharding``: rank r of the
+    batch axes holds its block of rows (``DTensor.to_local()``)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    placements = [Shard(0) if a in batch_axes else Replicate()
+                  for a in mesh.mesh_dim_names]
+    return {k: distribute_tensor(torch.as_tensor(np.asarray(v)).to(
+                mesh.device_type), mesh, placements)
+            for k, v in batch.items()}

@@ -27,26 +27,32 @@ negatives (§14.3), ``--cold-capacity N`` puts a host-RAM cold tier
 of N rows behind the warm ring (§12) and ``--learned-embedder``
 refreshes the embedder online from the serving stream (§11; the
 reference's smoke-scale policy, so the refresh trips inside a short
-stream).  ``--metrics-json PATH`` dumps
+stream).  ``--cache-shards N`` shards the warm tier over a
+``model``-axis mesh of N ranks (DESIGN.md §8): under ``torchrun
+--nproc-per-node N`` each rank serves its own shard of the same stream
+and only rank 0 prints and writes telemetry; as a single process the
+mesh has one rank, so one shard serves.  ``--metrics-json PATH`` dumps
 the telemetry registry as JSON-lines after the run, and
 ``--metrics-interval N`` every N batches too.
 
 The prompts of cache misses are encoded with a tokenizer of the
 *decoder's* vocab, not the encoder's: the encoder's ids would fall
-outside the decoder's embedding table.  Options of the reference that
-the port lacks (``--cache-shards``, ``--scenario``) are refused with the
-slice that brings them.
+outside the decoder's embedding table.  ``--scenario``, which the port
+lacks, is refused with the slice that brings it.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.core import EmbedderTrainer, FinetuneConfig, SemanticCache
 from repro_torch.data import HashTokenizer, make_pair_dataset, make_query_stream
+from repro_torch.launch.mesh import make_cache_mesh
 from repro_torch.models import LM
 from repro_torch.obs import Telemetry, write_jsonl
 from repro_torch.serving import CachedLLMService, ServeEngine
@@ -54,7 +60,6 @@ from repro_torch.serving import CachedLLMService, ServeEngine
 # reference options the port does not run yet, with the slice that brings
 # each (ROADMAP.md queue A)
 _NOT_PORTED = {
-    "cache_shards": ("--cache-shards", "the sharded-warm-tier slice"),
     "scenario": ("--scenario", "the benchmarks slice"),
 }
 
@@ -90,7 +95,9 @@ def parse_args(argv=None):
     ap.add_argument("--metrics-interval", type=int, default=0, metavar="N",
                     help="with --metrics-json: also a snapshot every N "
                          "batches")
-    ap.add_argument("--cache-shards", type=int, default=0)
+    ap.add_argument("--cache-shards", type=int, default=0,
+                    help="shard the warm tier over a model-axis mesh of "
+                         "N ranks (0 = unsharded; implies --tiered)")
     ap.add_argument("--cold-capacity", type=int, default=0,
                     help="host-RAM cold-tier rows behind the warm ring "
                          "(0 = no cold tier; DESIGN.md §12; implies "
@@ -120,10 +127,14 @@ def parse_args(argv=None):
     if args.metrics_json and not args.cache:
         ap.error("--metrics-json instruments the cached serving path; "
                  "add --cache")
-    if args.warm_dtype != "float32" or args.learned_admission \
-            or args.learned_embedder or args.ensemble or args.ttl \
-            or args.warm_block or args.cold_capacity or args.conformal:
+    if args.cache_shards or args.warm_dtype != "float32" \
+            or args.learned_admission or args.learned_embedder \
+            or args.ensemble or args.ttl or args.warm_block \
+            or args.cold_capacity or args.conformal:
         args.tiered = True
+    if args.cold_capacity and args.cache_shards:
+        ap.error("--cold-capacity needs the unsharded warm ring; drop "
+                 "--cache-shards (DESIGN.md §12)")
     if args.ensemble == 1:
         ap.error("--ensemble needs E >= 2 (a single embedder is the "
                  "default cascade)")
@@ -134,17 +145,31 @@ def parse_args(argv=None):
     return args
 
 
+def _rank() -> int:
+    """This process's rank: the group's, or ``torchrun``'s before the
+    group starts (0 for a single process)."""
+    return dist.get_rank() if dist.is_initialized() \
+        else int(os.environ.get("RANK", 0))
+
+
+def _say(*a, **kw) -> None:
+    """Print on rank 0 only."""
+    if _rank() == 0:
+        print(*a, **kw)
+
+
 def make_cache(args, dim: int, telemetry: Telemetry, trainer=None,
-               tok=None):
+               tok=None, mesh=None):
     """The flat or tiered cache the flags ask for; ``--learned-embedder``
-    needs the embedder's ``trainer`` and ``tok``."""
+    needs the embedder's ``trainer`` and ``tok``, ``--cache-shards`` the
+    ``mesh`` (`launch.mesh.make_cache_mesh`)."""
     if not args.tiered:
         return SemanticCache(capacity=4096, dim=dim,
                              threshold=args.threshold, telemetry=telemetry,
                              device=args.device)
     from repro_torch.cache_service import (
         CacheConfig, CacheService, EmbedderRefreshPolicy, EnsembleConfig,
-        LearningConfig, StalenessConfig, TieringConfig,
+        LearningConfig, ShardingConfig, StalenessConfig, TieringConfig,
     )
     # smoke-scale refresh policy: trip the trigger inside a short
     # stream, backfill thin splits from the medical grammar (§11)
@@ -159,6 +184,7 @@ def make_cache(args, dim: int, telemetry: Telemetry, trainer=None,
                               warm_dtype=args.warm_dtype,
                               warm_block=args.warm_block or None,
                               cold_capacity=args.cold_capacity),
+        sharding=ShardingConfig(mesh=mesh),
         learning=LearningConfig(
             learned_admission=args.learned_admission,
             conformal=args.conformal,
@@ -170,7 +196,9 @@ def make_cache(args, dim: int, telemetry: Telemetry, trainer=None,
         staleness=StalenessConfig(default_ttl=args.ttl or None)),
         device=args.device)
     caps = cache.capabilities()
-    print(f"tiered cache: warm dtype {caps.warm_dtype}, learned admission "
+    _say(f"tiered cache: warm shards "
+         f"{cache.warm_shards if caps.warm_sharded else 0}, warm dtype "
+         f"{caps.warm_dtype}, learned admission "
           f"{'on' if caps.learned_admission else 'off'}, learned embedder "
           f"{'on' if caps.learned_embedder else 'off'}, cold tier "
           f"{args.cold_capacity if caps.cold_tier else 0} rows, ensemble "
@@ -182,11 +210,15 @@ def make_cache(args, dim: int, telemetry: Telemetry, trainer=None,
 
 def main(argv=None):
     args = parse_args(argv)
+    # the mesh first: under torchrun it starts the group and takes this
+    # rank's card, where the models below are built
+    mesh = make_cache_mesh(args.cache_shards, device=args.device) \
+        if args.cache_shards else None
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
     engine = ServeEngine(LM(cfg, seed=0, device=args.device), max_len=64)
-    print(f"serving {cfg.name} ({cfg.param_count():,} params) on "
+    _say(f"serving {cfg.name} ({cfg.param_count():,} params) on "
           f"{engine.model.device}")
 
     if not args.cache:
@@ -196,9 +228,9 @@ def main(argv=None):
             prompts = rng.integers(0, cfg.vocab_size,
                                    (args.batch, 16)).astype(np.int32)
             res = engine.generate(prompts, args.max_new_tokens)
-            print(f"batch {i // args.batch}: generated "
+            _say(f"batch {i // args.batch}: generated "
                   f"{res.tokens.shape[1]} tokens x {res.tokens.shape[0]}")
-        print(f"total {time.perf_counter() - t0:.1f}s")
+        _say(f"total {time.perf_counter() - t0:.1f}s")
         return
 
     enc_cfg = get_config("modernbert-149m").reduced(vocab_size=4096)
@@ -207,7 +239,12 @@ def main(argv=None):
         epochs=1, batch_size=32, lr=5e-4, max_len=24), device=args.device)
     trainer.fit(make_pair_dataset("medical", 512, seed=0), tok)
     telemetry = Telemetry()
-    cache = make_cache(args, enc_cfg.d_model, telemetry, trainer, tok)
+    cache = make_cache(args, enc_cfg.d_model, telemetry, trainer, tok, mesh)
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        # the ranks' lookups merge collectively, but miss coalescing
+        # reads each rank's own embeddings: serve from rank 0's encoder
+        for p in trainer.model.parameters():
+            dist.broadcast(p.data, 0)
     embed_fn = trainer.make_embed_fn(tok)
     if args.ensemble:
         from repro_torch.core import RandomProjectionEmbedder
@@ -224,6 +261,8 @@ def main(argv=None):
                            max_new_tokens=args.max_new_tokens)
 
     def dump_metrics(batch_idx, append):
+        if _rank() != 0:
+            return
         write_jsonl(args.metrics_json, telemetry.registry.snapshot(),
                     meta={"arch": cfg.name, "batch": batch_idx,
                           "tiered": args.tiered}, append=append)
@@ -241,7 +280,7 @@ def main(argv=None):
             wrote = True
     cache.maintenance(block=True)     # final idle tick: drain SLO gauges
     st = svc.stats()
-    print(f"{args.requests} requests in {time.perf_counter() - t0:.1f}s; "
+    _say(f"{args.requests} requests in {time.perf_counter() - t0:.1f}s; "
           f"hit rate {svc.hit_rate:.1%} ({st['hits']} LLM calls saved, "
           f"{st['generations']} generations)")
     stage_h = telemetry.stage_histogram()
@@ -249,11 +288,11 @@ def main(argv=None):
                   "maintenance"):
         agg = stage_h.aggregate(stage=stage)
         if agg.count:
-            print(f"  stage {stage:<12} p50 {agg.quantile(0.5) * 1e3:7.2f} "
+            _say(f"  stage {stage:<12} p50 {agg.quantile(0.5) * 1e3:7.2f} "
                   f"ms  mean {agg.mean * 1e3:7.2f} ms  x{agg.count}")
     if args.cold_capacity:
         cd = cache.stats_snapshot().tiers["cold"]
-        print(f"cold tier: {cd['cold_rows']} rows "
+        _say(f"cold tier: {cd['cold_rows']} rows "
               f"({cd['cold_occupancy']:.0%} of {args.cold_capacity}), "
               f"{cd['cold_hits']} hits from {cd['cold_fetches']} fetches "
               f"({cd['cold_fetched_rows']} rows shipped, "
@@ -262,18 +301,18 @@ def main(argv=None):
               f"{cd['cold_dropped']} final drops")
     if args.ensemble:
         ws = cache.policies.weights_state()
-        print(f"ensemble: {cache.capabilities().ensemble} embedders, "
+        _say(f"ensemble: {cache.capabilities().ensemble} embedders, "
               f"{len(ws)} tenant(s) with learned mixture weights")
     if args.learned_admission:
         lrn = st["backend"]["learning"]
-        print(f"learned admission: {lrn['refits_applied']} refits from "
+        _say(f"learned admission: {lrn['refits_applied']} refits from "
               f"{lrn['feedback_events']} events "
               f"({lrn['duplicate_events']} duplicates, "
               f"{lrn['wasted_admissions']} wasted admissions); "
               f"policies {lrn['learned_policies']}")
     if args.learned_embedder:
         rf = st["backend"]["refresh"]
-        print(f"learned embedder: version {rf['embed_version']} "
+        _say(f"learned embedder: version {rf['embed_version']} "
               f"({rf['refreshes_published']} published, "
               f"{rf['refreshes_rolled_back']} rolled back from "
               f"{rf['refreshes_started']} started; "
@@ -283,17 +322,17 @@ def main(argv=None):
               f"{rf['recalibrated_threshold']})")
     if args.ttl:
         stl = cache.stats_snapshot().tiers["staleness"]
-        print(f"ttl: {stl['ttl_stamped']} stamped, "
+        _say(f"ttl: {stl['ttl_stamped']} stamped, "
               f"{stl['expired_masked']} masked at plan time, "
               f"{stl['expired_reaped']} reaped")
     if args.conformal:
         cs = cache.stats_snapshot().learning["conformal"]
-        print(f"conformal: {cs['hit_audits']} hit audits "
+        _say(f"conformal: {cs['hit_audits']} hit audits "
               f"({cs['audited_false_hits']} false), "
               f"{len(cs['tenants'])} tenant window(s)")
     if args.metrics_json:
         dump_metrics(args.requests // args.batch, append=wrote)
-        print(f"metrics -> {args.metrics_json}")
+        _say(f"metrics -> {args.metrics_json}")
     return svc
 
 

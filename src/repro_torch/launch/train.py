@@ -15,7 +15,7 @@ tokens per second.  ``--ckpt PATH`` writes ``{"params": the reference's
 value tree, "config": name}`` in the reference's checkpoint format, which
 its ``load_checkpoint`` + ``forward_lm`` read.  ``--device`` defaults to
 the card.  The reference's ``--production-mesh`` (a 16x16 mesh) is
-refused: the sharded slices are ROADMAP queue A item 4.  ``chip_smoke.py``
+refused: training on a mesh is slice 13 of the port (ROADMAP queue A).  ``chip_smoke.py``
 drives `train` on the full-width Phi-3-mini.
 """
 from __future__ import annotations
@@ -49,9 +49,10 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.production_mesh:
-        ap.error("--production-mesh needs the sharded slices of the port "
-                 "(ROADMAP.md queue A item 4); this launcher trains on one "
-                 "device")
+        ap.error("--production-mesh needs slice 13 of the port (the "
+                 "GSPMD sharding rules as DTensor placements and training "
+                 "on a mesh, ROADMAP.md queue A); this launcher trains on "
+                 "one device")
     return args
 
 

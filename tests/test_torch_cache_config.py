@@ -10,10 +10,10 @@ port counterpart: the port's service takes only a ``CacheConfig``, and
 ``test_flat_kwargs_construction_is_refused`` pins that.  The same inputs
 go to both sides: a field
 the reference refuses the port refuses, and ``from_kwargs`` builds the
-same grouped config.  What the port does not run yet (the sharded warm
-tier) it refuses by slice name, which the reference accepts; that case
-is left out here and pinned in `tests/test_torch_service.py` and
-`tests/test_torch_feedback.py`.
+same grouped config.  ``ShardingConfig(mesh=...)`` takes a torch
+``DeviceMesh`` where the reference takes a JAX mesh; the sharded cases
+are in `tests/test_torch_service.py`, `tests/test_torch_feedback.py` and
+`tests/test_torch_sharded_service.py`.
 """
 import dataclasses
 

@@ -15,9 +15,9 @@ verdicts, every receipt, every maintenance report and every counter
 exactly).  A cold score is the exact cosine of a dequantized key, so
 it is within the DESIGN.md §8.3 bound ``amax·√D/254`` of the fp32 key's.
 
-The reference's ``test_sharded_plus_cold_rejected`` has no port
-counterpart: the sharded warm tier is not ported, so a mesh is refused
-by that slice's name before the cross-check can run (pinned below).
+The reference's ``test_sharded_plus_cold_rejected`` is mirrored below
+on a one-rank mesh (and in `tests/test_torch_sharded_service.py`): a
+cold tier over a sharded warm tier is refused at construction.
 The k-means seed row of the warm IVF is handed to the port from the
 reference's draw, as in the other service tests.
 """
@@ -374,18 +374,20 @@ def test_cold_with_warm_block_streaming():
 
 def test_cold_policy_alone_implies_capacity_and_mesh_is_refused():
     """``cold_policy`` without a capacity implies ``4 * warm_capacity``
-    rows, as in the reference.  The reference refuses a cold tier over
-    a sharded warm tier; the port refuses the mesh itself, by the
-    sharded slice's name, before the service is built."""
-    svc = CacheService(CacheConfig(
-        dim=8, tiering=TieringConfig(warm_capacity=32, n_clusters=2,
-                                     bucket=16,
-                                     cold_policy=ColdRoutingPolicy())),
-        device="cpu")
+    rows, as in the reference.  A cold tier over a sharded warm tier is
+    refused when the service is built, as in the reference: an explicit
+    capacity, or the one a policy alone implies, beside a mesh."""
+    from test_torch_ranks import one_rank_mesh
+    tiering = TieringConfig(warm_capacity=32, n_clusters=2, bucket=16,
+                            cold_policy=ColdRoutingPolicy())
+    svc = CacheService(CacheConfig(dim=8, tiering=tiering), device="cpu")
     assert svc.cold is not None and svc.cold.capacity == 128
-    with pytest.raises(ValueError, match="sharded-warm-tier slice"):
-        CacheConfig(dim=8, tiering=TieringConfig(cold_capacity=64),
-                    sharding=ShardingConfig(mesh=object()))
+    with one_rank_mesh() as mesh:
+        for tc in (TieringConfig(cold_capacity=64), tiering):
+            with pytest.raises(ValueError, match="unsharded warm tier"):
+                CacheService(CacheConfig(
+                    dim=8, tiering=tc, sharding=ShardingConfig(mesh=mesh)),
+                    device="cpu")
 
 
 @pytest.mark.parametrize("fused,int8", [(False, False), (True, False),

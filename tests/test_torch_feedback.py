@@ -176,18 +176,24 @@ def test_learned_admission_refits_match_reference(monkeypatch):
 
 
 def test_unported_learning_fields_still_refused():
-    """What the port does not run is refused by name and slice, never
-    accepted and ignored: the sharded warm tier.  The embedder refresh's
-    fields are accepted by the config, and the service holds them to the
-    reference's rule (a refresh needs its trainer and tokenizer).
-    Conformal calibration, the background rebuild and the cold tier are
-    accepted, as are the learning and ensemble fields."""
+    """No learning field is refused by the config: the embedder
+    refresh's fields are accepted, and the service holds them to the
+    reference's rule (a refresh needs its trainer and tokenizer).  A
+    ``DeviceMesh`` is accepted for the sharded warm tier, and a cold
+    tier beside it refused, as in the reference.  Conformal calibration,
+    the background rebuild and the cold tier are accepted, as are the
+    learning and ensemble fields."""
     from repro_torch.cache_service import (
         CacheConfig, CacheService, EmbedderRefreshPolicy, EnsembleConfig,
         ShardingConfig,
     )
-    with pytest.raises(ValueError, match="sharded"):
-        ShardingConfig(mesh=object())
+    from test_torch_ranks import one_rank_mesh
+    with one_rank_mesh() as mesh:
+        ShardingConfig(mesh=mesh)
+        with pytest.raises(ValueError, match="unsharded warm tier"):
+            CacheService(CacheConfig(
+                dim=8, sharding=ShardingConfig(mesh=mesh),
+                tiering=TieringConfig(cold_capacity=64)), device="cpu")
     for learning in (LearningConfig(refresh_policy=EmbedderRefreshPolicy()),
                      LearningConfig(learned_embedder=True,
                                     embedder_trainer=object())):

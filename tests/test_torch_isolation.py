@@ -18,7 +18,8 @@ STANDALONE = sorted(PORT.rglob("*.py")) + [
     ROOT / "examples" / "finetune_embedder_torch.py",
     ROOT / "tests" / "test_torch_cuda_kernels.py",      # run on the card
     ROOT / "tests" / "test_torch_cuda_zoo.py",
-    ROOT / "tests" / "test_torch_cuda_train.py"]
+    ROOT / "tests" / "test_torch_cuda_train.py",
+    ROOT / "tests" / "test_torch_ranks.py"]      # the sharded tests' ranks
 KERNELS = ("cascade_lookup", "cosine_topk", "contrastive",
            "flash_attention", "decode_attention")
 
@@ -52,6 +53,7 @@ def test_the_slice_modules_are_covered():
                 "models/mamba.py", "models/xlstm.py",
                 "serving/engine.py", "serving/frontend.py",
                 "launch/serve.py", "launch/train.py",
+                "launch/mesh.py", "core/distrib.py",
                 "models/blocks.py", "models/param.py",
                 "training/schedule.py", "training/train.py",
                 "training/checkpoint.py", "training/msgpack_lite.py",
@@ -125,6 +127,7 @@ def test_entry_points_raise_without_a_card(no_card):
         EmbedderTrainer, EncoderEmbedder, SemanticCache,
     )
     from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import make_cache_mesh
     from repro_torch.models import LM, Encoder
     from repro_torch.serving.frontend import stub_frontend_embeds
     cfg = get_config("modernbert-149m").reduced(n_layers=2)
@@ -142,6 +145,7 @@ def test_entry_points_raise_without_a_card(no_card):
                      get_config("pixtral-12b").reduced(), 1),
                  lambda: serve.main(["--requests", "1"]),
                  lambda: train.main(["--smoke", "--steps", "1"]),
+                 lambda: make_cache_mesh(2),
                  lambda: CacheService(CacheConfig(dim=16), device="cuda:0")):
         with pytest.raises(RuntimeError, match="cuda"):
             make()

@@ -170,17 +170,24 @@ def test_ttl_and_tenant_eviction_match_reference():
 
 
 def test_unported_features_are_refused():
-    """Only what the port does not run yet is refused, by its slice's
-    name: the sharded warm tier.  The maintenance loop's fields and the
-    embedder refresh's are accepted and reach the service (a refresh
-    without its trainer and tokenizer is refused there, as in the
-    reference)."""
+    """Every feature of the reference's service is accepted now: a
+    ``DeviceMesh`` for the sharded warm tier (a cold tier beside it is
+    refused, as in the reference), the maintenance loop's fields and the
+    embedder refresh's, which reach the service (a refresh without its
+    trainer and tokenizer is refused there, as in the reference)."""
     from repro_torch.cache_service import LearningConfig, ShardingConfig
+    from test_torch_ranks import one_rank_mesh
     with pytest.raises(ValueError, match="embedder_trainer"):
         CacheService(CacheConfig(dim=D, learning=LearningConfig(
             learned_embedder=True)), device="cpu")
-    with pytest.raises(ValueError, match="sharded"):
-        ShardingConfig(mesh=object())
+    with one_rank_mesh() as mesh:
+        sharding = ShardingConfig(mesh=mesh)
+        assert CacheService(CacheConfig(dim=D, sharding=sharding),
+                            device="cpu").capabilities().warm_sharded
+        with pytest.raises(ValueError, match="unsharded warm tier"):
+            CacheService(CacheConfig(
+                dim=D, sharding=sharding,
+                tiering=TieringConfig(cold_capacity=64)), device="cpu")
     svc = CacheService(CacheConfig(
         dim=D, tiering=TieringConfig(background_rebuild=True,
                                      cold_capacity=64),

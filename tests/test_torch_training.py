@@ -141,8 +141,15 @@ def test_batches_and_tokens_match_reference():
             np.testing.assert_array_equal(x[k], y[k])
     tail = list(iter_batches(pa, 16, shuffle=False, drop_remainder=False))
     assert len(tail[-1]["label"]) == 100 % 16
-    with pytest.raises(NotImplementedError, match="sharded slice"):
-        shard_batch(pb[0], mesh=None)
+    # shard_batch places a batch on a mesh (dim 0 over the batch axes);
+    # on one rank the local block is the whole batch (2 ranks: the
+    # distrib tests)
+    from test_torch_ranks import one_rank_mesh
+    with one_rank_mesh() as mesh:
+        placed = shard_batch(pb[0], mesh)
+    assert placed.keys() == pb[0].keys()
+    for k, v in placed.items():
+        np.testing.assert_array_equal(v.to_local().numpy(), pb[0][k])
 
 
 @pytest.mark.parametrize("case", ["random", "ties", "one_class"])
