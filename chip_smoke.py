@@ -244,11 +244,36 @@ or the port is not beside the script.  Phases, each fatal on failure:
    launches equal to plans on each rank, ``warm_shards == 2``, every
    rank the same hits; hit rate and plan / commit p50 printed beside the
    unsharded service's run of the same trace here.  A rank that fails or
-   does not report in time fails the phase.
+   does not report in time fails the phase;
+14. the launch layer's dry-run, after phase 13.  (a) ``python -m
+   repro_torch.launch.dryrun`` for each of ``DRYRUN_PAIRS`` — the cache
+   program (``langcache``, ``langcache-shardmap``) and Phi-3-mini's
+   train_4k, prefill_32k and decode_32k on the production 16x16 mesh,
+   the shardmap cache program on the 2x16x16 multi-pod mesh (``pod``
+   must shard an argument), Phi-3-mini's train_4k with the activation
+   anchors, the cache program at one rank, and the 16x16 shardmap
+   cache program again (its counts, temp included, must repeat exactly)
+   — each in a process of its own on a fake process group (no data, no
+   transfers), all started together, beside
+   ``localcost.local_count_check`` (the local flops of three sharded
+   products must equal their counts by hand); every run must end with
+   exit code 0 within ``DRYRUN_TIMEOUT_S``, count work and, on more
+   than one rank, collectives, and fall back only on the known gaps of
+   ``DTensor``'s strategies; per pair the per-device memory, flops,
+   bytes, collective bytes, H100 roofline terms and fallbacks are
+   printed.  (b) The cache program at one rank for real: the full-width
+   encoder on 1024 queries of 64 tokens (the reference's
+   ``CACHE_SHAPE``), then ``store.query`` over 1,048,576 float32 keys
+   through the cosine top-k kernel (held first to its plain version at
+   this shape); its arguments must hold the one-rank dry-run's argument
+   bytes exactly and the kernel must launch once per run; its median
+   time over ``CACHE_RUN_REPS`` runs is set beside the dry-run's
+   ``t_bound`` and its peak memory beside the dry-run's estimate.
 
 Prints the card's name and power limit, the stage latencies, a JSON
-line of phase 12's training numbers, a JSON line of per-kernel numbers
-and, last, ``{"ok": true, "device": ...}``.
+line of phase 12's training numbers, a JSON line of phase 14's dry-run
+numbers, a JSON line of per-kernel numbers and, last, ``{"ok": true,
+"device": ...}``.
 """
 from __future__ import annotations
 
@@ -391,6 +416,24 @@ XLSTM_TRAIN = dict(batch=2, seq=256, steps=2)
 SHARDS = 4
 MESH_RANKS = 2
 MESH_TIMEOUT_S = 300
+# phase 14: the launch layer's dry-run.  (a) each (arch, shape, flags) on
+# a fake process group in a process of its own, all at once (the
+# production 16x16 mesh unless the flags say otherwise); (b) the cache
+# program at one rank for real, CACHE_RUN_REPS timed runs
+DRYRUN_PAIRS = (
+    ("langcache", "cache_lookup", ()),
+    ("langcache-shardmap", "cache_lookup", ()),
+    ("phi3-mini-3.8b", "train_4k", ()),
+    ("phi3-mini-3.8b", "prefill_32k", ()),
+    ("phi3-mini-3.8b", "decode_32k", ()),
+    ("langcache-shardmap", "cache_lookup", ("--multi-pod",)),
+    ("phi3-mini-3.8b", "train_4k", ("--constrain-acts", "--tag", "acts")),
+    ("langcache", "cache_lookup", ("--mesh", "data=1,model=1", "--tag",
+                                   "one")),
+    ("langcache-shardmap", "cache_lookup", ("--tag", "again")),
+)
+DRYRUN_TIMEOUT_S = 300
+CACHE_RUN_REPS = 5
 
 
 def fail(msg: str) -> None:
@@ -3926,6 +3969,255 @@ def sharded_mesh_phase(dev, embs, texts) -> dict:
             "spawn_s": spawn_s, "hit_by_both": len(both)}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the launch layer's dry-run
+# ---------------------------------------------------------------------------
+
+def _dryrun_file(prefix: str, arch: str, shape: str, flags) -> str:
+    mp = "mp" if "--multi-pod" in flags else "sp"
+    tag = flags[flags.index("--tag") + 1] if "--tag" in flags else ""
+    return f"{prefix}_{arch}_{shape}_{mp}_train" + (f"_{tag}" if tag else "")\
+        + ".json"
+
+
+def dryrun_phase(card: str) -> dict:
+    """14(a): ``python -m repro_torch.launch.dryrun`` for every pair of
+    ``DRYRUN_PAIRS``, each in a process of its own (its fake group of 256
+    or 512 ranks never meets a real one), all started together, and
+    `localcost.local_count_check` beside them; each must finish within
+    ``DRYRUN_TIMEOUT_S`` with exit code 0, and every op that ran outside
+    ``DTensor``'s sharding strategies must be a known gap
+    (`dryrun.KNOWN_FALLBACKS`)."""
+    import tempfile
+
+    from repro_torch.launch.dryrun import check_fallbacks
+    tmp = tempfile.mkdtemp(prefix="dryrun-")
+    prefix = os.path.join(tmp, "dr")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")] + ([env["PYTHONPATH"]]
+                                       if env.get("PYTHONPATH") else []))
+    cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+             "--shape", sh, "--device", "cuda", "--out", prefix, *flags]
+            for a, sh, flags in DRYRUN_PAIRS]
+    cmds.append([sys.executable, "-c",
+                 "import json; from repro_torch.launch.localcost import "
+                 "local_count_check as f; print(json.dumps(f()))"])
+    t0 = time.perf_counter()
+    procs = []
+    for i, cmd in enumerate(cmds):
+        out = open(os.path.join(tmp, f"out{i}.txt"), "w")
+        procs.append((subprocess.Popen(cmd, env=env, stdout=out,
+                                       stderr=subprocess.STDOUT, cwd=ROOT),
+                      out))
+    try:
+        for (p, out), cmd in zip(procs, cmds):
+            left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                p.wait(timeout=max(left, 1))
+            except subprocess.TimeoutExpired:
+                fail(f"dry-run {cmd[3:7]} did not finish within "
+                     f"{DRYRUN_TIMEOUT_S} s")
+            out.close()
+            if p.returncode != 0:
+                with open(out.name) as f:
+                    tail = f.read()[-4000:]
+                fail(f"dry-run {cmd[3:]} exited {p.returncode}:\n{tail}")
+    finally:
+        for p, out in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+    wall = time.perf_counter() - t0
+    with open(procs[-1][1].name) as f:
+        counts = json.loads(f.read().strip().splitlines()[-1])
+    for case, (got, hand) in counts.items():
+        if got != hand:
+            fail(f"local flop count of the {case} product is {got}, by hand "
+                 f"{hand}")
+    print(f"  local flop counts equal the hand counts: "
+          f"{ {c: v[0][0] for c, v in counts.items()} }")
+    rows = {}
+    print(f"  {'pair':<52} {'args':>7} {'temp':>9} {'flops/dev':>10} "
+          f"{'bytes/dev':>10} {'coll B/dev':>10} {'t_comp':>9} "
+          f"{'t_mem':>10} {'t_coll':>10}  bound   (GiB, ms; {card})")
+    for a, sh, flags in DRYRUN_PAIRS:
+        with open(_dryrun_file(prefix, a, sh, flags)) as f:
+            r = json.load(f)
+        mem, rf = r["memory"], r["roofline"]
+        key = " ".join((a, sh, "x".join(map(str, r["mesh"])),
+                        *[x for x in flags if x.startswith("--c")],
+                        *(["again"] if "again" in flags else [])))
+        rows[key] = {
+            "mesh": r["mesh"], "mesh_axes": r["mesh_axes"],
+            "constrain_acts": r["constrain_acts"],
+            "args_bytes": mem["argument_bytes_per_device"],
+            "output_bytes": mem["output_bytes_per_device"],
+            "temp_bytes": mem["temp_bytes_per_device"],
+            "peak_gib": mem["peak_estimate_gib"],
+            "device_memory_bytes": mem["device_memory_bytes"],
+            "flops": rf["per_device_flops"], "bytes": rf["per_device_bytes"],
+            "collective_bytes": rf["per_device_collective_bytes"],
+            "collective_counts": rf["collective_counts"],
+            "collective_by_link": rf["collective_by_link"],
+            **{k: rf[k] for k in ("t_compute", "t_memory", "t_collective",
+                                  "t_bound", "bottleneck")},
+            "model_flops": r["model_flops"],
+            "useful_flops_ratio": r["useful_flops_ratio"],
+            "fallbacks": r["fallbacks"],
+            "axes_sharding_args": r["mesh_axes_sharding_args"],
+            "run_s": r["compile_seconds"], "build_place_s": r["lower_seconds"],
+        }
+        x = rows[key]
+        print(f"  {key:<52} {x['args_bytes'] / 2**30:7.3f} "
+              f"{x['temp_bytes'] / 2**30:9.2f} {x['flops']:10.3e} "
+              f"{x['bytes']:10.3e} {x['collective_bytes']:10.3e} "
+              f"{x['t_compute'] * 1e3:9.3f} {x['t_memory'] * 1e3:10.3f} "
+              f"{x['t_collective'] * 1e3:10.3f}  {x['bottleneck']}")
+        print(f"  {'':<52} fallbacks {x['fallbacks'] or 'none'}")
+        try:
+            check_fallbacks(key, x["fallbacks"])
+        except RuntimeError as e:
+            fail(str(e))
+        if not (x["flops"] > 0 and x["bytes"] > 0 and x["args_bytes"] > 0):
+            fail(f"dry-run {key} counted no work")
+        if math.prod(r["mesh"]) > 1 and not x["collective_bytes"] > 0:
+            fail(f"dry-run {key} issued no collective")
+        if "--multi-pod" in flags and "pod" not in x["axes_sharding_args"]:
+            fail(f"multi-pod dry-run {key}: no argument sharded over pod "
+                 f"({x['axes_sharding_args']})")
+    first = rows["langcache-shardmap cache_lookup 16x16"]
+    again = rows["langcache-shardmap cache_lookup 16x16 again"]
+    same = ("args_bytes", "output_bytes", "temp_bytes", "flops", "bytes",
+            "collective_bytes", "collective_counts", "fallbacks")
+    diff = {k: (first[k], again[k]) for k in same if first[k] != again[k]}
+    if diff:
+        fail(f"the shardmap cache dry-run counted differently in a second "
+             f"process: {diff}")
+    print(f"  the 16x16 shardmap cache dry-run repeats exactly in a second "
+          f"process ({', '.join(same)})")
+    print(f"  {len(DRYRUN_PAIRS)} dry-runs in {wall:.1f} s (in parallel)")
+    return {"pairs": rows, "local_counts": counts, "wall_s": wall}
+
+
+def cache_program_phase(dev, one: dict, card: str) -> dict:
+    """14(b): the dry-run's cache program at one rank, for real on the
+    card: the full-width encoder on CACHE_SHAPE's 1024 queries of 64
+    tokens, then `core.store.query` over 1,048,576 float32 keys through
+    the cosine top-k kernel.  Its arguments must hold the dry-run's
+    argument bytes; its time (median of CUDA-event runs) is set beside
+    the dry-run's ``t_bound`` and its peak memory (above what the
+    process held before the phase) beside the dry-run's peak estimate.  The kernel is held to its plain version at this
+    shape first."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import store
+    from repro_torch.kernels.cosine_topk import kernel, ops, ref
+    from repro_torch.launch.programs import CACHE_CAPACITY, CACHE_SHAPE
+    from repro_torch.models import Encoder
+
+    cfg = get_config("modernbert-149m").replace(
+        scan_layers=False, unroll_inner=True, remat=False)
+    Q, T, N, D = CACHE_SHAPE.global_batch, CACHE_SHAPE.seq_len, \
+        CACHE_CAPACITY, cfg.d_model
+    free_cuda()
+    base = torch.cuda.memory_allocated(dev)   # earlier phases' leftovers
+    enc = Encoder(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    keys = torch.randn((N, D), generator=gen, device=dev)
+    keys /= torch.linalg.vector_norm(keys, dim=-1, keepdim=True)
+    i32 = torch.int32
+    st = store.StoreState(
+        keys=keys, valid=torch.ones(N, dtype=torch.bool, device=dev),
+        last_used=torch.zeros(N, dtype=i32, device=dev),
+        inserted_at=torch.zeros(N, dtype=i32, device=dev),
+        value_ids=torch.arange(N, dtype=i32, device=dev),
+        clock=torch.zeros((), dtype=i32, device=dev))
+    tokens = torch.randint(0, cfg.vocab_size, (Q, T), generator=gen,
+                           device=dev, dtype=i32)
+    lengths = torch.randint(8, T + 1, (Q, 1), generator=gen, device=dev)
+    mask = torch.arange(T, device=dev)[None] < lengths
+    args = list(enc.parameters()) + list(st) + [tokens, mask]
+    arg_bytes = sum(t.numel() * t.element_size() for t in args)
+    want = one["args_bytes"]
+    if arg_bytes != want:
+        fail(f"the cache program's arguments hold {arg_bytes} bytes; the "
+             f"dry-run at one rank counts {want}")
+
+    def run():
+        with torch.no_grad():
+            emb = enc.encode(tokens, mask)
+            return store.query(st, emb, threshold=0.9, k=1)
+
+    with torch.no_grad():
+        qn = store._normalise(enc.encode(tokens, mask)).contiguous()
+        ks, ki = ops.cosine_topk(qn, keys, st.valid, 1)
+        ps, pi = ref.cosine_topk(qn, keys, st.valid, 1)
+    torch.cuda.synchronize()
+    err = float((ks - ps).abs().max())
+    if not torch.equal(ki, pi) or err > SCORE_ATOL:
+        fail(f"cosine_topk at Q={Q} N={N}: indices equal "
+             f"{torch.equal(ki, pi)}, max score error {err:.3e}")
+    del qn, ks, ki, ps, pi
+    free_cuda()
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernel.COUNTS["cosine_topk"] = 0
+    times = []
+    for _ in range(CACHE_RUN_REPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        res = run()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    launches = kernel.COUNTS["cosine_topk"]
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    with torch.no_grad():                  # the two stages apart
+        emb = enc.encode(tokens, mask)
+        encode_ms = cuda_ms(lambda: enc.encode(tokens, mask), iters=1,
+                            reps=CACHE_RUN_REPS)
+        query_ms = cuda_ms(lambda: store.query(st, emb, 0.9, k=1), iters=1,
+                           reps=CACHE_RUN_REPS)
+    if launches != CACHE_RUN_REPS:
+        fail(f"cosine_topk launched {launches} times in "
+             f"{CACHE_RUN_REPS} runs of the cache program")
+    if not (res.slots.shape == (Q, 1) and bool(torch.isfinite(
+            res.scores).all())):
+        fail("the cache program's result is not (Q, 1) finite scores")
+    ms = statistics.median(times)
+    t_bound_ms = one["t_bound"] * 1e3
+    dry_peak = one["args_bytes"] + one["temp_bytes"]
+    out = {"ms": ms, "times_ms": times, "launches": launches,
+           "encode_ms": encode_ms, "query_ms": query_ms,
+           "max_abs_err": err, "t_bound_ms": t_bound_ms,
+           "bound_fraction": t_bound_ms / ms,
+           "dryrun_bottleneck": one["bottleneck"],
+           "dryrun_terms_ms": {k: one[k] * 1e3 for k in (
+               "t_compute", "t_memory", "t_collective")},
+           "arg_bytes": arg_bytes, "dryrun_arg_bytes": want,
+           "peak_bytes": peak, "dryrun_peak_bytes": dry_peak,
+           "peak_factor": dry_peak / peak, "at": f"Q={Q} T={T} N={N} D={D}",
+           "card": card}
+    print(f"  cache program at one rank: {ms:.2f} ms (median of "
+          f"{CACHE_RUN_REPS}; {card}); dry-run t_bound {t_bound_ms:.2f} ms "
+          f"({out['dryrun_bottleneck']}): t_bound / measured "
+          f"{out['bound_fraction']:.3f}")
+    print(f"  arguments {arg_bytes:,} bytes = the dry-run's; peak memory "
+          f"{peak / 2**30:.2f} GiB against the dry-run's estimate "
+          f"{dry_peak / 2**30:.2f} GiB (x{out['peak_factor']:.2f}); "
+          f"cosine_topk launches {launches}, max |score - plain| {err:.2e}")
+    print(f"  apart: encode {encode_ms:.2f} ms, store.query (cosine_topk "
+          f"kernel) {query_ms:.2f} ms")
+    del enc, st, keys, tokens, mask, res, emb
+    free_cuda()
+    return out
+
+
 def sass_counts(lib: str) -> dict:
     """{kernel function (mangled): {"HMMA": n, "FFMA": n}} in a built
     library, from ``cuobjdump --dump-sass`` (beside ``nvcc``)."""
@@ -4211,6 +4503,17 @@ def main() -> int:
     sa = sharded_stacked_phase(dev)
     sm = sharded_mesh_phase(dev, embs, sv["texts"])
     print(f"  phase 13 in {time.perf_counter() - t13:.1f} s")
+    free_cuda()
+
+    print("phase 14: the launch layer's dry-run (fake process groups, the "
+          "H100 roofline)")
+    t14 = time.perf_counter()
+    print(f"  (a) {len(DRYRUN_PAIRS)} dry-runs, each in its own process")
+    dr = dryrun_phase(card)
+    print("  (b) the cache program at one rank on the card")
+    cpr = cache_program_phase(dev, dr["pairs"]["langcache cache_lookup 1x1"],
+                              card)
+    print(f"  phase 14 in {time.perf_counter() - t14:.1f} s")
     print(f"  all phases in {time.perf_counter() - t_start:.1f} s")
 
     n_flat = FLAT_CAPACITY
@@ -4258,6 +4561,8 @@ def main() -> int:
         "by_n": tp["by_n"], "bf16_by_n": tp["bf16_by_n"],
         "flat_p50_ms": fl["p50_ms"],
         "flat_hit_rate": fl["hit_rate"], "sass": sass["cosine_topk"],
+        "cache_program_launches": cpr["launches"],
+        "cache_program": {k: v for k, v in cpr.items() if k != "card"},
         "card": card,
     }, {
         "name": "contrastive_components", "route": "cuda",
@@ -4391,6 +4696,10 @@ def main() -> int:
         **{n: {k: r[k] for k in ("params", "step_ms", "tokens_per_s",
                                   "peak_gb")} for n, r in ot.items()},
         "at": f"B={TRAIN_B} S={TRAIN_S}", "card": card}}))
+    print(json.dumps({"dryrun": {"pairs": dr["pairs"],
+                                 "local_counts": dr["local_counts"],
+                                 "wall_s": dr["wall_s"],
+                                 "cache_program": cpr, "card": card}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -39,6 +39,15 @@ class QueryResult(NamedTuple):
     hit: torch.Tensor          # (Q,)  best score >= threshold
 
 
+def store_axes() -> StoreState:
+    """Logical sharding axes (encoded strings) of the store's tensors:
+    corpus rows over the ``corpus`` axis, the clock a scalar."""
+    return StoreState(
+        keys="corpus,.", valid="corpus", last_used="corpus",
+        inserted_at="corpus", value_ids="corpus", clock="",
+    )
+
+
 def init_store(capacity: int, dim: int, device="cpu") -> StoreState:
     i32 = torch.int32
     return StoreState(
@@ -140,16 +149,29 @@ def query_sharded(state: StoreState, q: torch.Tensor, threshold: float,
                          f"{n_shards} shards")
     shard_n = n_total // n_shards
     lo = mesh.get_local_rank(axis) * shard_n
+    block = state._replace(keys=state.keys[lo:lo + shard_n],
+                           valid=state.valid[lo:lo + shard_n],
+                           value_ids=state.value_ids[lo:lo + shard_n])
+    return query_block(block, lo, q, threshold, k, mesh, axis)
+
+
+def query_block(block: StoreState, lo: int, q: torch.Tensor,
+                threshold: float, k: int, mesh,
+                axis: str = "model") -> QueryResult:
+    """This rank's part of `query_sharded`: ``block`` holds the store's
+    rows [lo, lo + n) (keys, valid, value ids), which this rank of
+    ``axis`` scores; ``q`` is the whole (Q, D) batch."""
+    from repro_torch.core import distrib
     qn = _normalise(q)
     batch_axes = [a for a in mesh.mesh_dim_names if a != axis
                   and distrib.axis_size(mesh, a) > 1
                   and q.shape[0] % distrib.axis_size(mesh, a) == 0]
     for a in batch_axes:
         qn = qn.chunk(distrib.axis_size(mesh, a))[mesh.get_local_rank(a)]
-    scores = qn @ state.keys[lo:lo + shard_n].T                 # (Q, N_loc)
-    scores = torch.where(state.valid[None, lo:lo + shard_n], scores, -1e30)
+    scores = qn @ block.keys.T.to(qn.dtype)                     # (Q, N_loc)
+    scores = torch.where(block.valid[None, :], scores, -1e30)
     s, i_loc = topk_stable(scores, k)
-    vals = state.value_ids[lo:lo + shard_n][i_loc]
+    vals = block.value_ids[i_loc]
     s, slots, vals = distrib.merge_local_topk(
         mesh.get_group(axis), k, s, (i_loc + lo).to(torch.int32), vals)
     for a in reversed(batch_axes):

@@ -14,11 +14,18 @@ device.  A caller that runs several ranks on one card starts a gloo
 group itself first (NCCL takes one rank per device).
 
 Functions, not module-level meshes: importing this module starts no
-process group.  The reference's TPU roofline constants are not ported
-here; the H100's arrive with the roofline slice.
+process group.  `fake_process_group` starts the one group of the dry-run
+(``launch/dryrun.py``): every rank of a production mesh on one process,
+no data and no transfers.
+
+Hardware constants used by the roofline analysis (``launch/roofline.py``)
+live here too: NVIDIA's published figures for the H100 SXM5 80 GB at its
+700 W limit, the card the port targets.  The reference's are a TPU
+v5e's.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -26,6 +33,61 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.device import resolve_device
+
+# H100 SXM5 80 GB, 700 W (NVIDIA's datasheet): dense bf16 tensor-core peak
+PEAK_FLOPS_BF16 = 989.4e12          # FLOP/s
+# H100 SXM5 80 GB, 700 W: HBM3 bandwidth
+HBM_BANDWIDTH = 3.35e12             # B/s
+# H100 SXM5 80 GB, 700 W: HBM3 capacity, the memory per GPU of a dry-run
+# without a card (with one, `device_memory_bytes` reads the card's)
+HBM_BYTES = 80e9
+# H100 SXM5 80 GB, 700 W: NVLink 4 (18 links), per direction — the link
+# of a collective group whose ranks all sit in one node
+NVLINK_BANDWIDTH = 450e9            # B/s
+# one 400 Gb/s InfiniBand NDR port per GPU (an 8-GPU HGX H100 node) — the
+# link of a collective group that leaves its node
+NETWORK_BANDWIDTH = 50e9            # B/s
+GPUS_PER_NODE = 8
+
+
+def link_of(ranks) -> str:
+    """``"nvlink"`` when every rank of a collective group sits in one
+    ``GPUS_PER_NODE``-GPU node (ranks numbered node by node), else
+    ``"network"``."""
+    ranks = list(ranks)
+    return "nvlink" if ranks and (min(ranks) // GPUS_PER_NODE
+                                  == max(ranks) // GPUS_PER_NODE) \
+        else "network"
+
+
+def device_memory_bytes(device="cpu") -> float:
+    """Memory per GPU: the card's when ``device`` is a card, else
+    ``HBM_BYTES``."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return float(torch.cuda.get_device_properties(
+            resolve_device(dev)).total_memory)
+    return HBM_BYTES
+
+
+@contextlib.contextmanager
+def fake_process_group(world_size: int):
+    """A ``torch.distributed`` default group of ``world_size`` ranks in
+    this process, all but rank 0 imaginary: the ``"fake"`` backend
+    (``FakeStore``), whose collectives move nothing.  The dry-run's mesh
+    lives on it; destroyed on exit.  Refuses to start beside another
+    group."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group already exists; the dry-run "
+                           "runs in a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _device_type(device) -> str:
@@ -61,16 +123,22 @@ def _mesh(device_type: str, shape, names) -> DeviceMesh:
                             mesh_dim_names=tuple(names))
 
 
+def make_mesh(sizes: dict, device="cuda") -> DeviceMesh:
+    """A mesh named and sized by ``sizes`` ({axis: ranks}, in mesh-dim
+    order) over the world, which must hold exactly that many ranks."""
+    dt = _device_type(device)
+    _ensure_group(dt)
+    return _mesh(dt, tuple(sizes.values()), tuple(sizes))
+
+
 def make_production_mesh(*, multi_pod: bool = False, device="cuda"
                          ) -> DeviceMesh:
     """The reference's production layout: ("data", "model") = (16, 16),
     or ("pod", "data", "model") = (2, 16, 16); the world must hold
     exactly 256 or 512 ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    dt = _device_type(device)
-    _ensure_group(dt)
-    return _mesh(dt, shape, axes)
+    if multi_pod:
+        return make_mesh({"pod": 2, "data": 16, "model": 16}, device)
+    return make_mesh({"data": 16, "model": 16}, device)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, device="cuda"

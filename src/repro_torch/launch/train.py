@@ -14,9 +14,14 @@ configs, the loss / grad norm / lr every 5th and the last step, and the
 tokens per second.  ``--ckpt PATH`` writes ``{"params": the reference's
 value tree, "config": name}`` in the reference's checkpoint format, which
 its ``load_checkpoint`` + ``forward_lm`` read.  ``--device`` defaults to
-the card.  The reference's ``--production-mesh`` (a 16x16 mesh) is
-refused: training on a mesh is slice 13 of the port (ROADMAP queue A).  ``chip_smoke.py``
-drives `train` on the full-width Phi-3-mini.
+the card.  ``--production-mesh`` builds the reference's 16x16 mesh
+(`launch.mesh.make_production_mesh`: it needs a process group of 256
+ranks, and at one rank raises "a (16, 16) mesh needs 256 ranks"), and
+prints the per-device parameter bytes of `launch.sharding.sharding_tree`
+over it under ``TRAIN_RULES``; the steps then run as without it — the
+reference jits its step with ``in_shardings=None``, so its steps are not
+sharded either.  ``chip_smoke.py`` drives `train` on the full-width
+Phi-3-mini.
 """
 from __future__ import annotations
 
@@ -27,7 +32,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.models import LM, state_dict_to_reference
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.sharding import (
+    TRAIN_RULES, sharded_bytes, sharding_tree,
+)
+from repro_torch.models import LM, param_axes, state_dict_to_reference
 from repro_torch.serving.frontend import stub_frontend_embeds
 from repro_torch.training import (
     adamw, linear_warmup_cosine, make_train_step, save_checkpoint,
@@ -44,16 +53,10 @@ def parse_args(argv=None):
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="16x16 mesh (refused: one device)")
+                    help="16x16 mesh (needs 256 ranks)")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
-    if args.production_mesh:
-        ap.error("--production-mesh needs slice 13 of the port (the "
-                 "GSPMD sharding rules as DTensor placements and training "
-                 "on a mesh, ROADMAP.md queue A); this launcher trains on "
-                 "one device")
-    return args
+    return ap.parse_args(argv)
 
 
 def make_batch(cfg, rng: np.random.Generator, batch: int, seq: int,
@@ -109,10 +112,21 @@ def main(argv=None) -> LM:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
+    mesh = make_production_mesh(device=args.device) \
+        if args.production_mesh else None
     lm = LM(cfg, seed=0, device=args.device)
     where = torch.cuda.get_device_name(lm.device) \
         if lm.device.type == "cuda" else "cpu"
     print(f"arch={cfg.name} params={cfg.param_count():,} device={where}")
+    if mesh is not None:
+        params, axes = dict(lm.named_parameters()), param_axes(cfg, lm)
+        placed = sharding_tree(params, axes, mesh, TRAIN_RULES)
+        n_sharded = sum(any(p.is_shard() for p in pl)
+                        for pl in placed.values())
+        per_dev = sharded_bytes(params, axes, mesh, TRAIN_RULES)
+        print(f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+              f"{n_sharded} of {len(placed)} parameters sharded, "
+              f"{per_dev:,} parameter bytes per device")
     run = train(lm, steps=args.steps, batch=args.batch, seq=args.seq,
                 lr=args.lr)
     print(f"{args.steps} steps in {run['seconds']:.1f}s "

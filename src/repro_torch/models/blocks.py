@@ -31,13 +31,35 @@ from repro_torch.configs.base import (
 )
 from repro_torch.models import attention, layers, mamba, xlstm
 from repro_torch.models.moe import MoE
-from repro_torch.models.param import Initializer
+from repro_torch.models.param import A, Initializer
 
 # recurrent mixer kind -> (module, empty state); the module is held
 # under the kind's name (``mamba``, ``mlstm``, ``slstm``)
 _RECURRENT = {MAMBA: (mamba.Mamba, mamba.init_state),
               MLSTM: (xlstm.MLSTM, xlstm.init_mlstm_state),
               SLSTM: (xlstm.SLSTM, xlstm.init_slstm_state)}
+
+
+# the reference's logical axes of each mixer's decode-state leaves
+_STATE_AXES = {
+    ATTN: {"k": ("batch", "cache", "kv_heads", "head_dim"),
+           "v": ("batch", "cache", "kv_heads", "head_dim"),
+           "pos": ("batch", "cache")},
+    MAMBA: {"h": ("batch", "mlp", "ssm_state"),
+            "conv": ("batch", "conv", "mlp")},
+    MLSTM: {"C": ("batch", "heads", None, None),
+            "n": ("batch", "heads", None), "m": ("batch", "heads"),
+            "conv": ("batch", "conv", "mlp")},
+    SLSTM: {k: ("batch", "embed") for k in ("c", "n", "h", "m")},
+}
+
+
+def layer_state_axes(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, str]:
+    """Encoded logical axes of `init_layer_state`'s leaves (the
+    reference's ``layer_state_axes``)."""
+    if spec.mixer not in _STATE_AXES:
+        raise ValueError(f"unknown mixer {spec.mixer!r}")
+    return {k: A(*v) for k, v in _STATE_AXES[spec.mixer].items()}
 
 
 def init_layer_state(cfg: ModelConfig, spec: LayerSpec, batch: int,

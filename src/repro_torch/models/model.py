@@ -48,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, layers
+from repro_torch.models.actsharding import constrain_batch
 from repro_torch.models.param import make_initializer
 
 
@@ -81,6 +82,7 @@ class Encoder(nn.Module):
         sin, cos = layers.rope_frequencies(self.cfg, positions)
         for blk in self.layers:
             x, _ = blk(x, sin, cos)
+            x = constrain_batch(x)
         x = self.final_norm(x).float()
         if mask is None:
             emb = x.mean(dim=1)
@@ -146,7 +148,10 @@ class LM(nn.Module):
             x = x + layers.sinusoidal_positions(
                 x.shape[1], self.cfg.d_model, device=x.device).to(
                     x.dtype)[None]
-        return x
+        # anchor the batch to the data axes, so that the FSDP-sharded
+        # table cannot make the whole network batch-replicated (a no-op
+        # outside a dry-run's context)
+        return constrain_batch(x)
 
     def forward_lm(self, tokens, frontend_embeds=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -160,6 +165,7 @@ class LM(nn.Module):
         aux = torch.zeros((), device=x.device)
         for blk in self.layers:
             x, a = blk(x, sin, cos)
+            x = constrain_batch(x)
             if a is not None:
                 aux = aux + a
         return self._logits(x), aux
@@ -175,6 +181,7 @@ class LM(nn.Module):
         def period(j: int, x: torch.Tensor, aux: torch.Tensor):
             for blk in self.layers[j * P:(j + 1) * P]:
                 x, a = blk.forward_full(x, sin, cos)
+                x = constrain_batch(x)
                 if a is not None:
                     aux = aux + a
             return x, aux
@@ -235,15 +242,18 @@ class LM(nn.Module):
                 "cur_len": 0}
 
     @torch.no_grad()
-    def prefill(self, tokens, cache_len: int, frontend_embeds=None
-                ) -> Tuple[torch.Tensor, Dict]:
+    def prefill(self, tokens, cache_len: int, frontend_embeds=None,
+                state: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
         """The prompt's full forward, building the decode state.
-        tokens: (B, S) int; frontend_embeds: (B, S_fe, d) or None.
-        Returns (last position's logits (B, padded vocab), state with
-        ``cur_len`` = S_fe + S)."""
+        tokens: (B, S) int; frontend_embeds: (B, S_fe, d) or None;
+        ``state``: the empty state to fill, in `init_lm_state`'s layout
+        (a new ``init_lm_state(B, cache_len)`` when None; the dry-run
+        passes one placed on its mesh).  Returns (last position's logits
+        (B, padded vocab), state with ``cur_len`` = S_fe + S)."""
         x = self._input_embeds(tokens, frontend_embeds)
         B, S, _ = x.shape
-        state = self.init_lm_state(B, cache_len)
+        if state is None:
+            state = self.init_lm_state(B, cache_len)
         positions = torch.arange(S, device=x.device)
         sin, cos = self._rope(positions)
         for blk, st in zip(self.layers, state["layers"]):
@@ -266,6 +276,17 @@ class LM(nn.Module):
             x, _ = blk.decode(x, cur, sin, cos, st)
         state["cur_len"] = cur + 1
         return self._logits(x)[:, 0], state
+
+
+def lm_state_axes(cfg: ModelConfig) -> Dict:
+    """Encoded logical axes of `LM.init_lm_state`'s tree: per layer its
+    state's axes, ``cur_len`` a scalar.  The reference stacks each period
+    position's states on a leading replicated ``layers`` axis; every
+    state leaf has two or more dims, so it resolves the same without
+    it."""
+    return {"layers": [blocks.layer_state_axes(cfg, spec)
+                       for spec in cfg.layer_specs()],
+            "cur_len": ""}
 
 
 def lm_loss(lm: LM, tokens, frontend_embeds=None

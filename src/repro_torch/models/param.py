@@ -10,10 +10,16 @@ layout.  ``Initializer`` draws every tensor from a seeded
 normal(0.02), ones, zeros, constants); the numbers differ from ``jax.random``'s,
 so parity tests carry the reference's own weights across with
 ``state_dict_from_reference`` instead.
+
+`param_axes` gives every port tensor the reference's logical sharding
+axes (``"embed,mlp"``, ...), in the reference's dim order, with the map
+from those dims onto the port's layout; `launch.sharding` resolves the
+axes to mesh axes there and places the result on the port's dims.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from dataclasses import dataclass
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +28,25 @@ from torch import nn
 from repro_torch.configs.base import (
     ATTN, MAMBA, MLSTM, MOE, SLSTM, ModelConfig,
 )
+
+
+def encode_axes(axes) -> str:
+    """Logical axes as the reference's comma-joined string (``None`` is
+    ``"."``), so an axes tree has the same structure as its value
+    tree."""
+    if isinstance(axes, str):
+        return axes
+    return ",".join("." if a is None else a for a in axes)
+
+
+def decode_axes(s: str) -> Tuple:
+    if s == "":
+        return ()
+    return tuple(None if a == "." else a for a in s.split(","))
+
+
+def A(*names) -> str:
+    return encode_axes(names)
 
 
 class Initializer:
@@ -244,3 +269,145 @@ def state_dict_to_reference(state_dict: Mapping[str, torch.Tensor],
                 [by_j[j] for j in range(len(by_j))]))
         tree["layers"][f"pos{i}"] = pos
     return tree
+
+
+# ---------------------------------------------------------------------------
+# The reference's logical axes of every port tensor
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LeafAxes:
+    """One port tensor as the reference sees it.
+
+    ``ref_key``: the reference's leaf (``layers/pos0/mixer/wq``);
+    ``axes``: its encoded logical axes and ``ref_shape`` its shape, both
+    with the leading ``layers`` axis of a stacked leaf (the port holds
+    one period of it: ``period``); ``dims[p]``: the reference dims (of
+    one period, outermost first) that port dim ``p`` holds — ``(1, 2)``
+    for a merged ``(heads, head_dim)``, ``()`` for a port-only
+    singleton."""
+    ref_key: str
+    axes: str
+    ref_shape: Tuple[int, ...]
+    dims: Tuple[Tuple[int, ...], ...]
+    period: Optional[int] = None
+
+    @property
+    def stacked(self) -> bool:
+        return self.period is not None
+
+
+def _t2(_n):                          # a transposed matrix
+    return ((1,), (0,))
+
+
+def _ident(n):
+    return tuple((i,) for i in range(n))
+
+
+# per layer group and leaf: (the reference's logical axes, port dims)
+_MIXER_AXES = {
+    ATTN: {"wq": (("embed", "heads", "head_dim"), ((1, 2), (0,))),
+           "wk": (("embed", "kv_heads", "head_dim"), ((1, 2), (0,))),
+           "wv": (("embed", "kv_heads", "head_dim"), ((1, 2), (0,))),
+           "wo": (("heads", "head_dim", "embed"), ((2,), (0, 1))),
+           "bq": (("heads", "head_dim"), ((0, 1),)),
+           "bk": (("kv_heads", "head_dim"), ((0, 1),)),
+           "bv": (("kv_heads", "head_dim"), ((0, 1),))},
+    MAMBA: {"in_proj": ("embed", "mlp"), "conv_w": ("conv", "mlp"),
+            "conv_b": ("mlp",), "x_proj": ("mlp", "ssm"),
+            "dt_w": ("ssm", "mlp"), "dt_b": ("mlp",),
+            "A_log": ("mlp", "ssm_state"), "D": ("mlp",),
+            "out_proj": ("mlp", "embed")},
+    MLSTM: {"w_up": ("embed", "mlp"), "conv_w": ("conv", "mlp"),
+            "conv_b": ("mlp",), "wq": ("mlp", None), "wk": ("mlp", None),
+            "wv": ("mlp", None), "w_if": ("mlp", None), "b_if": (None,),
+            "norm_scale": ("mlp",), "w_down": ("mlp", "embed")},
+    SLSTM: {"w_gates": ("embed", "mlp"), "b_gates": ("mlp",),
+            "r_gates": (None, "heads", None, None),
+            "norm_scale": ("embed",), "ff_gate": ("embed", "mlp"),
+            "ff_up": ("embed", "mlp"), "ff_down": ("mlp", "embed")},
+}
+_FFN_AXES = {
+    "mlp": {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed"), "b_up": ("mlp",),
+            "b_down": ("embed",)},
+    "moe": {"router": ("embed", "experts"),
+            "w_gate": ("experts", "embed", "mlp"),
+            "w_up": ("experts", "embed", "mlp"),
+            "w_down": ("experts", "mlp", "embed")},
+}
+
+
+def _port_dims(mod: str, leaf: str, ndim: int):
+    """Port dims of a layer leaf, the layout `_mixer_leaf` and
+    `state_dict_from_reference` carry the reference's into."""
+    if mod in _TRANSPOSED:
+        if leaf in _TRANSPOSED[mod]:
+            return _t2(ndim)
+        if leaf == "conv_w":                  # (K, C) -> (C, 1, K)
+            return ((1,), (), (0,))
+        return _ident(ndim)
+    if mod == "mlp" and ndim == 2:
+        return _t2(ndim)
+    return _ident(ndim)
+
+
+def _ref_shape(shape, dims, inner: int) -> Tuple[int, ...]:
+    """The reference leaf's shape (one period) from the port's: a merged
+    port dim splits as (size / inner, inner) — only attention merges,
+    ``(heads, head_dim)``."""
+    n = sum(len(d) for d in dims)
+    out = [0] * n
+    for size, group in zip(shape, dims):
+        if len(group) == 1:
+            out[group[0]] = size
+        elif len(group) == 2:
+            out[group[0]], out[group[1]] = size // inner, inner
+    return tuple(out)
+
+
+def param_axes(cfg: ModelConfig, model=None) -> Dict[str, LeafAxes]:
+    """For every ``state_dict`` key of ``LM(cfg)`` / ``Encoder(cfg)``
+    (of ``model`` when given; else one is built on fake tensors for its
+    shapes), the reference leaf it comes from, that leaf's logical axes
+    and shape, and the map of its dims onto the port's layout — the same
+    table as `state_dict_from_reference`.  Layer ``j * len(cfg.period) +
+    i`` is period ``j`` of ``layers/pos{i}``."""
+    if model is None:
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from repro_torch.models.model import LM, Encoder
+        with FakeTensorMode():
+            model = (Encoder if cfg.is_encoder else LM)(cfg, device="cpu")
+    P = len(cfg.period)
+    out: Dict[str, LeafAxes] = {}
+    for key, t in model.state_dict().items():
+        shape = tuple(t.shape)
+        if key == "embed.table":
+            out[key] = LeafAxes("embed/table", A("vocab", "embed"), shape,
+                                _ident(2))
+        elif key == "unembed":
+            out[key] = LeafAxes("embed/unembed", A("embed", "vocab"),
+                                shape[::-1], _t2(2))
+        elif key.startswith("final_norm."):
+            out[key] = LeafAxes("final_norm/" + key.split(".")[1],
+                                A("embed"), shape, _ident(1))
+        else:
+            _, n, mod, leaf = key.split(".", 3)
+            j, i = divmod(int(n), P)
+            if mod in ("norm1", "norm2"):
+                group, axes, dims = mod, ("embed",), _ident(1)
+            elif mod in _MIXER_AXES:
+                group, entry = "mixer", _MIXER_AXES[mod][leaf]
+                if mod == ATTN:
+                    axes, dims = entry
+                else:
+                    axes, dims = entry, _port_dims(mod, leaf, len(shape))
+            else:
+                group, axes = "ffn", _FFN_AXES[mod][leaf]
+                dims = _port_dims(mod, leaf, len(shape))
+            ref = _ref_shape(shape, dims, cfg.head_dim)
+            out[key] = LeafAxes(f"layers/pos{i}/{group}/{leaf}",
+                                A("layers", *axes), (cfg.n_periods,) + ref,
+                                dims, period=j)
+    return out

@@ -54,6 +54,9 @@ def test_the_slice_modules_are_covered():
                 "serving/engine.py", "serving/frontend.py",
                 "launch/serve.py", "launch/train.py",
                 "launch/mesh.py", "core/distrib.py",
+                "launch/sharding.py", "launch/programs.py",
+                "launch/roofline.py", "launch/dryrun.py",
+                "launch/localcost.py", "models/actsharding.py",
                 "models/blocks.py", "models/param.py",
                 "training/schedule.py", "training/train.py",
                 "training/checkpoint.py", "training/msgpack_lite.py",

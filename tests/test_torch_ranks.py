@@ -76,6 +76,38 @@ def spawn(world: int, fn, args, tmp_path, timeout: float = TIMEOUT_S,
     return ranks if meanwhile is None else (ranks, mine)
 
 
+def _call(fn, args, out):
+    try:
+        torch.set_num_threads(1)
+        out.put((True, fn(*args)))
+    except BaseException:
+        out.put((False, traceback.format_exc()))
+
+
+def in_child(fn, args=(), timeout: float = TIMEOUT_S):
+    """``fn(*args)`` in one spawned process, which starts whatever
+    process group it needs (the dry-run's fake group) away from the test
+    worker; returns its result, or fails on its traceback or its
+    timeout (and kills it)."""
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    proc = ctx.Process(target=_call, args=(fn, args, out), daemon=True)
+    proc.start()
+    try:
+        try:
+            ok, val = out.get(timeout=timeout)
+        except queue.Empty:
+            pytest.fail(f"{fn.__name__} did not report within {timeout} s")
+        if not ok:
+            pytest.fail(f"{fn.__name__} failed:\n{val}")
+        return val
+    finally:
+        proc.join(timeout=10)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(timeout=10)
+
+
 @contextlib.contextmanager
 def one_rank_mesh():
     """A ("data", "model") = (1, 1) CPU mesh over a process group of
@@ -108,6 +140,22 @@ def test_spawn_returns_rank_results_and_reports_a_failed_rank(tmp_path):
     assert spawn(2, _echo_sum, (10,), tmp_path) == [(0, 21), (1, 21)]
     with pytest.raises(pytest.fail.Exception, match="rank 1 breaks"):
         spawn(2, _fails_on_rank_1, (), tmp_path, timeout=60)
+
+
+def _world_after_group(world):
+    from repro_torch.launch.mesh import fake_process_group
+    with fake_process_group(world):
+        n = dist.get_world_size()
+    return n, dist.is_initialized()
+
+
+def test_in_child_returns_and_reports_a_failure():
+    """`in_child` runs a function away from the test worker (here one
+    that starts and ends a fake group of 16 ranks) and reports a raise."""
+    assert in_child(_world_after_group, (16,)) == (16, False)
+    with pytest.raises(pytest.fail.Exception, match="rank 1 breaks"):
+        in_child(_fails_on_rank_1, (1,))
+    assert not dist.is_initialized()
 
 
 def test_one_rank_mesh_builds_and_tears_down():

@@ -246,9 +246,16 @@ def test_launcher_checkpoint_reads_in_the_reference(tmp_path, capsys):
                                atol=1e-5)
 
 
-def test_launcher_refuses_the_production_mesh(capsys):
-    """Training on a mesh is slice 13 of the port: the flag is still
-    refused, by that slice's name."""
-    with pytest.raises(SystemExit):
-        launch_train.parse_args(["--production-mesh"])
-    assert "slice 13" in capsys.readouterr().err
+def test_launcher_refuses_the_production_mesh():
+    """``--production-mesh`` parses, and the launcher builds the
+    reference's 16x16 mesh, which refuses a world of one rank as
+    ``jax.make_mesh`` refuses one device: "a (16, 16) mesh needs 256
+    ranks".  The launcher starts its process group, so it runs in a
+    spawned child, away from the test worker."""
+    from test_torch_ranks import in_child
+    assert launch_train.parse_args(["--production-mesh"]).production_mesh
+    with pytest.raises(pytest.fail.Exception,
+                       match=r"a \(16, 16\) mesh needs 256 ranks"):
+        in_child(launch_train.main, (["--production-mesh", "--device",
+                                      "cpu", "--smoke", "--steps", "1"],),
+                 timeout=120)
