@@ -115,6 +115,14 @@ or the port is not beside the script.  Phases, each fatal on failure:
    ``CacheService`` and this engine over a medical trace: generations
    must equal the miss-group leaders, hits never reach the engine, and
    the kernels' launches must equal 32 per prefill and per decode step.
+   (d) The same model at ``attn_f32=False``: (a)'s generation with the
+   same launches (prefill ms, decode ms, tokens/s beside (a)'s, greedy
+   tokens agreeing with (a)'s counted); teacher-forced prefill and decode
+   logits through the kernels against the plain versions in that mode
+   (10(b)'s bf16 mean and argmax tolerances), beside the plain versions'
+   own True-vs-False gap; a 4096-token prefill (B=1, the chunked branch)
+   the same way; and a float32 copy cut to 4 layers, held under phase
+   2's bounds for the mode (relative to the logits' scale).
    (b) The same weights with float32 activations, teacher-forced: every
    decode step's logits must equal ``forward_lm``'s at the same position
    within ``DECODE_ATOL`` — the two kernels held against each other at
@@ -251,10 +259,13 @@ or the port is not beside the script.  Phases, each fatal on failure:
    train_4k, prefill_32k and decode_32k on the production 16x16 mesh,
    the shardmap cache program on the 2x16x16 multi-pod mesh (``pod``
    must shard an argument), Phi-3-mini's train_4k with the activation
-   anchors, the cache program at one rank, and the 16x16 shardmap
-   cache program again (its counts, temp included, must repeat exactly)
-   — each in a process of its own on a fake process group (no data, no
-   transfers), all started together, beside
+   anchors, the cache program at one rank, the 16x16 shardmap
+   cache program again (its counts, temp included, must repeat exactly),
+   and Phi-3-mini's prefill_32k and decode_32k with ``--attn-bf16``
+   (decode's counts must equal the flag-less run's, and prefill must
+   move fewer bytes; its bytes and temp are printed beside the
+   flag-less run's) — each in a process of its own on a fake process
+   group (no data, no transfers), all started together, beside
    ``localcost.local_count_check`` (the local flops of three sharded
    products must equal their counts by hand); every run must end with
    exit code 0 within ``DRYRUN_TIMEOUT_S``, count work and, on more
@@ -335,7 +346,17 @@ FLASH_SHAPES = (("phi3 prefill", 8, 32, 32, 32, 96, True, 0),
                 ("granite prefill", 8, 24, 8, 32, 64, True, 0),
                 ("musicgen prefill", 8, 32, 32, 288, 64, True, 0),
                 ("pixtral prefill", 8, 32, 8, 288, 128, True, 0),
-                ("jamba prefill", 8, 64, 8, 32, 128, True, 0))
+                ("jamba prefill", 8, 64, 8, 32, 128, True, 0),
+                ("phi3 chunked prefill", 1, 32, 32, 4096, 96, True, 0))
+# the bf16-accumulate mode (attn_f32=False) against its plain version in
+# the same mode: both round weights, v and sums to bf16 at the same
+# places and differ where a float32 sum order or an exp a few ulps apart
+# flips one rounding (one bf16 ulp of an output, <= 2^-8 max|v|; a few
+# carried through the chunked accumulator): max |diff| <= 2^-6 max|v|;
+# such flips are rare, while the mode itself rounds every weight: mean
+# |diff| <= 1/4 of the plain version's own attn_f32 True-vs-False gap
+ACC_BF16_MAX_REL = 2.0 ** -6
+ACC_BF16_MEAN_SHARE = 0.25
 # (name, B, H, KV, L, hd, cur, window): slot t holds the newest position
 # p <= cur with p % L == t; the step at position cur sees the filled
 # slots inside the window
@@ -359,6 +380,10 @@ LLM_NEW_TOKENS = 16        # CachedLLMService's default answer length
 # phase 7(b): float32 decode against forward_lm at full width; logits are
 # O(1) and both paths sum in float32 in another order through 32 layers
 DECODE_ATOL = 1e-3
+# phase 7(d): attn_f32=False on 7(a)'s model; a prompt that takes the
+# chunked branch (above 2048 keys), and a float32 copy cut to 4 layers
+LONG_PROMPT = 4096
+ACC_BF16_FP32_LAYERS = 4
 # phase 8(a): the hierarchy squeezed so the warm ring wraps on the trace
 # (about 1775 admissions against 256 + 1024 device rows), the cold ring
 # large enough to catch every overwrite
@@ -431,6 +456,8 @@ DRYRUN_PAIRS = (
     ("langcache", "cache_lookup", ("--mesh", "data=1,model=1", "--tag",
                                    "one")),
     ("langcache-shardmap", "cache_lookup", ("--tag", "again")),
+    ("phi3-mini-3.8b", "prefill_32k", ("--attn-bf16", "--tag", "bf16")),
+    ("phi3-mini-3.8b", "decode_32k", ("--attn-bf16", "--tag", "bf16")),
 )
 DRYRUN_TIMEOUT_S = 300
 CACHE_RUN_REPS = 5
@@ -1798,6 +1825,7 @@ def attention_kernel_phase(dev):
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
     out = {"flash": {"max_abs_err": 0.0, "by_shape": {}},
+           "flash_acc_bf16": {"max_abs_err": 0.0, "by_shape": {}},
            "decode": {"max_abs_err": 0.0, "by_shape": {}}}
 
     def check(got, want, dtype, what):
@@ -1812,6 +1840,24 @@ def attention_kernel_phase(dev):
             fail(f"{what}: {int(bad.sum())} outputs off, max |diff| "
                  f"{float(err.max()):.3g}")
         return float(err.max())
+
+    def check_acc_bf16(got, want, want_f32, v, what):
+        """The bf16-accumulate mode against its plain version (see
+        ``ACC_BF16_MAX_REL``); (max, mean |diff|, the plain version's
+        mean True-vs-False gap)."""
+        if got.shape != want.shape or got.dtype != want.dtype \
+                or not torch.isfinite(got).all():
+            fail(f"{what}: {tuple(got.shape)}/{got.dtype} vs plain "
+                 f"{tuple(want.shape)}/{want.dtype}")
+        err = (got.float() - want.float()).abs()
+        gap = float((want_f32.float() - want.float()).abs().mean())
+        lim = ACC_BF16_MAX_REL * float(v.float().abs().max())
+        if not (float(err.max()) <= lim
+                and float(err.mean()) <= ACC_BF16_MEAN_SHARE * gap):
+            fail(f"{what}: max |diff| {float(err.max()):.3g} (limit "
+                 f"{lim:.3g}), mean {float(err.mean()):.3g} (limit "
+                 f"{ACC_BF16_MEAN_SHARE} x gap {gap:.3g})")
+        return float(err.max()), float(err.mean()), gap
 
     for i, (name, B, H, KV, S, hd, causal, window) in enumerate(
             FLASH_SHAPES):
@@ -1861,6 +1907,40 @@ def attention_kernel_phase(dev):
                   + (f"; {row['warps']} warps (graph ms by warps "
                      f"{row['graph_ms_by_warps']})" if "warps" in row
                      else ""))
+
+            # the bf16-accumulate mode (attn_f32=False), the reference's
+            # branch for this length (dense, or 1024-key chunks)
+            def plain_b():
+                return fref.flash_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    acc_dtype=torch.bfloat16, **kw)
+
+            def kern_b():
+                return fops.flash_attention(q, k, v, acc_bf16=True, **kw)
+            got_b, want_b = kern_b(), plain_b().transpose(1, 2)
+            torch.cuda.synchronize()
+            err_b, mean_b, gap = check_acc_bf16(
+                got_b, want_b, want, v, f"flash_attention acc_bf16 {tag}")
+            fb = out["flash_acc_bf16"]
+            fb["max_abs_err"] = max(fb["max_abs_err"], err_b)
+            rowb = dict(ms=cuda_ms(kern_b), plain_ms=cuda_ms(plain_b, iters=5),
+                        library_ms=None, bound_ms=bound, bound_by=by,
+                        max_abs_err=err_b, mean_abs_err=mean_b,
+                        plain_gap_mean=gap, graph_ms=graph_ms(kern_b),
+                        plain_graph_ms=graph_ms(plain_b, iters=5),
+                        device_kernels=device_kernels(kern_b),
+                        kv_chunk=fref.kv_chunk_for(S, S))
+            fb["by_shape"][tag] = rowb
+            print(f"  flash_attention acc_bf16 {tag} (kv_chunk "
+                  f"{rowb['kv_chunk']}): max |diff| {err_b:.3g} (limit "
+                  f"{ACC_BF16_MAX_REL * float(v.float().abs().max()):.3g})"
+                  f", mean {mean_b:.3g} (plain True-vs-False gap {gap:.3g})"
+                  f"; eager: kernel {rowb['ms']:.4f} ms, plain "
+                  f"{rowb['plain_ms']:.4f}; graph: kernel "
+                  f"{rowb['graph_ms']:.4f}, plain "
+                  f"{rowb['plain_graph_ms']:.4f}; bound {bound:.4f} ({by})"
+                  f"; device kernels per call {rowb['device_kernels']}; "
+                  f"library none")
     for i, (name, B, H, KV, L, hd, cur, window) in enumerate(DECODE_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, valid, library = decode_case(dev, B, H, KV, L, hd, cur,
@@ -2022,7 +2102,7 @@ def generation_phase(dev, cfg) -> dict:
     return {"lm": lm, "engine": engine, "launches": counts,
             "prefill_ms": prefill_ms, "decode_ms": decode_ms,
             "tokens_per_s": tok_s, "generate_ms": wall * 1e3,
-            "profile": prof}
+            "profile": prof, "prompts": prompts, "tokens": res.tokens}
 
 
 def llm_serving_phase(dev, engine, trainer, tok) -> dict:
@@ -2138,6 +2218,157 @@ def decode_forward_phase(dev, cfg) -> dict:
                   "decode_attention": (S - t0) * cfg.n_layers}:
         fail(f"decode vs forward_lm: launches {counts}")
     return {"max_abs_err": max(errs), "positions": len(errs)}
+
+
+class attn_f32_off:
+    """Within the block the model's attention layers run at
+    ``attn_f32=False`` (bf16 softmax weights and PV sums on the
+    full-sequence paths; decode is float32 either way); the weights are
+    the model's own."""
+
+    def __init__(self, lm):
+        self.attns = [blk.attn for blk in lm.layers if hasattr(blk, "attn")]
+
+    def __enter__(self):
+        self.saved = [a.cfg for a in self.attns]
+        for a in self.attns:
+            a.cfg = a.cfg.replace(attn_f32=False)
+
+    def __exit__(self, *exc):
+        for a, cfg in zip(self.attns, self.saved):
+            a.cfg = cfg
+
+
+def logit_gap(kern, plain, plain_f32) -> dict:
+    """Kernel logits against the plain versions' in the same mode, beside
+    the plain versions' own attn_f32 True-vs-False gap."""
+    err = (kern - plain).abs()
+    return {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+            "argmax_agree": float((kern.argmax(-1) == plain.argmax(-1))
+                                  .float().mean()),
+            "gap_mean": float((plain_f32 - plain).abs().mean()),
+            "logits_max": float(plain.abs().max())}
+
+
+def acc_bf16_phase(dev, cfg, gn) -> dict:
+    """7(d) ``attn_f32=False`` on 7(a)'s full-width model: the same
+    generation (launches as at ``attn_f32=True``, greedy tokens that agree
+    with 7(a)'s counted); teacher-forced prefill and decode logits through
+    the kernels against the plain versions in the same mode (bf16, held as
+    10(b): mean and argmax), beside the plain versions at
+    ``attn_f32=True``; a ``LONG_PROMPT``-token prefill (the chunked
+    branch) the same way; and a float32 copy cut to
+    ``ACC_BF16_FP32_LAYERS`` layers, held under phase 2's bounds for the
+    mode (``ACC_BF16_MAX_REL`` of the logits' scale, ``ACC_BF16_MEAN_SHARE``
+    of the gap)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import LM
+    lm, engine, prompts = gn["lm"], gn["engine"], gn["prompts"]
+    L, steps = cfg.n_layers, GEN_NEW - 1
+    toks = torch.as_tensor(gn["tokens"], device=dev)
+    with attn_f32_off(lm):
+        engine.generate(prompts, 2)                     # warm
+        torch.cuda.synchronize()
+        attention_counts(reset=True)
+        t0 = time.perf_counter()
+        res = engine.generate(prompts, GEN_NEW)
+        wall = time.perf_counter() - t0
+        counts = attention_counts()
+        times = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            lm.prefill(prompts, GEN_PROMPT + GEN_NEW)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        kern = moe_teacher_forced(lm, prompts, toks, steps)
+        with plain_attention():
+            plain = moe_teacher_forced(lm, prompts, toks, steps)
+    with plain_attention():
+        plain32 = moe_teacher_forced(lm, prompts, toks, steps)
+    if counts != {"flash_attention": L, "decode_attention": L * GEN_NEW}:
+        fail(f"attn_f32=False generate: launches {counts}, expected {L} "
+             f"flash and {L * GEN_NEW} decode (as at attn_f32=True)")
+    prefill_ms = 1e3 * statistics.median(times)
+    decode_ms = (1e3 * wall - prefill_ms) / GEN_NEW
+    tok_s = GEN_B * GEN_NEW / wall
+    agree = float((res.tokens == gn["tokens"]).mean())
+    print(f"  generate at attn_f32=False: {tok_s:.1f} tokens/s (True "
+          f"{gn['tokens_per_s']:.1f}); prefill {prefill_ms:.3f} ms (True "
+          f"{gn['prefill_ms']:.3f}), decode {decode_ms:.3f} ms a step (True "
+          f"{gn['decode_ms']:.3f}); launches {counts}; greedy tokens equal "
+          f"to 7(a)'s at {agree:.4f} of {res.tokens.size}")
+    tf = logit_gap(kern, plain, plain32)
+    print(f"  bf16 teacher-forced (prefill + {steps} steps), kernels vs "
+          f"plain at attn_f32=False: max |dlogit| {tf['max_abs_err']:.4g}, "
+          f"mean {tf['mean_abs_err']:.4g} (tolerance {MOE_BF16_MEAN_TOL}), "
+          f"argmax equal at {tf['argmax_agree']:.4f} (tolerance "
+          f"{MOE_BF16_AGREE}); plain True-vs-False mean gap "
+          f"{tf['gap_mean']:.4g}; logits up to {tf['logits_max']:.3f}")
+    if not torch.isfinite(kern).all() or tf["mean_abs_err"] > \
+            MOE_BF16_MEAN_TOL or tf["argmax_agree"] < MOE_BF16_AGREE:
+        fail(f"attn_f32=False bf16: kernel logits off the plain path's: "
+             f"{tf}")
+    del kern, plain, plain32
+    long = np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (1, LONG_PROMPT)).astype(np.int32)
+    with attn_f32_off(lm):
+        attention_counts(reset=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        kern_l, _ = lm.prefill(long, LONG_PROMPT)
+        torch.cuda.synchronize()
+        long_ms = 1e3 * (time.perf_counter() - t1)
+        long_counts = attention_counts()
+        with plain_attention():
+            plain_l, _ = lm.prefill(long, LONG_PROMPT)
+    with plain_attention():
+        plain32_l, _ = lm.prefill(long, LONG_PROMPT)
+    if long_counts != {"flash_attention": L, "decode_attention": 0}:
+        fail(f"attn_f32=False {LONG_PROMPT}-token prefill: launches "
+             f"{long_counts}")
+    lg = logit_gap(kern_l.float(), plain_l.float(), plain32_l.float())
+    print(f"  bf16 {LONG_PROMPT}-token prefill (B=1, 1024-key chunks): "
+          f"{long_ms:.1f} ms, launches {long_counts}; kernels vs plain: max "
+          f"|dlogit| {lg['max_abs_err']:.4g}, mean {lg['mean_abs_err']:.4g}"
+          f" (tolerance {MOE_BF16_MEAN_TOL}), argmax equal "
+          f"{lg['argmax_agree'] == 1.0}; plain True-vs-False mean gap "
+          f"{lg['gap_mean']:.4g}")
+    if not torch.isfinite(kern_l).all() or lg["mean_abs_err"] > \
+            MOE_BF16_MEAN_TOL:
+        fail(f"attn_f32=False {LONG_PROMPT}-token prefill: {lg}")
+    del kern_l, plain_l, plain32_l
+    lm32 = LM(cfg.replace(dtype="float32", n_layers=ACC_BF16_FP32_LAYERS),
+              seed=0, device=dev)
+    with attn_f32_off(lm32):
+        attention_counts(reset=True)
+        kern = moe_teacher_forced(lm32, prompts, toks, MOE_FP32_STEPS)
+        counts32 = attention_counts()
+        with plain_attention():
+            plain = moe_teacher_forced(lm32, prompts, toks, MOE_FP32_STEPS)
+    with plain_attention():
+        plain32 = moe_teacher_forced(lm32, prompts, toks, MOE_FP32_STEPS)
+    del lm32
+    n = ACC_BF16_FP32_LAYERS
+    if counts32 != {"flash_attention": n,
+                    "decode_attention": n * MOE_FP32_STEPS}:
+        fail(f"attn_f32=False float32 copy: launches {counts32}")
+    f32 = logit_gap(kern, plain, plain32)
+    lim = ACC_BF16_MAX_REL * f32["logits_max"]
+    print(f"  float32, {n} layers (prefill + {MOE_FP32_STEPS} steps): max "
+          f"|dlogit| {f32['max_abs_err']:.4g} (limit {lim:.4g}), mean "
+          f"{f32['mean_abs_err']:.4g} (limit {ACC_BF16_MEAN_SHARE} x gap "
+          f"{f32['gap_mean']:.4g}), argmax equal at "
+          f"{f32['argmax_agree']:.4f}")
+    if not (f32["max_abs_err"] <= lim and f32["mean_abs_err"]
+            <= ACC_BF16_MEAN_SHARE * f32["gap_mean"]):
+        fail(f"attn_f32=False float32: kernel logits off the plain "
+             f"path's: {f32}")
+    return {"launches": counts, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "tokens_per_s": tok_s,
+            "token_agreement": agree, "teacher_forced": tf,
+            "long_prefill": dict(lg, ms=long_ms, launches=long_counts),
+            "fp32": f32}
 
 
 # ---------------------------------------------------------------------------
@@ -2846,19 +3077,25 @@ def moe_generation_phase(dev, cfg) -> dict:
 
 class plain_attention:
     """Within the block the decoder's attention runs the plain torch
-    versions on the card instead of the kernels (10(b)'s yardstick)."""
+    versions on the card instead of the kernels (10(b)'s yardstick), with
+    the kernels' arguments (the bf16-accumulate mode and its branch)."""
 
     def __enter__(self):
         from types import SimpleNamespace
+
+        import torch
         from repro_torch.kernels.decode_attention import ref as dref
         from repro_torch.kernels.flash_attention import ref as fref
         from repro_torch.models import attention
         self.saved = attention.flash_ops, attention.decode_ops
 
-        def flash(q, k, v, *, causal=True, window=0, scale=None):
+        def flash(q, k, v, *, causal=True, window=0, scale=None,
+                  acc_bf16=False, kv_chunk=None):
             return fref.flash_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                causal=causal, window=window, scale=scale).transpose(1, 2)
+                causal=causal, window=window, scale=scale,
+                acc_dtype=torch.bfloat16 if acc_bf16 else torch.float32,
+                kv_chunk=kv_chunk).transpose(1, 2)
 
         def decode(q, k, v, valid, *, scale=None):
             return dref.decode_attention(q[:, 0], k, v, valid,
@@ -4047,7 +4284,7 @@ def dryrun_phase(card: str) -> dict:
             r = json.load(f)
         mem, rf = r["memory"], r["roofline"]
         key = " ".join((a, sh, "x".join(map(str, r["mesh"])),
-                        *[x for x in flags if x.startswith("--c")],
+                        *[x for x in flags if x.startswith(("--c", "--a"))],
                         *(["again"] if "again" in flags else [])))
         rows[key] = {
             "mesh": r["mesh"], "mesh_axes": r["mesh_axes"],
@@ -4097,6 +4334,23 @@ def dryrun_phase(card: str) -> dict:
              f"process: {diff}")
     print(f"  the 16x16 shardmap cache dry-run repeats exactly in a second "
           f"process ({', '.join(same)})")
+    # --attn-bf16: decode's attention stays float32 (the reference's
+    # apply_decode), so its counts do not move; prefill's plain attention
+    # keeps P and the PV sums in bf16
+    dec = rows["phi3-mini-3.8b decode_32k 16x16"]
+    dec_b = rows["phi3-mini-3.8b decode_32k 16x16 --attn-bf16"]
+    diff = {k: (dec[k], dec_b[k]) for k in same if dec[k] != dec_b[k]}
+    if diff:
+        fail(f"decode_32k counts moved under --attn-bf16: {diff}")
+    pre = rows["phi3-mini-3.8b prefill_32k 16x16"]
+    pre_b = rows["phi3-mini-3.8b prefill_32k 16x16 --attn-bf16"]
+    print(f"  --attn-bf16: decode_32k counts equal ({', '.join(same)}); "
+          f"prefill_32k bytes/dev {pre['bytes']:.6e} -> {pre_b['bytes']:.6e}"
+          f", temp {pre['temp_bytes'] / 2**30:.3f} -> "
+          f"{pre_b['temp_bytes'] / 2**30:.3f} GiB (without -> with; {card})")
+    if not pre_b["bytes"] < pre["bytes"]:
+        fail(f"prefill_32k under --attn-bf16 moves {pre_b['bytes']:.6e} "
+             f"bytes, not fewer than {pre['bytes']:.6e}")
     print(f"  {len(DRYRUN_PAIRS)} dry-runs in {wall:.1f} s (in parallel)")
     return {"pairs": rows, "local_counts": counts, "wall_s": wall}
 
@@ -4267,8 +4521,11 @@ def sass_phase(libs: dict) -> dict:
     cascade kernels on the FMA units, and neither they nor the
     contrastive kernels spill."""
     fa = sass_counts(libs["flash_attention"])
-    bf16 = {n: c for n, c in fa.items() if "flash_attention_bf16_kernel" in n}
-    f32 = {n: c for n, c in fa.items() if "flash_attention_kernel" in n}
+    bf16 = {n: c for n, c in fa.items()
+            if "flash_attention_bf16_kernel" in n
+            or "flash_attention_bf16_acc_bf16_kernel" in n}
+    f32 = {n: c for n, c in fa.items() if "flash_attention_kernel" in n
+           or "flash_attention_acc_bf16_kernel" in n}
     if not bf16 or any(c["HMMA"] == 0 for c in bf16.values()):
         fail(f"flash_attention: a bf16 kernel without HMMA: {bf16}")
     if not f32 or any(c["HMMA"] for c in f32.values()):
@@ -4296,6 +4553,7 @@ def sass_phase(libs: dict) -> dict:
         if not usage[name] or spills:
             fail(f"{name}: spills (stack or local memory) or no resource "
                  f"usage read: {spills or usage[name]}")
+    usage["flash_attention"] = resource_usage(libs["flash_attention"])
     out = {
         "decode_attention": {
             "kernels": len(da), "mma_kernels": len(mma),
@@ -4310,6 +4568,14 @@ def sass_phase(libs: dict) -> dict:
                                  usage["cascade_lookup"].values()),
             "spills": 0},
         "flash_attention": {
+            "acc_bf16_kernels": sum("acc_bf16" in n for n in fa),
+            "acc_bf16_max_registers": max(
+                (u["REG"] for n, u in usage["flash_attention"].items()
+                 if "acc_bf16" in n), default=None),
+            "acc_bf16_spills": {n[:60]: u for n, u in
+                                usage["flash_attention"].items()
+                                if "acc_bf16" in n and (u.get("STACK", 0)
+                                                        or u.get("LOCAL", 0))},
             "bf16_kernels": len(bf16),
             "bf16_HMMA": sum(c["HMMA"] for c in bf16.values()),
             "f32_kernels": len(f32),
@@ -4327,7 +4593,8 @@ def sass_phase(libs: dict) -> dict:
           f"cosine_topk {out['cosine_topk']}; decode_attention "
           f"{out['decode_attention']}; cascade_lookup "
           f"{out['cascade_lookup']}; contrastive {out['contrastive']}")
-    for name in ("decode_attention", "cascade_lookup", "contrastive"):
+    for name in ("decode_attention", "cascade_lookup", "contrastive",
+                 "flash_attention"):
         print(f"  registers per thread, {name}: " + "; ".join(
             f"{n[:60]} {u['REG']}" for n, u in usage[name].items()))
     return out
@@ -4347,6 +4614,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products of the plain versions: float32 sums, one rounding
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     card = card_line()
     print(card)
@@ -4422,6 +4691,10 @@ def main() -> int:
     gn = generation_phase(dev, dcfg)
     print("  (c) CachedLLMService: tuned encoder, tiered cache, decoder")
     ls = llm_serving_phase(dev, gn["engine"], tr["trainer"], tr["tok"])
+    print("  (d) attn_f32=False: bf16 attention weights and sums")
+    t7d = time.perf_counter()
+    ab = acc_bf16_phase(dev, dcfg, gn)
+    print(f"  7(d) in {time.perf_counter() - t7d:.1f} s")
 
     # phase 8 runs while the phase-7 decoder is alive (8(d) drives it);
     # 7(b) builds its float32 copy after that one is freed
@@ -4660,6 +4933,24 @@ def main() -> int:
             "llm_hit_rate": ls["hit_rate"], "sass": sass.get(name),
             "batcher_launches": cb["launches"][name],
             "batcher": {k: v for k, v in cb.items() if k != "launches"},
+            **({"acc_bf16": {
+                "at": main_shape, "library_ms": None,
+                "library": "none: no PyTorch call rounds the weights and "
+                           "the accumulator as attn_f32=False does (SDPA "
+                           "computes the attn_f32=True function)",
+                "launches": ab["launches"][name],
+                "max_abs_err": ap["flash_acc_bf16"]["max_abs_err"],
+                **{k: ap["flash_acc_bf16"]["by_shape"][main_shape][k]
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "graph_ms", "plain_graph_ms", "mean_abs_err",
+                             "plain_gap_mean")},
+                "by_shape": ap["flash_acc_bf16"]["by_shape"],
+                **{k: ab[k] for k in ("prefill_ms", "decode_ms",
+                                      "tokens_per_s", "token_agreement",
+                                      "teacher_forced", "long_prefill",
+                                      "fp32")}}}
+               if name == "flash_attention" else
+               {"acc_bf16_launches": ab["launches"][name]}),
             "moe_at": moe_shape,
             "moe_generate_launches": mg["launches"][name],
             "moe_llm_launches": ml["launches"][name],

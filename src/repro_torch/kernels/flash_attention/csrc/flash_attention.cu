@@ -9,7 +9,8 @@
 // not causal) or none.  scale defaults to hd^-0.5 in the wrapper (the
 // decoder scales q in its compute dtype itself and passes 1).  Masked
 // scores are -1e30.  The (Sq x Skv) score matrix never exists in device
-// memory.  Two kernels, chosen by dtype (never after a failure):
+// memory.  Two kernels, chosen by dtype (never after a failure), each with
+// a bf16-accumulate twin (below):
 //
 // bfloat16: tensor cores (FlashAttention-2 on mma.sync).  A block of W
 // warps (W = 2 when Sq <= 32, else 4: the launch picks it) holds 16 W query
@@ -42,6 +43,22 @@
 // product over hd), reduce row max and sum over 16-lane groups, write the
 // weights back to shared memory and fold them into a 4-row x hd/16-column
 // slice of the float32 accumulator in registers.
+//
+// bf16-accumulate mode (the config's attn_f32=False; the reference model's
+// gqa_attention with acc_dtype=bfloat16), one kernel of its own per dtype,
+// chosen by the launch's acc_bf16.  Logits, row max and denominator stay
+// float32; weights and PV sums are bf16 where the reference rounds them:
+// dense (kv_chunk == 0) the normalised weights exp(s - m) / l are rounded
+// once and the output is the float32 sum of w bf16(v) rounded once to
+// bf16; chunked (kv_chunk > 0, chunks aligned to key 0) each chunk's
+// weights exp(s - m_new) are rounded, l sums them as rounded, and acc =
+// bf16(bf16(acc bf16(alpha)) + bf16(chunk's float32 P V sum)), the output
+// acc / l.  Both need a row's max before its weights: each chunk (dense:
+// the one chunk) is walked twice, once for the max (and, dense, the sum)
+// and once more for the weights and P V, so K is read twice.  Chunks (and
+// tiles) outside a block's causal or window reach are skipped: the
+// reference's fully masked leading chunks are wiped by alpha = 0 and its
+// trailing ones leave (m, l, acc) as they are.
 //
 // Both: on the TPU the KV blocks are a sequential grid axis with (m, l,
 // acc) carried in VMEM scratch and fully masked blocks skipped with
@@ -105,6 +122,82 @@ size_t smem_bytes(int hd) {
 struct Strides {
   long long b, h, s;                  // elements; the hd axis has stride 1
 };
+
+// Helpers of the bf16-accumulate kernels (below).  The float32-accumulate
+// kernels keep their own inline copies of the same steps: built from
+// these helpers, the FMA kernel ran 12-15 % slower at hd = 128 on the
+// H100 (both timed in one run).
+
+// a (row, key) pair in reach: the key before `lim` (the end of Skv or of
+// the key's chunk) and inside the causal and window masks
+__device__ __forceinline__ bool in_reach(int row, int col, int lim,
+                                         int causal, int window) {
+  bool ok = col < lim;
+  if (causal) ok = ok && col <= row;
+  if (window > 0) {
+    ok = ok && row - col < window;
+    if (!causal) ok = ok && col - row < window;
+  }
+  return ok;
+}
+
+// ---------------------------------------------------------------------------
+// float32: FMA
+// ---------------------------------------------------------------------------
+
+// s = q k^T for this thread's 4 x 4 patch of a tile (rows q0 + 4 ty + i,
+// keys k0 + 4 tx + j; q^T and k^T staged in shared memory), the pairs
+// out of reach set to kNeg
+template <int HD>
+__device__ __forceinline__ void fma_scores(const float* qs, const float* ks,
+                                           int q0, int k0, int lim, int ty,
+                                           int tx, int causal, int window,
+                                           float (&s)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < HD; ++d) {
+    const float4 a = *reinterpret_cast<const float4*>(qs + d * kLd + ty * 4);
+    const float4 c = *reinterpret_cast<const float4*>(ks + d * kLd + tx * 4);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      s[i][j] = in_reach(q0 + ty * 4 + i, k0 + tx * 4 + j, lim, causal,
+                         window)
+                    ? s[i][j]
+                    : kNeg;
+}
+
+// acc += P V for this thread's 4 rows x HD/16 columns (P^T and V staged
+// in shared memory)
+template <int HD>
+__device__ __forceinline__ void fma_pv(const float* ps, const float* vs,
+                                       int ty, int tx,
+                                       float (&acc)[4][HD / 16]) {
+#pragma unroll 4
+  for (int t = 0; t < kBK; ++t) {
+    const float4 p = *reinterpret_cast<const float4*>(ps + t * kLd + ty * 4);
+    const float* vr = vs + t * HD + tx;
+#pragma unroll
+    for (int c = 0; c < HD / 16; ++c) {
+      const float x = vr[16 * c];
+      acc[0][c] = fmaf(p.x, x, acc[0][c]);
+      acc[1][c] = fmaf(p.y, x, acc[1][c]);
+      acc[2][c] = fmaf(p.z, x, acc[2][c]);
+      acc[3][c] = fmaf(p.w, x, acc[3][c]);
+    }
+  }
+}
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -265,6 +358,84 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// whether some (row, key) pair of the block on the tile at k0 is out of
+// reach (rows q0..q_last; keys at or past `lim` are)
+__device__ __forceinline__ bool tile_edge(int k0, int lim, int q0,
+                                          int q_last, int causal,
+                                          int window) {
+  const int k1 = k0 + kTK - 1;
+  return k1 >= lim || (causal && k1 > q0) ||
+         (window > 0 && (q_last - k0 >= window ||
+                         (!causal && k1 - q0 >= window)));
+}
+
+// S = q k^T for a warp's 16 query rows against the kTK-key tile at k0 (8
+// n-tiles of 8 keys; K's row-major tile is the column-major B operand),
+// scaled to base 2, the pairs out of reach set to kNeg on an edge tile
+// (this thread's rows row0 and row0 + 8), each row's max folded into mx
+template <int HD>
+__device__ __forceinline__ void mma_scores(
+    const uint32_t (&qf)[HD / 16][4], const __nv_bfloat16* kt, int lane,
+    float scale_log2, bool edge, int row0, int k0, int lim, int causal,
+    int window, float (&s)[8][4], float (&mx)[2]) {
+  constexpr int P = HD + 8;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bf[4];
+      ptx::ldmatrix_x4(bf, kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) *
+                                    P + kk * 16 + ((lane >> 3) & 1) * 8);
+      ptx::mma_bf16_16816(s[2 * np], qf[kk], bf[0], bf[1]);
+      ptx::mma_bf16_16816(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+    }
+  }
+  const int c2 = 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[n][e] * scale_log2;
+      if (edge && !in_reach(row0 + (e >> 1) * 8, k0 + n * 8 + c2 + (e & 1),
+                            lim, causal, window))
+        x = kNeg;
+      s[n][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+}
+
+// acc += P V for a warp's 16 rows: P's accumulator fragments, rounded to
+// bf16, are the A fragments of the next m16n8k16 (P never touches shared
+// memory); V's fragments from ldmatrix.x4.trans
+template <int HD>
+__device__ __forceinline__ void mma_pv(const float (&p)[8][4],
+                                       const __nv_bfloat16* vt, int lane,
+                                       float (&acc)[HD / 8][4]) {
+  constexpr int P = HD + 8;
+#pragma unroll
+  for (int kk = 0; kk < kTK / 16; ++kk) {
+    const uint32_t a[4] = {
+        ptx::pack_bf16x2(p[2 * kk][0], p[2 * kk][1]),
+        ptx::pack_bf16x2(p[2 * kk][2], p[2 * kk][3]),
+        ptx::pack_bf16x2(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+        ptx::pack_bf16x2(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int np = 0; np < HD / 16; ++np) {
+      uint32_t bf[4];
+      ptx::ldmatrix_x4_trans(
+          bf, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
+                  np * 16 + (lane >> 4) * 8);
+      ptx::mma_bf16_16816(acc[2 * np], a, bf[0], bf[1]);
+      ptx::mma_bf16_16816(acc[2 * np + 1], a, bf[2], bf[3]);
+    }
+  }
 }
 
 template <int HD, int W>
@@ -471,61 +642,476 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// the bf16-accumulate mode (the config's attn_f32=False)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t x) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+}
+
+// The key chunks a block walks: chunk c holds keys [c C, min(c C + C, Skv))
+// (dense: one chunk, C = Skv).  A block walks the chunks from the one
+// holding k_lo to the one holding k_hi - 1, each in tiles of `tile` keys
+// from the tile (counted from the chunk's start) that holds its first key
+// in reach; keys past the chunk's end are masked.
+struct Chunks {
+  int C, k_lo, k_hi, Skv, tile;
+  __device__ int first(int c) const {
+    const int cs = c * C;
+    return cs + (max(cs, k_lo) - cs) / tile * tile;
+  }
+  __device__ int lim(int c) const { return min(c * C + C, Skv); }
+  __device__ int tiles(int c) const {
+    return (min(lim(c), k_hi) - first(c) + tile - 1) / tile;
+  }
+  __device__ int count() const { return (k_hi + C - 1) / C; }  // c < count
+};
+
+// float32 q, k, v (the FMA kernel's layout and thread map).  Each chunk is
+// walked twice: first for the row max (chunked) or the running max and
+// sum (dense, the one chunk), then for the weights, rounded to bf16, times
+// V rounded to bf16, summed in float32 into `cacc`.  Dense: the weights
+// are exp(s - m) / l and the output is cacc rounded once to bf16.
+// Chunked: the weights are exp(s - m_new), l sums them as rounded, and
+// acc = bf16(bf16(acc * bf16(alpha)) + bf16(cacc)); the output is acc / l.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_acc_bf16_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ v,
+                                float* __restrict__ o, int H, int KV, int Sq,
+                                int Skv, Strides qst, Strides kst,
+                                Strides vst, Strides ost, int causal,
+                                int window, float scale, int kv_chunk) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kCols = HD / 16;
+  float* qs = smem;
+  float* ks = qs + HD * kLd;
+  float* vs = ks + HD * kLd;
+  float* ps = vs + kBK * HD;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const int kvh = h / (H / KV);
+  const int q0 = blockIdx.y * kBQ;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const float* qb = q + b * qst.b + h * qst.h;
+  const float* kb = k + b * kst.b + kvh * kst.h;
+  const float* vb = v + b * vst.b + kvh * vst.h;
+  float* ob = o + b * ost.b + h * ost.h;
+
+  for (int i = tid; i < kBQ * HD; i += kThreads) {
+    const int r = i / HD, d = i - r * HD;
+    qs[d * kLd + r] = q0 + r < Sq ? qb[(q0 + r) * qst.s + d] * scale : 0.f;
+  }
+
+  const int q_last = min(Sq, q0 + kBQ) - 1;
+  int k_lo = 0, k_hi = Skv;
+  if (causal) k_hi = min(k_hi, q_last + 1);
+  if (window > 0) {
+    k_lo = max(0, q0 - window + 1);
+    if (!causal) k_hi = min(k_hi, q_last + window);
+  }
+  const bool chunked = kv_chunk > 0;
+  const Chunks ch{chunked ? kv_chunk : Skv, k_lo, k_hi, Skv, kBK};
+
+  float m[4], l[4], acc[4][kCols], cacc[4][kCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNeg;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = cacc[i][c] = 0.f;
+  }
+
+  for (int c = k_lo / ch.C; c < ch.count(); ++c) {
+    const int a0 = ch.first(c), a1 = a0 + ch.tiles(c) * kBK, ce = ch.lim(c);
+    float cm[4] = {kNeg, kNeg, kNeg, kNeg};
+    for (int k0 = a0; k0 < a1; k0 += kBK) {         // walk 1: statistics
+      __syncthreads();
+      for (int i = tid; i < kBK * HD; i += kThreads) {
+        const int r = i / HD, d = i - r * HD;
+        ks[d * kLd + r] = k0 + r < Skv ? kb[(k0 + r) * kst.s + d] : 0.f;
+      }
+      __syncthreads();
+      float s[4][4];
+      fma_scores<HD>(qs, ks, q0, k0, ce, ty, tx, causal, window, s);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float mx = kNeg;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mx = fmaxf(mx, s[i][j]);
+        mx = group_max(mx);
+        if (chunked) {
+          cm[i] = fmaxf(cm[i], mx);
+        } else {
+          const float m_new = fmaxf(m[i], mx);
+          float rs = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) rs += expf(s[i][j] - m_new);
+          l[i] = l[i] * expf(m[i] - m_new) + group_sum(rs);
+          m[i] = m_new;
+        }
+      }
+    }
+    float alpha[4], lc[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      lc[i] = 0.f;
+      const float m_new = fmaxf(m[i], cm[i]);      // dense: m[i]
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+    for (int k0 = a0; k0 < a1; k0 += kBK) {         // walk 2: weights . V
+      __syncthreads();
+      for (int i = tid; i < kBK * HD; i += kThreads) {
+        const int r = i / HD, d = i - r * HD;
+        const bool in = k0 + r < Skv;
+        ks[d * kLd + r] = in ? kb[(k0 + r) * kst.s + d] : 0.f;
+        vs[r * HD + d] = in ? bf16r(vb[(k0 + r) * vst.s + d]) : 0.f;
+      }
+      __syncthreads();
+      float s[4][4];
+      fma_scores<HD>(qs, ks, q0, k0, ce, ty, tx, causal, window, s);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float e = expf(s[i][j] - m[i]);
+          const float w = bf16r(chunked ? e : e / l[i]);
+          rs += w;
+          ps[(tx * 4 + j) * kLd + ty * 4 + i] = w;
+        }
+        if (chunked) lc[i] += group_sum(rs);
+      }
+      __syncthreads();
+      fma_pv<HD>(ps, vs, ty, tx, cacc);
+    }
+    if (chunked) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        l[i] = l[i] * alpha[i] + lc[i];
+        const float ab = bf16r(alpha[i]);
+#pragma unroll
+        for (int cc = 0; cc < kCols; ++cc) {
+          acc[i][cc] = bf16r(bf16r(acc[i][cc] * ab) + bf16r(cacc[i][cc]));
+          cacc[i][cc] = 0.f;
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row < Sq) {
+      const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+      for (int cc = 0; cc < kCols; ++cc)
+        ob[row * ost.s + tx + 16 * cc] =
+            chunked ? acc[i][cc] / den : bf16r(cacc[i][cc]);
+    }
+  }
+}
+
+// bfloat16 q, k, v on the tensor cores (the bf16 kernel's layout, q
+// fragments and double-buffered cp.async K / V tiles).  The same two
+// walks as above, flattened into one sequence of steps (chunk, walk,
+// tile) so that the next step's tile is in flight while this one is
+// multiplied; the statistics walk copies K only.  The weights are
+// rounded to bf16 in registers and go straight into the P V mma as its
+// A fragments; chunked, acc is kept as packed bf16 pairs.
+template <int HD, int W>
+__global__ void __launch_bounds__(W * 32)
+flash_attention_bf16_acc_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                                     const __nv_bfloat16* __restrict__ k,
+                                     const __nv_bfloat16* __restrict__ v,
+                                     __nv_bfloat16* __restrict__ o, int H,
+                                     int KV, int Sq, int Skv, Strides qst,
+                                     Strides kst, Strides vst, Strides ost,
+                                     int causal, int window,
+                                     float scale_log2, int kv_chunk) {
+  constexpr int P = HD + 8;
+  constexpr int BQ = 16 * W;
+  constexpr int kChunks = HD / 8;
+  constexpr int kThreadsB = W * 32;
+  constexpr int KS = HD / 16;
+  constexpr int NO = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + BQ * P;
+  __nv_bfloat16* vs = ks + 2 * kTK * P;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const int kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int c2 = 2 * (lane & 3);
+  const __nv_bfloat16* qb = q + b * qst.b + h * qst.h;
+  const __nv_bfloat16* kb = k + b * kst.b + kvh * kst.h;
+  const __nv_bfloat16* vb = v + b * vst.b + kvh * vst.h;
+  __nv_bfloat16* ob = o + b * ost.b + h * ost.h;
+
+  for (int i = tid; i < BQ * kChunks; i += kThreadsB) {
+    const int r = i / kChunks, c = i - r * kChunks;
+    const bool in = q0 + r < Sq;
+    ptx::cp_async_16(qs + r * P + c * 8,
+                     qb + (in ? (q0 + r) * qst.s : 0) + c * 8, in);
+  }
+  ptx::cp_async_commit();
+
+  const int q_last = min(Sq, q0 + BQ) - 1;
+  int k_lo = 0, k_hi = Skv;
+  if (causal) k_hi = min(k_hi, q_last + 1);
+  if (window > 0) {
+    k_lo = max(0, q0 - window + 1);
+    if (!causal) k_hi = min(k_hi, q_last + window);
+  }
+  const bool chunked = kv_chunk > 0;
+  const Chunks ch{chunked ? kv_chunk : Skv, k_lo, k_hi, Skv, kTK};
+  const int n_chunks = ch.count();
+
+  struct Step {
+    int c, walk, t;                     // walk 0: statistics, 1: weights
+  };
+  auto advance = [&](Step x) {
+    if (++x.t == ch.tiles(x.c)) {
+      x.t = 0;
+      if (x.walk) ++x.c;
+      x.walk ^= 1;
+    }
+    return x;
+  };
+  auto load = [&](Step x, int buf) {
+    const int k0 = ch.first(x.c) + x.t * kTK;
+    __nv_bfloat16* kd = ks + buf * kTK * P;
+    __nv_bfloat16* vd = vs + buf * kTK * P;
+    for (int i = tid; i < kTK * kChunks; i += kThreadsB) {
+      const int r = i / kChunks, c = i - r * kChunks;
+      const bool in = k0 + r < Skv;
+      const long long row = in ? k0 + r : 0;
+      ptx::cp_async_16(kd + r * P + c * 8, kb + row * kst.s + c * 8, in);
+      if (x.walk)
+        ptx::cp_async_16(vd + r * P + c * 8, vb + row * vst.s + c * 8, in);
+    }
+    ptx::cp_async_commit();
+  };
+
+  const int row0 = q0 + warp * 16 + g;
+  float m[2] = {kNeg, kNeg};
+  float l[2] = {0.f, 0.f};   // dense: this thread's share; chunked: rows'
+  float cm[2] = {kNeg, kNeg}, lc[2] = {0.f, 0.f}, alpha[2] = {1.f, 1.f};
+  float cacc[NO][4];
+  uint32_t accb[NO][2];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    accb[n][0] = accb[n][1] = 0u;     // bf16 zeros
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cacc[n][e] = 0.f;
+  }
+  uint32_t qf[KS][4];
+
+  Step cur{k_lo / ch.C, 0, 0};
+  if (cur.c < n_chunks) load(cur, 0);
+  for (int j = 0; cur.c < n_chunks; ++j) {
+    const Step nxt = advance(cur);
+    if (nxt.c < n_chunks) {
+      load(nxt, (j + 1) & 1);
+      ptx::cp_async_wait<1>();
+    } else {
+      ptx::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ptx::ldmatrix_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * P +
+                                     kk * 16 + (lane >> 4) * 8);
+    }
+    const __nv_bfloat16* kt = ks + (j & 1) * kTK * P;
+    const __nv_bfloat16* vt = vs + (j & 1) * kTK * P;
+
+    const int k0 = ch.first(cur.c) + cur.t * kTK;
+    const int ce = ch.lim(cur.c);
+    float s[8][4];
+    float mx[2] = {kNeg, kNeg};
+    mma_scores<HD>(qf, kt, lane, scale_log2,
+                   tile_edge(k0, ce, q0, q_last, causal, window), row0, k0,
+                   ce, causal, window, s, mx);
+
+    if (cur.walk == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = quad_max(mx[r]);
+        if (chunked) {
+          cm[r] = fmaxf(cm[r], mx[r]);
+        } else {
+          const float m_new = fmaxf(m[r], mx[r]);
+          l[r] *= exp2f(m[r] - m_new);
+          m[r] = m_new;
+        }
+      }
+      if (!chunked) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) l[e >> 1] += exp2f(s[n][e] - m[e >> 1]);
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = exp2f(s[n][e] - m[e >> 1]);
+          const float w = bf16r(chunked ? x : x / l[e >> 1]);
+          lc[e >> 1] += w;
+          s[n][e] = w;
+        }
+      }
+      mma_pv<HD>(s, vt, lane, cacc);  // the weights are bf16 already
+    }
+
+    if (nxt.c != cur.c || nxt.walk != cur.walk) {    // a walk ends here
+      if (cur.walk == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          if (chunked) {
+            const float m_new = fmaxf(m[r], cm[r]);
+            alpha[r] = exp2f(m[r] - m_new);
+            m[r] = m_new;
+            cm[r] = kNeg;
+          } else {
+            l[r] = quad_sum(l[r]);          // the rows' denominators
+          }
+        }
+      } else if (chunked) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l[r] = l[r] * alpha[r] + quad_sum(lc[r]);
+          lc[r] = 0.f;
+          const float ab = bf16r(alpha[r]);
+#pragma unroll
+          for (int n = 0; n < NO; ++n) {
+            const float2 a = unpack_bf16x2(accb[n][r]);
+            accb[n][r] = ptx::pack_bf16x2(
+                bf16r(a.x * ab) + bf16r(cacc[n][2 * r]),
+                bf16r(a.y * ab) + bf16r(cacc[n][2 * r + 1]));
+            cacc[n][2 * r] = cacc[n][2 * r + 1] = 0.f;
+          }
+        }
+      }
+    }
+    __syncthreads();                  // buffer j & 1 is free for step j + 2
+    cur = nxt;
+  }
+  ptx::cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    const float den = fmaxf(l[r], 1e-30f);
+    if (row < Sq) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        float2 x = make_float2(cacc[n][2 * r], cacc[n][2 * r + 1]);
+        if (chunked) {
+          x = unpack_bf16x2(accb[n][r]);
+          x.x /= den;
+          x.y /= den;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(ob + row * ost.s + n * 8 + c2) =
+            __floats2bfloat162_rn(x.x, x.y);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
+struct Call {
+  const void *q, *k, *v;
+  void* o;
+  int B, H, KV, Sq, Skv;
+  Strides qs, ks, vs, os;
+  int causal, window;
+  float scale;
+  int kv_chunk;
+  cudaStream_t stream;
+};
+
+template <typename Kern>
+int prepare(Kern kern, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int KV, int Sq, int Skv, Strides qs, Strides ks,
-               Strides vs, Strides os, int causal, int window, float scale,
-               cudaStream_t stream) {
+int launch_f32(const Call& c, bool acc_bf16) {
   const size_t smem = smem_bytes(HD);
-  auto kern = flash_attention_kernel<float, HD>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  const dim3 grid(c.B * c.H, (c.Sq + kBQ - 1) / kBQ);
+  const float *q = static_cast<const float*>(c.q),
+              *k = static_cast<const float*>(c.k),
+              *v = static_cast<const float*>(c.v);
+  float* o = static_cast<float*>(c.o);
+  if (acc_bf16) {
+    auto kern = flash_attention_acc_bf16_kernel<HD>;
+    if (const int e = prepare(kern, smem)) return e;
+    kern<<<grid, kThreads, smem, c.stream>>>(
+        q, k, v, o, c.H, c.KV, c.Sq, c.Skv, c.qs, c.ks, c.vs, c.os, c.causal,
+        c.window, c.scale, c.kv_chunk);
+  } else {
+    auto kern = flash_attention_kernel<float, HD>;
+    if (const int e = prepare(kern, smem)) return e;
+    kern<<<grid, kThreads, smem, c.stream>>>(
+        q, k, v, o, c.H, c.KV, c.Sq, c.Skv, c.qs, c.ks, c.vs, c.os, c.causal,
+        c.window, c.scale);
   }
-  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, KV, Sq, Skv,
-      qs, ks, vs, os, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD, int W>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int KV, int Sq, int Skv, Strides qs, Strides ks,
-                Strides vs, Strides os, int causal, int window, float scale,
-                cudaStream_t stream) {
+int launch_bf16(const Call& c, bool acc_bf16) {
   const size_t smem = bf16_smem_bytes<HD, W>();
-  auto kern = flash_attention_bf16_kernel<HD, W>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  const dim3 grid(c.B * c.H, (c.Sq + 16 * W - 1) / (16 * W));
+  const __nv_bfloat16 *q = static_cast<const __nv_bfloat16*>(c.q),
+                      *k = static_cast<const __nv_bfloat16*>(c.k),
+                      *v = static_cast<const __nv_bfloat16*>(c.v);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(c.o);
+  if (acc_bf16) {
+    auto kern = flash_attention_bf16_acc_bf16_kernel<HD, W>;
+    if (const int e = prepare(kern, smem)) return e;
+    kern<<<grid, W * 32, smem, c.stream>>>(
+        q, k, v, o, c.H, c.KV, c.Sq, c.Skv, c.qs, c.ks, c.vs, c.os, c.causal,
+        c.window, c.scale * kLog2e, c.kv_chunk);
+  } else {
+    auto kern = flash_attention_bf16_kernel<HD, W>;
+    if (const int e = prepare(kern, smem)) return e;
+    kern<<<grid, W * 32, smem, c.stream>>>(
+        q, k, v, o, c.H, c.KV, c.Sq, c.Skv, c.qs, c.ks, c.vs, c.os, c.causal,
+        c.window, c.scale * kLog2e);
   }
-  const dim3 grid(B * H, (Sq + 16 * W - 1) / (16 * W));
-  kern<<<grid, W * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      H, KV, Sq, Skv, qs, ks, vs, os, causal, window, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch_bf16_w(int warps, const void* q, const void* k, const void* v,
-                  void* o, int B, int H, int KV, int Sq, int Skv, Strides qs,
-                  Strides ks, Strides vs, Strides os, int causal, int window,
-                  float scale, cudaStream_t st) {
-  if (warps == 2)
-    return launch_bf16<HD, 2>(q, k, v, o, B, H, KV, Sq, Skv, qs, ks, vs, os,
-                              causal, window, scale, st);
-  if (warps == 4)
-    return launch_bf16<HD, 4>(q, k, v, o, B, H, KV, Sq, Skv, qs, ks, vs, os,
-                              causal, window, scale, st);
+int launch_hd(const Call& c, int dtype, int warps, bool acc_bf16) {
+  if (dtype == 0) return launch_f32<HD>(c, acc_bf16);
+  if (dtype == 1 && warps == 2) return launch_bf16<HD, 2>(c, acc_bf16);
+  if (dtype == 1 && warps == 4) return launch_bf16<HD, 4>(c, acc_bf16);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -536,10 +1122,14 @@ extern "C" {
 // One launch on `stream`.  q and o are (B, H, Sq, hd), k and v
 // (B, KV, Skv, hd), each given by its base pointer and its (b, h, s)
 // element strides (hd contiguous), all of one dtype: 0 = float32 (the FMA
-// kernel), 1 = bfloat16 (the tensor-core kernel, `warps` of 16 query rows
-// per block, 2 or 4; base pointers and strides 16-byte aligned).  Returns
-// cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for an hd, dtype or warp count it lacks.
+// kernels), 1 = bfloat16 (the tensor-core kernels, `warps` of 16 query
+// rows per block, 2 or 4; base pointers and strides 16-byte aligned).
+// acc_bf16 = 0: the float32-accumulate kernels (kv_chunk is ignored: one
+// online softmax computes the dense and the chunked function alike);
+// 1: the bf16-accumulate kernels, dense when kv_chunk == 0, else over
+// kv_chunk-key chunks.  Returns cudaGetLastError() after the launch (0 =
+// launched), or cudaErrorInvalidValue for an hd, dtype, warp count or
+// chunk width it lacks.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int H, int KV, int Sq, int Skv,
                            int hd, int dtype, long long qsb, long long qsh,
@@ -547,41 +1137,21 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            long long kss, long long vsb, long long vsh,
                            long long vss, long long osb, long long osh,
                            long long oss, int causal, int window, float scale,
-                           int warps, void* stream) {
-  const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
-      os{osb, osh, oss};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    switch (hd) {
-      case 32: return launch_f32<32>(q, k, v, o, B, H, KV, Sq, Skv, qs, ks,
-                                     vs, os, causal, window, scale, s);
-      case 64: return launch_f32<64>(q, k, v, o, B, H, KV, Sq, Skv, qs, ks,
-                                     vs, os, causal, window, scale, s);
-      case 96: return launch_f32<96>(q, k, v, o, B, H, KV, Sq, Skv, qs, ks,
-                                     vs, os, causal, window, scale, s);
-      case 128: return launch_f32<128>(q, k, v, o, B, H, KV, Sq, Skv, qs, ks,
-                                       vs, os, causal, window, scale, s);
-      default: return (int)cudaErrorInvalidValue;
-    }
+                           int warps, int acc_bf16, int kv_chunk,
+                           void* stream) {
+  if (kv_chunk < 0) return (int)cudaErrorInvalidValue;
+  const Call c{q, k, v, o, B, H, KV, Sq, Skv,
+               Strides{qsb, qsh, qss}, Strides{ksb, ksh, kss},
+               Strides{vsb, vsh, vss}, Strides{osb, osh, oss},
+               causal, window, scale, kv_chunk,
+               static_cast<cudaStream_t>(stream)};
+  switch (hd) {
+    case 32: return launch_hd<32>(c, dtype, warps, acc_bf16 != 0);
+    case 64: return launch_hd<64>(c, dtype, warps, acc_bf16 != 0);
+    case 96: return launch_hd<96>(c, dtype, warps, acc_bf16 != 0);
+    case 128: return launch_hd<128>(c, dtype, warps, acc_bf16 != 0);
+    default: return (int)cudaErrorInvalidValue;
   }
-  if (dtype == 1) {
-    switch (hd) {
-      case 32: return launch_bf16_w<32>(warps, q, k, v, o, B, H, KV, Sq, Skv,
-                                        qs, ks, vs, os, causal, window, scale,
-                                        s);
-      case 64: return launch_bf16_w<64>(warps, q, k, v, o, B, H, KV, Sq, Skv,
-                                        qs, ks, vs, os, causal, window, scale,
-                                        s);
-      case 96: return launch_bf16_w<96>(warps, q, k, v, o, B, H, KV, Sq, Skv,
-                                        qs, ks, vs, os, causal, window, scale,
-                                        s);
-      case 128: return launch_bf16_w<128>(warps, q, k, v, o, B, H, KV, Sq,
-                                          Skv, qs, ks, vs, os, causal, window,
-                                          scale, s);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

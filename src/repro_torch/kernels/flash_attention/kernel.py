@@ -9,6 +9,9 @@ The kernel reads and writes through element strides, so `launch` takes
 model's (B, S, H, hd) tensors go in as ``x.transpose(1, 2)``, with no
 copy.  bfloat16 runs on the tensor cores in blocks of `warps` warps of
 16 query rows each; float32 on the FMA kernel (64 query rows a block).
+Each dtype has a bf16-accumulate mode (the config's ``attn_f32=False``),
+dense or over ``kv_chunk``-key chunks, in a kernel of its own that walks
+the keys twice (see the source); one launch a call in every mode.
 
 ``COUNTS["flash_attention"]`` counts launches: `launch` adds one where
 it launches the kernel, and nowhere else.
@@ -38,7 +41,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_launch.argtypes = [
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
         _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-        _I, _I, ctypes.c_float, _I, _P]
+        _I, _I, ctypes.c_float, _I, _I, _I, _P]
     lib.flash_attention_launch.restype = ctypes.c_int
 
 
@@ -58,12 +61,14 @@ def warps(Sq: int) -> int:
     return 2 if Sq <= 32 else 4
 
 
-def launch(q, k, v, out, *, causal: bool, window: int, scale: float):
+def launch(q, k, v, out, *, causal: bool, window: int, scale: float,
+           acc_bf16: bool = False, kv_chunk: int = 0):
     """q, out: (B, H, Sq, hd); k, v: (B, KV, Skv, hd) — checked CUDA
     tensors of one dtype, last axis contiguous, any other strides (see
-    `ops.flash_attention`).  Writes ``out`` and returns it.  Launches on
-    the current stream, does not synchronise; raises if the launch is
-    refused."""
+    `ops.flash_attention`).  ``acc_bf16``: the bf16-accumulate mode, dense
+    (``kv_chunk`` 0) or over ``kv_chunk``-key chunks.  Writes ``out`` and
+    returns it.  Launches on the current stream, does not synchronise;
+    raises if the launch is refused."""
     lib = _lib()
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
@@ -73,7 +78,7 @@ def launch(q, k, v, out, *, causal: bool, window: int, scale: float):
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV,
         Sq, Skv, hd, DTYPES[q.dtype], *strides, int(causal), int(window),
-        float(scale), warps(Sq),
+        float(scale), warps(Sq), int(acc_bf16), int(kv_chunk),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "

@@ -9,11 +9,18 @@ tensors also need 16-byte aligned base pointers and (b, s, h) strides
 (its tensor-core kernel copies rows with 16-byte ``cp.async``); the
 model's separate q, k and v projections are.  It refuses a window that
 leaves some query row with no key in reach (Sq >= Skv + W), where the
-plain version averages v over every key.  The kernel has no backward:
+plain version averages v over every key.  ``acc_bf16`` is the config's
+``attn_f32=False`` (bf16 weights and PV sums, `ref.flash_attention`
+with ``acc_dtype=torch.bfloat16``) and ``kv_chunk`` the reference's
+branch (0 dense, else the chunk width; ``None``: `ref.kv_chunk_for`); in
+float32 the kernel's one online softmax computes either branch.  The
+kernel has no backward:
 on a card it refuses inputs that require grad while autograd records
 (`refuse_autograd`); the CPU path stays the differentiable plain version.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -23,16 +30,21 @@ from repro_torch.kernels.flash_attention import ref as _ref
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    scale=None):
+                    scale=None, acc_bf16: bool = False,
+                    kv_chunk: Optional[int] = None):
     """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) -> (B, Sq, H, hd); see
-    `ref.flash_attention` for the masks and ``scale``."""
+    `ref.flash_attention` for the masks, ``scale`` and the branches."""
     dev = q.device
     hd = q.shape[-1]
     scale = hd ** -0.5 if scale is None else scale
+    if kv_chunk is None:
+        kv_chunk = _ref.kv_chunk_for(q.shape[1], k.shape[1])
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if dev.type == "cpu":
-        return _ref.flash_attention(qt, kt, vt, causal=causal, window=window,
-                                    scale=scale).transpose(1, 2)
+        return _ref.flash_attention(
+            qt, kt, vt, causal=causal, window=window, scale=scale,
+            acc_dtype=torch.bfloat16 if acc_bf16 else torch.float32,
+            kv_chunk=kv_chunk).transpose(1, 2)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, "
                          f"got {dev}")
@@ -54,6 +66,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                          f"{_kernel.HEAD_DIMS}, got {hd}")
     if KV == 0 or H % KV or Skv == 0:
         raise ValueError(f"need Skv >= 1 and H={H} a multiple of KV={KV}")
+    if kv_chunk < 0:
+        raise ValueError(f"kv_chunk must be 0 (dense) or a width, got "
+                         f"{kv_chunk}")
     if window > 0 and Sq >= Skv + window:
         raise ValueError(f"window {window} leaves query rows past "
                          f"{Skv + window - 1} with no key (Sq={Sq}, "
@@ -76,5 +91,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                 f"{_kernel.ALIGN} bytes")
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
     _kernel.launch(qt, kt, vt, out.transpose(1, 2), causal=causal,
-                   window=window, scale=scale)
+                   window=window, scale=scale, acc_bf16=acc_bf16,
+                   kv_chunk=kv_chunk)
     return out

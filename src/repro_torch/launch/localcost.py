@@ -17,7 +17,8 @@ What is counted, per device (`LocalCost`):
   the ops ``DTensor`` runs on global fake tensors to propagate shapes,
   or on constants of its own bookkeeping, are not work and are skipped;
 * bytes accessed: every non-view local op's operand and result bytes,
-  unfused, so larger than XLA's post-fusion figure;
+  unfused, so larger than XLA's post-fusion figure (an allocation reads
+  nothing, and an ``out=`` tensor is written, not read);
 * collectives: every collective issued on this rank (``DTensor``'s
   functional collectives and the port's own ``dist.all_gather``), its
   output bytes and group, into `launch.roofline`'s ring model.
@@ -71,9 +72,9 @@ _C10D = {"allgather_": "all-gather", "_allgather_base_": "all-gather",
 TOKEN_LOOP_LIMIT = 256
 _PROP_ROOTS = (aten.empty_strided.default, aten.lift_fresh.default,
                aten.lift_fresh_copy.default)
-_NO_BYTES = {"empty", "empty_strided", "new_empty", "new_empty_strided",
-             "detach", "alias", "lift_fresh", "_unsafe_view", "t",
-             "wait_tensor"}
+_NO_BYTES = {"empty", "empty_like", "empty_strided", "new_empty",
+             "new_empty_strided", "detach", "alias", "lift_fresh",
+             "_unsafe_view", "t", "wait_tensor"}
 
 
 def tensors_in(tree, out=None) -> list:
@@ -179,7 +180,9 @@ class LocalCost(TorchDispatchMode):
                     t.untyped_storage()._cdata not in held:
                 self._track(t)
         if name not in _NO_BYTES:        # an allocation reads nothing
-            self.bytes += sum(nbytes_of(t) for t in ins)
+            read = tensors_in((args, {k: v for k, v in kwargs.items()
+                                      if k != "out"}))
+            self.bytes += sum(nbytes_of(t) for t in read)
             self.bytes += sum(nbytes_of(t) for t in outs)
 
     def _collective(self, func, args, out) -> bool:

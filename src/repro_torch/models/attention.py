@@ -5,11 +5,16 @@ and prefill (with its KV-cache build), and single-token decode against a
 
 Order of operations follows the reference (`repro/models/attention.py`
 ``gqa_attention``, ``apply_full``, ``apply_prefill``, ``apply_decode``):
-q is scaled by ``head_dim ** -0.5`` *in the compute dtype*, the logits
-and the softmax run in float32 (``attn_f32``), the PV product
-accumulates in float32 and the output is cast back.  RoPE is applied to
-k before the cache write, so decode needs no position recompute; the
-ring buffer stores each slot's absolute position for masking.
+q is scaled by ``head_dim ** -0.5`` *in the compute dtype*, the logits,
+their max and the softmax denominator run in float32, and the softmax
+weights and the PV sum are float32 or, under ``attn_f32=False``, bf16
+on every full-sequence path (dense up to ``CHUNK_THRESHOLD`` keys, above
+it ``KV_CHUNK``-key chunks of an online softmax, each branch rounding
+where the reference's does); the output is cast back.  Decode stays
+float32 whatever ``attn_f32`` says, as the reference's ``apply_decode``
+(it passes no ``acc_dtype``).  RoPE is applied to k before the cache
+write, so decode needs no position recompute; the ring buffer stores
+each slot's absolute position for masking.
 
 * Training (``Attention.forward_full``, the reference's ``apply_full``,
   which ``LM.lm_loss`` runs) and the encoder's non-causal path are plain
@@ -21,9 +26,12 @@ ring buffer stores each slot's absolute position for masking.
   that require grad.
 * Causal or windowed attention over a sequence at serving time (prefill,
   ``forward_lm``) goes through `kernels.flash_attention.ops.flash_attention`
-  with implicit positions — on a card the hand-written CUDA kernel.  The
-  reference's dense, chunked (above 2048 tokens) and local-window
-  branches all compute this one function.
+  with implicit positions — on a card the hand-written CUDA kernel — with
+  the reference's branch (`kv_chunk_for`): in float32 the dense,
+  chunked and local-window branches compute one function, and under
+  ``attn_f32=False`` the kernel's bf16-accumulate mode rounds as the
+  branch the reference takes (``local_window_attention``'s calls are
+  dense).
 * Decode builds one (B, L) mask ``(pos >= 0) & (pos <= cur) &
   (cur - pos < W)`` and goes through
   `kernels.decode_attention.ops.decode_attention`.
@@ -172,6 +180,16 @@ def local_window_attention(q: torch.Tensor, k: torch.Tensor,
     return torch.cat(outs, dim=1)[:, :S]
 
 
+def kv_chunk_for(cfg: ModelConfig, Sq: int, Skv: int) -> int:
+    """The reference's branch for a query block against ``Skv`` keys: 0
+    (dense) up to ``CHUNK_THRESHOLD`` keys or for a single query, else
+    the chunk width, ``KV_CHUNK`` widened to ``ceil(Skv / 32)`` under the
+    config's ``unroll_inner`` (the dry-run's programs set it)."""
+    if Skv <= CHUNK_THRESHOLD or Sq <= 1:
+        return 0
+    return max(KV_CHUNK, -(-Skv // 32)) if cfg.unroll_inner else KV_CHUNK
+
+
 def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
     return min(cfg.sliding_window, seq_len) if cfg.sliding_window > 0 \
         else seq_len
@@ -244,27 +262,26 @@ class Attention(nn.Module):
         return F.linear(o.reshape(B, S, -1), self.wo.to(o.dtype))
 
     def _scaled(self, q: torch.Tensor) -> torch.Tensor:
-        if not self.cfg.attn_f32:
-            raise NotImplementedError(
-                "attn_f32=False (bf16 softmax weights) is not supported by "
-                "the serving attention kernels, which accumulate in float32 "
-                "(ROADMAP queue A item 2); training through LM.lm_loss "
-                "honours it")
         return q * self.cfg.head_dim ** -0.5
 
     def forward(self, x: torch.Tensor, sin: torch.Tensor,
                 cos: torch.Tensor) -> torch.Tensor:
         """Full sequence at serving time.  x: (B, S, d) in the compute
         dtype.  Causal or windowed attention goes through the flash
-        kernel (no backward); the encoder's bidirectional attention is
+        kernel (no backward) with ``apply_full``'s branch: dense for a
+        causal window W with S > 2W (``local_window_attention``'s calls),
+        else as prefill; the encoder's bidirectional attention is
         `forward_full`'s."""
         cfg = self.cfg
         if not (cfg.causal or cfg.sliding_window):
             return self.forward_full(x, sin, cos)
+        S, W = x.shape[1], cfg.sliding_window
         q, k, v = self._qkv(x, sin, cos)
         o = flash_ops.flash_attention(
-            self._scaled(q), k, v, causal=cfg.causal,
-            window=cfg.sliding_window, scale=1.0)
+            self._scaled(q), k, v, causal=cfg.causal, window=W, scale=1.0,
+            acc_bf16=not cfg.attn_f32,
+            kv_chunk=0 if W > 0 and cfg.causal and S > 2 * W
+            else kv_chunk_for(cfg, S, S))
         return self._out(o)
 
     def forward_full(self, x: torch.Tensor, sin: torch.Tensor,
@@ -299,12 +316,14 @@ class Attention(nn.Module):
         """Causal attention over the prompt, and the cache filled in
         place: with L >= S slots the prompt's tokens in order, else the
         last L tokens at slots ``t % L`` (the ring buffer)."""
+        cfg = self.cfg
         S = x.shape[1]
         L = cache["k"].shape[1]
         q, k, v = self._qkv(x, sin, cos)
         o = flash_ops.flash_attention(self._scaled(q), k, v, causal=True,
-                                      window=self.cfg.sliding_window,
-                                      scale=1.0)
+                                      window=cfg.sliding_window, scale=1.0,
+                                      acc_bf16=not cfg.attn_f32,
+                                      kv_chunk=kv_chunk_for(cfg, S, S))
         kd = cache["k"].dtype
         if L >= S:
             cache["k"][:, :S] = k.to(kd)
@@ -324,7 +343,9 @@ class Attention(nn.Module):
                cache: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One token at absolute position ``cur_len`` (the tokens already
         in the cache).  x: (B, 1, d).  Writes slot ``cur_len % L`` in
-        place; past L without a window this wraps, as the reference."""
+        place; past L without a window this wraps, as the reference.
+        The weights and the PV sum are float32 under either ``attn_f32``,
+        as the reference's ``apply_decode``."""
         L = cache["k"].shape[1]
         q, k, v = self._qkv(x, sin, cos)
         slot = cur_len % L

@@ -38,7 +38,12 @@ serving- and training-shape checks in ``chip_smoke.py`` do not.
   the ``scale`` argument and the refusals; for the bf16 tensor-core
   kernel, Sq of 1, 17, 33 and 100 (2- and 4-warp blocks, ragged 16-row
   warp tiles), Skv off the 64-row K/V tiles, and misaligned views
-  refused (float32 takes them);
+  refused (float32 takes them); the bf16-accumulate mode
+  (``attn_f32=False``), dense and chunked (a chunk of one tile, a chunk
+  off the tile, a window across chunks, bidirectional chunks, a ragged
+  last chunk), against its plain version in that mode: max |diff|
+  within 2^-6 max|v| and mean |diff| within a quarter of the plain
+  version's own True-vs-False gap (`chip_smoke.py`'s bounds);
 * decode attention: the same dtypes and widths, ragged cache lengths,
   random, ring-buffer and fully masked validity, MHA, GQA and MQA, 128
   query heads on one KV head, and the refusals (misaligned caches);
@@ -1019,6 +1024,42 @@ def test_flash_attention_bf16_refuses_misaligned_views(dev):
             fa_ops.flash_attention(xb, xb, xb)
         assert fa_kernel.COUNTS["flash_attention"] == before
         _flash_check(x, x, x, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128])
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,causal,window,kv_chunk", [
+    (2, 4, 2, 100, 100, True, 0, 0),      # dense, GQA, ragged
+    (1, 4, 4, 64, 64, False, 0, 0),       # dense, bidirectional
+    (1, 4, 2, 200, 200, True, 48, 0),     # dense, sliding window
+    (1, 8, 2, 33, 80, True, 0, 0),        # dense, fewer queries than keys
+    (1, 4, 2, 300, 300, True, 0, 64),     # a chunk of one tile
+    (1, 4, 2, 300, 300, True, 0, 100),    # chunks off the tiles, ragged
+    (1, 4, 1, 300, 300, True, 70, 100),   # a window across chunks
+    (2, 4, 4, 130, 130, False, 0, 48),    # bidirectional chunks
+])
+def test_flash_attention_acc_bf16_matches_plain_version(
+        dev, dtype, hd, B, H, KV, Sq, Skv, causal, window, kv_chunk):
+    g = torch.Generator(device=dev).manual_seed(hd * 5 + Sq + kv_chunk)
+    q = torch.randn(B, Sq, H, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, Skv, KV, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, Skv, KV, hd, generator=g, device=dev).to(dtype)
+    kw = dict(causal=causal, window=window, kv_chunk=kv_chunk)
+    t = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    want = fa_ref.flash_attention(*t, acc_dtype=torch.bfloat16,
+                                  **kw).transpose(1, 2).float()
+    want32 = fa_ref.flash_attention(*t, **kw).transpose(1, 2).float()
+    before = fa_kernel.COUNTS["flash_attention"]
+    got = fa_ops.flash_attention(q, k, v, acc_bf16=True, **kw)
+    torch.cuda.synchronize()
+    assert fa_kernel.COUNTS["flash_attention"] == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    assert torch.isfinite(got).all()
+    err = (got.float() - want).abs()
+    gap = float((want32 - want).abs().mean())
+    assert float(err.max()) <= 2.0 ** -6 * float(v.float().abs().max())
+    assert float(err.mean()) <= 0.25 * gap, (float(err.mean()), gap)
 
 
 def _bf16_view(x):

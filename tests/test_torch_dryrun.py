@@ -3,9 +3,9 @@
 decode programs run as ``DTensor``s over fake tensors, and their
 argument bytes per device equal the reference's ``sharded_bytes`` of its
 own program on a mesh of the same shape; the local flop count of
-sharded products equals their count by hand; ``--attn-bf16`` on a
-serving program is a listed failure and exit code 1, as the
-reference's ``main`` reports a failed pair.
+sharded products equals their count by hand; ``--attn-bf16`` runs the
+serving programs: decode counts as without it, prefill moves fewer
+bytes.
 
 Every dry-run starts a fake process group, so each runs in a spawned
 child (`test_torch_ranks.in_child`), never in the test worker; this
@@ -39,14 +39,32 @@ def _run_cases(cases):
     return out
 
 
-def _attn_bf16_main():
+def _attn_bf16_runs():
+    """Reduced Phi-3-mini's decode_32k and prefill_32k on the 2x2 mesh
+    without and with ``attn_f32=False``, then ``main --attn-bf16`` on
+    decode_32k at full width; (counts, main's exit code)."""
     from repro_torch.launch import dryrun
+    counts = {}
+    for shape in ("decode_32k", "prefill_32k"):
+        for bf16 in (False, True):
+            r = dryrun.run_one(
+                "phi3-mini-3.8b", shape, mesh=MESH, device="cpu",
+                verbose=False, reduced=True,
+                overrides={"attn_f32": False} if bf16 else None)
+            counts[shape, bf16] = {
+                "args": r["memory"]["argument_bytes_per_device"],
+                "temp": r["memory"]["temp_bytes_per_device"],
+                "flops": r["roofline"]["per_device_flops"],
+                "bytes": r["roofline"]["per_device_bytes"],
+                "collective": r["roofline"]["per_device_collective_bytes"],
+                "fallbacks": r["fallbacks"]}
     try:
         dryrun.main(["--arch", "phi3-mini-3.8b", "--shape", "decode_32k",
-                     "--attn-bf16", "--device", "cpu"])
+                     "--attn-bf16", "--device", "cpu", "--mesh",
+                     "data=2,model=2"])
     except SystemExit as e:
-        return e.code
-    return 0
+        return counts, e.code
+    return counts, 0
 
 
 def reference_arg_bytes(arch, shape, mesh, rules="train"):
@@ -101,10 +119,21 @@ def test_local_flops_are_the_hand_count():
         assert count == hand, name
 
 
-def test_attn_bf16_on_a_serving_program_is_a_listed_failure():
-    """The serving attention refuses ``attn_f32=False`` (slice 14 of the
-    port lifts it): ``main`` lists the pair and exits 1."""
-    assert in_child(_attn_bf16_main, timeout=180) == 1
+def test_attn_bf16_runs_the_serving_programs():
+    """``--attn-bf16`` (``attn_f32=False``) on Phi-3-mini's serving
+    programs: every run ends (``main`` exits 0); decode counts exactly as
+    without the flag (its attention stays float32, as the reference's
+    ``apply_decode``); prefill's chunked plain attention keeps P and the
+    PV sums in bf16 and moves fewer bytes than without the flag, at the
+    same argument bytes."""
+    counts, code = in_child(_attn_bf16_runs, timeout=240)
+    assert code == 0
+    assert counts["decode_32k", True] == counts["decode_32k", False]
+    off, on = counts["prefill_32k", False], counts["prefill_32k", True]
+    assert on["bytes"] < off["bytes"], (on["bytes"], off["bytes"])
+    assert on["args"] == off["args"]
+    for c in counts.values():
+        assert set(c["fallbacks"]) <= set(KNOWN_FALLBACKS)
 
 
 def _temps_with_and_without_gc(cases):

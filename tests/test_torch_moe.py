@@ -349,10 +349,24 @@ def test_launcher_serves_granite_moe_on_the_cpu():
 
 @pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "musicgen-large"])
 def test_mixers_still_to_port_are_refused(name):
-    """Every mixer is ported now (the Mamba and xLSTM layers too); what is
-    still refused is ``attn_f32=False`` on a decoder, which would change
-    the accumulate type inside both attention kernels: the model builds,
-    and its attention refuses at the first call."""
-    lm = LM(get_config(name).reduced(attn_f32=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="attn_f32=False"):
-        lm.prefill(_tokens(lm.cfg, S=4), 8)
+    """Nothing is refused any more: every mixer is ported, and
+    ``attn_f32=False`` on a decoder (bf16 attention weights and sums on
+    the full-sequence paths; decode stays float32, as the reference's
+    ``apply_decode``) builds and serves.  Prefill and one decode step's
+    logits from carried weights within the float32 tolerance of the
+    reference's at ``attn_f32=False``."""
+    jcfg = jget_config(name).reduced(attn_f32=False)
+    pcfg = get_config(name).reduced(attn_f32=False)
+    pv, _ = split(init_lm(jcfg, jax.random.PRNGKey(0)))
+    lm = LM(pcfg, device="cpu")
+    lm.load_state_dict(state_dict_from_reference(
+        jax.tree_util.tree_map(np.asarray, pv), pcfg))
+    toks = _tokens(jcfg, S=5)
+    want, jstate = jprefill(pv, jcfg, jnp.asarray(toks[:, :4]), 8)
+    with torch.no_grad():
+        got, state = lm.prefill(toks[:, :4], 8)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[jcfg.dtype])
+    want, _ = jdecode_step(pv, jcfg, jstate, jnp.asarray(toks[:, 4:]))
+    with torch.no_grad():
+        got, _ = lm.decode_step(state, torch.from_numpy(toks[:, 4:]))
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[jcfg.dtype])
