@@ -18,7 +18,8 @@ or the port is not beside the script.  Phases, each fatal on failure:
    and the others none; the cascade kernels must be ``FFMA`` with no
    ``HMMA``; and ``cuobjdump --dump-resource-usage`` must show no stack
    or local memory (no spill) in the decode, cascade and contrastive
-   kernels;
+   kernels and the bf16 flash kernels of the bf16-accumulate mode (every
+   such kernel's registers printed);
 2. kernel parity, each kernel against its plain torch version on the
    same CUDA tensors, all timed with CUDA events (median of repeats
    after warm-up) over eager calls and over replays of a captured CUDA
@@ -69,6 +70,14 @@ or the port is not beside the script.  Phases, each fatal on failure:
      library yardstick, never on the port's path); and, untimed, the
      decode kernel's split edges: a cache of L=30001 (ragged in its
      last split and tile) and a split whose every slot is masked;
+   * flash attention's bf16-accumulate mode (``attn_f32=False``) at every
+     flash shape in both dtypes and, bf16 only, at the route edges of
+     ``FLASH_ACC_BF16_EDGES``: held to its plain version in that mode
+     (``ACC_BF16_MAX_REL``, ``ACC_BF16_MEAN_SHARE``), timed beside the
+     float32-accumulate kernel on the same inputs (their graph-time
+     ratio printed) and, bf16, with the route the launch takes (one or
+     two walks, warps, shared memory; ``tests/torch_flash_routes.py``
+     times the routes it does not take);
 3. serving: the full-width ``modernbert-149m`` encoder (seeded random
    weights) behind ``CacheService(fused=True)`` and
    ``CachedLLMService(engine=None)``, a 4096-query medical trace in
@@ -121,8 +130,9 @@ or the port is not beside the script.  Phases, each fatal on failure:
    logits through the kernels against the plain versions in that mode
    (10(b)'s bf16 mean and argmax tolerances), beside the plain versions'
    own True-vs-False gap; a 4096-token prefill (B=1, the chunked branch)
-   the same way; and a float32 copy cut to 4 layers, held under phase
-   2's bounds for the mode (relative to the logits' scale).
+   the same way, timed at ``attn_f32=False`` and at ``True`` side by
+   side; and a float32 copy cut to 4 layers, held under phase 2's
+   bounds for the mode (relative to the logits' scale).
    (b) The same weights with float32 activations, teacher-forced: every
    decode step's logits must equal ``forward_lm``'s at the same position
    within ``DECODE_ATOL`` — the two kernels held against each other at
@@ -357,6 +367,17 @@ FLASH_SHAPES = (("phi3 prefill", 8, 32, 32, 32, 96, True, 0),
 # |diff| <= 1/4 of the plain version's own attn_f32 True-vs-False gap
 ACC_BF16_MAX_REL = 2.0 ** -6
 ACC_BF16_MEAN_SHARE = 0.25
+# (name, B, H, KV, S, hd, causal, window): the bf16 mode's route edges,
+# bf16 only: the longest one walk (the last 64-row block reaches 192 keys,
+# `ONE_WALK_TILES` tiles), two walks over an odd tile count (5: the paired
+# statistics step's second tile missing), whole 1024-key chunks at hd
+# 128, a ragged last chunk of 77 keys, and a window starting mid-chunk
+FLASH_ACC_BF16_EDGES = (("one walk at capacity", 2, 8, 8, 192, 128, True, 0),
+                        ("two walks, odd tiles", 2, 8, 4, 300, 96, True, 0),
+                        ("chunks at hd 128", 1, 8, 8, 3072, 128, True, 0),
+                        ("ragged last chunk", 1, 8, 8, 4096 + 77, 96, True,
+                         0),
+                        ("window mid-chunk", 1, 8, 4, 4096, 96, True, 1500))
 # (name, B, H, KV, L, hd, cur, window): slot t holds the newest position
 # p <= cur with p % L == t; the step at position cur sees the filled
 # slots inside the window
@@ -1859,9 +1880,61 @@ def attention_kernel_phase(dev):
                  f"{ACC_BF16_MEAN_SHARE} x gap {gap:.3g})")
         return float(err.max()), float(err.mean()), gap
 
-    for i, (name, B, H, KV, S, hd, causal, window) in enumerate(
-            FLASH_SHAPES):
-        for dtype in (torch.bfloat16, torch.float32):
+    def acc_bf16_row(tag, q, k, v, want, kw, bound, by, row):
+        """The bf16-accumulate mode (attn_f32=False) at the reference's
+        branch for this length (dense, or 1024-key chunks), held to its
+        plain version and timed beside the float32-accumulate ``row`` of
+        the same inputs; bf16: the route the launch takes."""
+        S, hd = q.shape[1], q.shape[3]
+
+        def plain_b():
+            return fref.flash_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                acc_dtype=torch.bfloat16, **kw)
+
+        def kern_b():
+            return fops.flash_attention(q, k, v, acc_bf16=True, **kw)
+        got_b, want_b = kern_b(), plain_b().transpose(1, 2)
+        torch.cuda.synchronize()
+        err_b, mean_b, gap = check_acc_bf16(
+            got_b, want_b, want, v, f"flash_attention acc_bf16 {tag}")
+        fb = out["flash_acc_bf16"]
+        fb["max_abs_err"] = max(fb["max_abs_err"], err_b)
+        chunk = fref.kv_chunk_for(S, S)
+        rowb = dict(ms=cuda_ms(kern_b), plain_ms=cuda_ms(plain_b, iters=5),
+                    library_ms=None, bound_ms=bound, bound_by=by,
+                    max_abs_err=err_b, mean_abs_err=mean_b,
+                    plain_gap_mean=gap, graph_ms=graph_ms(kern_b),
+                    plain_graph_ms=graph_ms(plain_b, iters=5),
+                    device_kernels=device_kernels(kern_b), kv_chunk=chunk)
+        rowb["f32_acc_graph_ms"] = row["graph_ms"]
+        rowb["ratio_to_f32_acc"] = rowb["graph_ms"] / row["graph_ms"]
+        extra = ""
+        if q.dtype == torch.bfloat16:
+            r = fkern.acc_bf16_route(S, S, hd, kw["causal"], kw["window"],
+                                     chunk)
+            rowb.update(route=r.route, warps=r.warps, cap=r.cap,
+                        smem=r.smem)
+            extra = (f"; route {r.route}, {r.warps} warps, {r.smem} B "
+                     "shared")
+        fb["by_shape"][tag] = rowb
+        print(f"  flash_attention acc_bf16 {tag} (kv_chunk {chunk}): max "
+              f"|diff| {err_b:.3g} (limit "
+              f"{ACC_BF16_MAX_REL * float(v.float().abs().max()):.3g}), "
+              f"mean {mean_b:.3g} (plain True-vs-False gap {gap:.3g}); "
+              f"eager: kernel {rowb['ms']:.4f} ms, plain "
+              f"{rowb['plain_ms']:.4f}; graph: kernel {rowb['graph_ms']:.4f}"
+              f" ({rowb['ratio_to_f32_acc']:.2f}x the float32-accumulate "
+              f"{row['graph_ms']:.4f}), plain {rowb['plain_graph_ms']:.4f}; "
+              f"bound {bound:.4f} ({by}); device kernels per call "
+              f"{rowb['device_kernels']}; library none{extra}")
+
+    edges = tuple((n, B, H, KV, S, hd, c, w, (torch.bfloat16,))
+                  for n, B, H, KV, S, hd, c, w in FLASH_ACC_BF16_EDGES)
+    for i, (name, B, H, KV, S, hd, causal, window, dtypes) in enumerate(
+            tuple(f + ((torch.bfloat16, torch.float32),)
+                  for f in FLASH_SHAPES) + edges):
+        for dtype in dtypes:
             q, k, v, live, library = flash_case(dev, B, H, KV, S, hd, causal,
                                                 window, dtype, 20 + i)
             kw = dict(causal=causal, window=window)
@@ -1908,39 +1981,7 @@ def attention_kernel_phase(dev):
                      f"{row['graph_ms_by_warps']})" if "warps" in row
                      else ""))
 
-            # the bf16-accumulate mode (attn_f32=False), the reference's
-            # branch for this length (dense, or 1024-key chunks)
-            def plain_b():
-                return fref.flash_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    acc_dtype=torch.bfloat16, **kw)
-
-            def kern_b():
-                return fops.flash_attention(q, k, v, acc_bf16=True, **kw)
-            got_b, want_b = kern_b(), plain_b().transpose(1, 2)
-            torch.cuda.synchronize()
-            err_b, mean_b, gap = check_acc_bf16(
-                got_b, want_b, want, v, f"flash_attention acc_bf16 {tag}")
-            fb = out["flash_acc_bf16"]
-            fb["max_abs_err"] = max(fb["max_abs_err"], err_b)
-            rowb = dict(ms=cuda_ms(kern_b), plain_ms=cuda_ms(plain_b, iters=5),
-                        library_ms=None, bound_ms=bound, bound_by=by,
-                        max_abs_err=err_b, mean_abs_err=mean_b,
-                        plain_gap_mean=gap, graph_ms=graph_ms(kern_b),
-                        plain_graph_ms=graph_ms(plain_b, iters=5),
-                        device_kernels=device_kernels(kern_b),
-                        kv_chunk=fref.kv_chunk_for(S, S))
-            fb["by_shape"][tag] = rowb
-            print(f"  flash_attention acc_bf16 {tag} (kv_chunk "
-                  f"{rowb['kv_chunk']}): max |diff| {err_b:.3g} (limit "
-                  f"{ACC_BF16_MAX_REL * float(v.float().abs().max()):.3g})"
-                  f", mean {mean_b:.3g} (plain True-vs-False gap {gap:.3g})"
-                  f"; eager: kernel {rowb['ms']:.4f} ms, plain "
-                  f"{rowb['plain_ms']:.4f}; graph: kernel "
-                  f"{rowb['graph_ms']:.4f}, plain "
-                  f"{rowb['plain_graph_ms']:.4f}; bound {bound:.4f} ({by})"
-                  f"; device kernels per call {rowb['device_kernels']}; "
-                  f"library none")
+            acc_bf16_row(tag, q, k, v, want, kw, bound, by, row)
     for i, (name, B, H, KV, L, hd, cur, window) in enumerate(DECODE_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, valid, library = decode_case(dev, B, H, KV, L, hd, cur,
@@ -2312,16 +2353,25 @@ def acc_bf16_phase(dev, cfg, gn) -> dict:
     del kern, plain, plain32
     long = np.random.default_rng(12).integers(
         0, cfg.vocab_size, (1, LONG_PROMPT)).astype(np.int32)
+
+    def long_ms() -> float:
+        """Median ms of 3 prefills of the long prompt, after 1 unclocked."""
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lm.prefill(long, LONG_PROMPT)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t1))
+        return statistics.median(times[1:])
     with attn_f32_off(lm):
         attention_counts(reset=True)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
         kern_l, _ = lm.prefill(long, LONG_PROMPT)
-        torch.cuda.synchronize()
-        long_ms = 1e3 * (time.perf_counter() - t1)
         long_counts = attention_counts()
+        ms_false = long_ms()
         with plain_attention():
             plain_l, _ = lm.prefill(long, LONG_PROMPT)
+    ms_true = long_ms()
     with plain_attention():
         plain32_l, _ = lm.prefill(long, LONG_PROMPT)
     if long_counts != {"flash_attention": L, "decode_attention": 0}:
@@ -2329,11 +2379,12 @@ def acc_bf16_phase(dev, cfg, gn) -> dict:
              f"{long_counts}")
     lg = logit_gap(kern_l.float(), plain_l.float(), plain32_l.float())
     print(f"  bf16 {LONG_PROMPT}-token prefill (B=1, 1024-key chunks): "
-          f"{long_ms:.1f} ms, launches {long_counts}; kernels vs plain: max "
-          f"|dlogit| {lg['max_abs_err']:.4g}, mean {lg['mean_abs_err']:.4g}"
-          f" (tolerance {MOE_BF16_MEAN_TOL}), argmax equal "
-          f"{lg['argmax_agree'] == 1.0}; plain True-vs-False mean gap "
-          f"{lg['gap_mean']:.4g}")
+          f"{ms_false:.1f} ms at attn_f32=False, {ms_true:.1f} ms at True "
+          f"({ms_false / ms_true:.3f}x), launches {long_counts}; kernels vs "
+          f"plain: max |dlogit| {lg['max_abs_err']:.4g}, mean "
+          f"{lg['mean_abs_err']:.4g} (tolerance {MOE_BF16_MEAN_TOL}), "
+          f"argmax equal {lg['argmax_agree'] == 1.0}; plain True-vs-False "
+          f"mean gap {lg['gap_mean']:.4g}")
     if not torch.isfinite(kern_l).all() or lg["mean_abs_err"] > \
             MOE_BF16_MEAN_TOL:
         fail(f"attn_f32=False {LONG_PROMPT}-token prefill: {lg}")
@@ -2367,7 +2418,8 @@ def acc_bf16_phase(dev, cfg, gn) -> dict:
     return {"launches": counts, "prefill_ms": prefill_ms,
             "decode_ms": decode_ms, "tokens_per_s": tok_s,
             "token_agreement": agree, "teacher_forced": tf,
-            "long_prefill": dict(lg, ms=long_ms, launches=long_counts),
+            "long_prefill": dict(lg, ms=ms_false, ms_attn_f32=ms_true,
+                                 launches=long_counts),
             "fp32": f32}
 
 
@@ -4554,6 +4606,14 @@ def sass_phase(libs: dict) -> dict:
             fail(f"{name}: spills (stack or local memory) or no resource "
                  f"usage read: {spills or usage[name]}")
     usage["flash_attention"] = resource_usage(libs["flash_attention"])
+    acc = {n: u for n, u in usage["flash_attention"].items()
+           if "acc_bf16" in n}
+    redesigned = {n: u for n, u in acc.items()
+                  if "flash_attention_bf16_acc_bf16_kernel" in n}
+    if not redesigned or any(u.get("STACK", 0) or u.get("LOCAL", 0)
+                             for u in redesigned.values()):
+        fail(f"flash_attention: the bf16 bf16-accumulate kernels spill or "
+             f"were not read: {redesigned}")
     out = {
         "decode_attention": {
             "kernels": len(da), "mma_kernels": len(mma),
@@ -4570,12 +4630,11 @@ def sass_phase(libs: dict) -> dict:
         "flash_attention": {
             "acc_bf16_kernels": sum("acc_bf16" in n for n in fa),
             "acc_bf16_max_registers": max(
-                (u["REG"] for n, u in usage["flash_attention"].items()
-                 if "acc_bf16" in n), default=None),
-            "acc_bf16_spills": {n[:60]: u for n, u in
-                                usage["flash_attention"].items()
-                                if "acc_bf16" in n and (u.get("STACK", 0)
-                                                        or u.get("LOCAL", 0))},
+                (u["REG"] for u in acc.values()), default=None),
+            "acc_bf16_bf16_max_registers": max(
+                u["REG"] for u in redesigned.values()),
+            "acc_bf16_spills": {n[:60]: u for n, u in acc.items()
+                                if u.get("STACK", 0) or u.get("LOCAL", 0)},
             "bf16_kernels": len(bf16),
             "bf16_HMMA": sum(c["HMMA"] for c in bf16.values()),
             "f32_kernels": len(f32),

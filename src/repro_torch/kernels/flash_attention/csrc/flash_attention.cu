@@ -53,12 +53,25 @@
 // bf16; chunked (kv_chunk > 0, chunks aligned to key 0) each chunk's
 // weights exp(s - m_new) are rounded, l sums them as rounded, and acc =
 // bf16(bf16(acc bf16(alpha)) + bf16(chunk's float32 P V sum)), the output
-// acc / l.  Both need a row's max before its weights: each chunk (dense:
-// the one chunk) is walked twice, once for the max (and, dense, the sum)
-// and once more for the weights and P V, so K is read twice.  Chunks (and
-// tiles) outside a block's causal or window reach are skipped: the
-// reference's fully masked leading chunks are wiped by alpha = 0 and its
-// trailing ones leave (m, l, acc) as they are.
+// acc / l.  Both need a row's max (dense: and sum) over the chunk before
+// its first weight, so each chunk is taken in two phases: statistics,
+// then weights and P V.  The bf16 kernel (below) has two routes, chosen on
+// the host from the shape (kernel.py `acc_bf16_route`): one walk (dense
+// only) keeps every tile's float32 values in shared memory from the first
+// phase to the second, so K and V are each copied once and q k^T runs
+// once; two walks copy K again beside V and run q k^T again.  A kept tile
+// costs 4 KB a warp (16 rows x 64 keys x 4 bytes), so one walk over a
+// reference chunk (1024 keys, 64 KB a warp) leaves room for 2 warps on an
+// SM; on an H100 it ran several times slower than two walks at 8-12
+// warps, and over 5 tiles (288 keys) mostly slower too, while over 1-3
+// tiles it was faster (PERF.md).  The host takes one walk for a dense
+// reach of up to 3 tiles (the decoders' 32-token prefills) and two walks
+// past that and for every chunked launch.  Dense and chunked are separate
+// instantiations, each holding only its own accumulators.  Chunks (and tiles) outside a block's causal or window
+// reach are skipped: the reference's fully masked leading chunks are
+// wiped by alpha = 0 and its trailing ones leave (m, l, acc) as they are.
+// The float32 kernel walks each chunk twice the same way (FMA; the
+// config's float32 inputs only reach it in a float32 model).
 //
 // Both: on the TPU the KV blocks are a sequential grid axis with (m, l,
 // acc) carried in VMEM scratch and fully masked blocks skipped with
@@ -76,7 +89,9 @@
 // that rate at S = 2048: mma.sync is issued a warp at a time from
 // registers, and every 64-row query tile re-reads its head's K and V from
 // L2 (wgmma with TMA-fed tiles and a producer warp is the step beyond);
-// the float32 kernel is capped at the 67 TFLOP/s FMA rate.
+// the float32 kernel is capped at the 67 TFLOP/s FMA rate.  The bf16
+// mode's two walks run q k^T twice (6 hd flops a pair where the bound
+// counts 4) and read K twice.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -822,13 +837,35 @@ flash_attention_acc_bf16_kernel(const float* __restrict__ q,
 }
 
 // bfloat16 q, k, v on the tensor cores (the bf16 kernel's layout, q
-// fragments and double-buffered cp.async K / V tiles).  The same two
-// walks as above, flattened into one sequence of steps (chunk, walk,
-// tile) so that the next step's tile is in flight while this one is
-// multiplied; the statistics walk copies K only.  The weights are
-// rounded to bf16 in registers and go straight into the P V mma as its
-// A fragments; chunked, acc is kept as packed bf16 pairs.
-template <int HD, int W>
+// fragments in registers, a double-buffered cp.async ring), one
+// instantiation per branch (CHUNKED), each holding only its own
+// accumulators.  Each chunk (dense: the block's whole reach) is taken in
+// two phases over its tiles, flattened into one sequence of steps (chunk,
+// phase, tile) so that the next step's tiles are in flight while this one
+// is worked on:
+//
+//   phase 0 runs q k^T on tile t's K for the statistics: chunked, the
+//   chunk's row max; dense, the online max m and denominator l, the
+//   values becoming exp(s - m_t) under the running max m_t;
+//   phase 1 forms tile t's weights, rounds them to bf16 -- chunked
+//   exp(s - m_new), dense exp(s - m) / l -- and feeds them to the P V mma
+//   as its A fragments (the accumulator layout of q k^T is the A layout
+//   of P V), summing in float32 (`cacc`).
+//
+// One walk (dense, cap > 0, every tile of the reach kept): phase 0 keeps
+// each tile's values in this thread's slice of shared memory (dense: beside
+// m_t), and phase 1 copies V alone and reads them back -- no second q k^T
+// and no second copy of K.  A thread reads back only what it wrote, so
+// the buffer needs no barrier; each warp-wide float4 store or load covers
+// 512 contiguous bytes, free of bank conflicts.  Two walks (cap == 0): a
+// ring stage holds two tiles, phase 0 copies and reduces two K tiles a
+// step, and phase 1 copies K beside V and runs q k^T again.  Chunked, the
+// carried accumulator is bf16 pairs in this thread's slice of shared
+// memory, updated once a chunk: acc = bf16(bf16(acc bf16(alpha)) +
+// bf16(cacc)).  The q tile shares its shared memory with the kept values
+// and the accumulator, written only after every warp has read its q
+// fragments.
+template <int HD, int W, bool CHUNKED>
 __global__ void __launch_bounds__(W * 32)
 flash_attention_bf16_acc_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                      const __nv_bfloat16* __restrict__ k,
@@ -837,7 +874,8 @@ flash_attention_bf16_acc_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                      int KV, int Sq, int Skv, Strides qst,
                                      Strides kst, Strides vst, Strides ost,
                                      int causal, int window,
-                                     float scale_log2, int kv_chunk) {
+                                     float scale_log2, int kv_chunk,
+                                     int cap) {
   constexpr int P = HD + 8;
   constexpr int BQ = 16 * W;
   constexpr int kChunks = HD / 8;
@@ -845,9 +883,19 @@ flash_attention_bf16_acc_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int KS = HD / 16;
   constexpr int NO = HD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + BQ * P;
-  __nv_bfloat16* vs = ks + 2 * kTK * P;
+  // two ring stages (one tile: K or V; two walks: two tiles, K and K or K
+  // and V), then the kept values (W x cap x 32 lanes x 32 floats) and
+  // dense: the running max of each kept tile (W x cap x 32 float2),
+  // chunked: acc (W x NO x 2 x 32 bf16 pairs); the q tile (BQ x P) lies
+  // over the kept values, read into registers before any is written; the
+  // host's `acc_bf16_smem` counts the same bytes
+  const bool two = CHUNKED || cap == 0;   // chunked: two walks only
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int stage = (two ? 2 : 1) * kTK * P;
+  const int voff = two ? kTK * P : 0;
+  __nv_bfloat16* qs = ring + 2 * stage;
+  float* kept = reinterpret_cast<float*>(qs);
+  float* tail = kept + (size_t)W * cap * 1024;
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x - b * H;
@@ -862,6 +910,10 @@ flash_attention_bf16_acc_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + b * kst.b + kvh * kst.h;
   const __nv_bfloat16* vb = v + b * vst.b + kvh * vst.h;
   __nv_bfloat16* ob = o + b * ost.b + h * ost.h;
+  // this thread's slices: tile t, n-tile n at mine[(t * 8 + n) * 128]
+  float* mine = kept + (size_t)warp * cap * 1024 + lane * 4;
+  float2* snap = reinterpret_cast<float2*>(tail) + warp * cap * 32 + lane;
+  uint32_t* accb = reinterpret_cast<uint32_t*>(tail) + warp * NO * 64 + lane;
 
   for (int i = tid; i < BQ * kChunks; i += kThreadsB) {
     const int r = i / kChunks, c = i - r * kChunks;
@@ -878,49 +930,87 @@ flash_attention_bf16_acc_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     k_lo = max(0, q0 - window + 1);
     if (!causal) k_hi = min(k_hi, q_last + window);
   }
-  const bool chunked = kv_chunk > 0;
-  const Chunks ch{chunked ? kv_chunk : Skv, k_lo, k_hi, Skv, kTK};
+  const Chunks ch{CHUNKED ? kv_chunk : Skv, k_lo, k_hi, Skv, kTK};
   const int n_chunks = ch.count();
 
+  // steps (chunk, phase, tile); two walks: phase 0 takes tiles t, t + 1
   struct Step {
-    int c, walk, t;                     // walk 0: statistics, 1: weights
+    int c, phase, t;
   };
   auto advance = [&](Step x) {
-    if (++x.t == ch.tiles(x.c)) {
+    x.t += x.phase == 0 && two ? 2 : 1;
+    if (x.t >= ch.tiles(x.c)) {
       x.t = 0;
-      if (x.walk) ++x.c;
-      x.walk ^= 1;
+      if (x.phase) ++x.c;
+      x.phase ^= 1;
     }
     return x;
   };
   auto load = [&](Step x, int buf) {
     const int k0 = ch.first(x.c) + x.t * kTK;
-    __nv_bfloat16* kd = ks + buf * kTK * P;
-    __nv_bfloat16* vd = vs + buf * kTK * P;
+    __nv_bfloat16* st = ring + buf * stage;
+    const bool second = x.phase == 0 && two && x.t + 1 < ch.tiles(x.c);
     for (int i = tid; i < kTK * kChunks; i += kThreadsB) {
       const int r = i / kChunks, c = i - r * kChunks;
       const bool in = k0 + r < Skv;
       const long long row = in ? k0 + r : 0;
-      ptx::cp_async_16(kd + r * P + c * 8, kb + row * kst.s + c * 8, in);
-      if (x.walk)
-        ptx::cp_async_16(vd + r * P + c * 8, vb + row * vst.s + c * 8, in);
+      if (x.phase == 0 || two)
+        ptx::cp_async_16(st + r * P + c * 8, kb + row * kst.s + c * 8, in);
+      if (x.phase)
+        ptx::cp_async_16(st + voff + r * P + c * 8, vb + row * vst.s + c * 8,
+                         in);
+      if (second) {
+        const bool in2 = k0 + kTK + r < Skv;
+        ptx::cp_async_16(st + voff + r * P + c * 8,
+                         kb + (in2 ? k0 + kTK + r : 0) * kst.s + c * 8, in2);
+      }
     }
     ptx::cp_async_commit();
   };
 
   const int row0 = q0 + warp * 16 + g;
+  // dense: m the running max, l this thread's share of the sum (the rows'
+  // reciprocal once phase 0 ends); chunked: m, l the rows' carried ones,
+  // cm the chunk's max (this thread's share), lc the chunk's rounded sum
   float m[2] = {kNeg, kNeg};
-  float l[2] = {0.f, 0.f};   // dense: this thread's share; chunked: rows'
+  float l[2] = {0.f, 0.f};
   float cm[2] = {kNeg, kNeg}, lc[2] = {0.f, 0.f}, alpha[2] = {1.f, 1.f};
   float cacc[NO][4];
-  uint32_t accb[NO][2];
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    accb[n][0] = accb[n][1] = 0u;     // bf16 zeros
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) cacc[n][e] = 0.f;
-  }
+
   uint32_t qf[KS][4];
+
+  // phase 0 on the tile at kt: q k^T and the statistics (dense: s becomes
+  // exp(s - m) under the running max)
+  auto stats = [&](const __nv_bfloat16* kt, int c, int t, float (&s)[8][4]) {
+    const int k0 = ch.first(c) + t * kTK;
+    const int ce = ch.lim(c);
+    float mx[2] = {kNeg, kNeg};
+    mma_scores<HD>(qf, kt, lane, scale_log2,
+                   tile_edge(k0, ce, q0, q_last, causal, window), row0, k0,
+                   ce, causal, window, s, mx);
+    if (CHUNKED) {
+      cm[0] = fmaxf(cm[0], mx[0]);
+      cm[1] = fmaxf(cm[1], mx[1]);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        l[r] *= exp2f(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = exp2f(s[n][e] - m[e >> 1]);
+          l[e >> 1] += s[n][e];
+        }
+    }
+  };
 
   Step cur{k_lo / ch.C, 0, 0};
   if (cur.c < n_chunks) load(cur, 0);
@@ -938,64 +1028,90 @@ flash_attention_bf16_acc_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       for (int kk = 0; kk < KS; ++kk)
         ptx::ldmatrix_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * P +
                                      kk * 16 + (lane >> 4) * 8);
-    }
-    const __nv_bfloat16* kt = ks + (j & 1) * kTK * P;
-    const __nv_bfloat16* vt = vs + (j & 1) * kTK * P;
-
-    const int k0 = ch.first(cur.c) + cur.t * kTK;
-    const int ce = ch.lim(cur.c);
-    float s[8][4];
-    float mx[2] = {kNeg, kNeg};
-    mma_scores<HD>(qf, kt, lane, scale_log2,
-                   tile_edge(k0, ce, q0, q_last, causal, window), row0, k0,
-                   ce, causal, window, s, mx);
-
-    if (cur.walk == 0) {
+      __syncthreads();                // the q tile is free for kept values
+      if (CHUNKED) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = quad_max(mx[r]);
-        if (chunked) {
-          cm[r] = fmaxf(cm[r], mx[r]);
-        } else {
-          const float m_new = fmaxf(m[r], mx[r]);
-          l[r] *= exp2f(m[r] - m_new);
-          m[r] = m_new;
-        }
+        for (int i = 0; i < 2 * NO; ++i) accb[i * 32] = 0u;  // bf16 zeros
       }
-      if (!chunked) {
+    }
+    const __nv_bfloat16* kt = ring + (j & 1) * stage;
+    const __nv_bfloat16* vt = kt + voff;
+    float* mt = mine + cur.t * 1024;
+
+    float s[8][4];
+    if (cur.phase == 0) {
+      stats(kt, cur.c, cur.t, s);
+      if (two) {
+        if (cur.t + 1 < ch.tiles(cur.c)) stats(vt, cur.c, cur.t + 1, s);
+      } else {
+        if (!CHUNKED) snap[cur.t * 32] = make_float2(m[0], m[1]);
 #pragma unroll
         for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) l[e >> 1] += exp2f(s[n][e] - m[e >> 1]);
+          *reinterpret_cast<float4*>(mt + n * 128) =
+              make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
       }
+    } else if (two) {
+      const int k0 = ch.first(cur.c) + cur.t * kTK;
+      const int ce = ch.lim(cur.c);
+      float mx[2] = {kNeg, kNeg};
+      mma_scores<HD>(qf, kt, lane, scale_log2,
+                     tile_edge(k0, ce, q0, q_last, causal, window), row0, k0,
+                     ce, causal, window, s, mx);
     } else {
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = exp2f(s[n][e] - m[e >> 1]);
-          const float w = bf16r(chunked ? x : x / l[e >> 1]);
-          lc[e >> 1] += w;
-          s[n][e] = w;
-        }
+        const float4 x = *reinterpret_cast<const float4*>(mt + n * 128);
+        s[n][0] = x.x;
+        s[n][1] = x.y;
+        s[n][2] = x.z;
+        s[n][3] = x.w;
       }
-      mma_pv<HD>(s, vt, lane, cacc);  // the weights are bf16 already
     }
 
-    if (nxt.c != cur.c || nxt.walk != cur.walk) {    // a walk ends here
-      if (cur.walk == 0) {
+    if (cur.phase == 1) {
+      if (CHUNKED) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float w = bf16r(exp2f(s[n][e] - m[e >> 1]));
+            lc[e >> 1] += w;
+            s[n][e] = w;
+          }
+      } else {
+        // kept: exp(s - m_t) exp(m_t - m) / l; recomputed: exp(s - m) / l
+        // (l holds the rows' reciprocals here)
+        float gr[2] = {l[0], l[1]};
+        if (!two) {
+          const float2 mk = snap[cur.t * 32];
+          gr[0] *= exp2f(mk.x - m[0]);
+          gr[1] *= exp2f(mk.y - m[1]);
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = two ? exp2f(s[n][e] - m[e >> 1]) : s[n][e];
+            s[n][e] = x * gr[e >> 1];
+          }
+      }
+      mma_pv<HD>(s, vt, lane, cacc);  // rounds the weights to bf16
+    }
+
+    if (nxt.c != cur.c || nxt.phase != cur.phase) {  // a phase ends here
+      if (cur.phase == 0) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          if (chunked) {
-            const float m_new = fmaxf(m[r], cm[r]);
+          if (CHUNKED) {
+            const float m_new = fmaxf(m[r], quad_max(cm[r]));
             alpha[r] = exp2f(m[r] - m_new);
             m[r] = m_new;
             cm[r] = kNeg;
           } else {
-            l[r] = quad_sum(l[r]);          // the rows' denominators
+            l[r] = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
           }
         }
-      } else if (chunked) {
+      } else if (CHUNKED) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           l[r] = l[r] * alpha[r] + quad_sum(lc[r]);
@@ -1003,8 +1119,8 @@ flash_attention_bf16_acc_bf16_kernel(const __nv_bfloat16* __restrict__ q,
           const float ab = bf16r(alpha[r]);
 #pragma unroll
           for (int n = 0; n < NO; ++n) {
-            const float2 a = unpack_bf16x2(accb[n][r]);
-            accb[n][r] = ptx::pack_bf16x2(
+            const float2 a = unpack_bf16x2(accb[(2 * n + r) * 32]);
+            accb[(2 * n + r) * 32] = ptx::pack_bf16x2(
                 bf16r(a.x * ab) + bf16r(cacc[n][2 * r]),
                 bf16r(a.y * ab) + bf16r(cacc[n][2 * r + 1]));
             cacc[n][2 * r] = cacc[n][2 * r + 1] = 0.f;
@@ -1020,21 +1136,34 @@ flash_attention_bf16_acc_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + r * 8;
-    const float den = fmaxf(l[r], 1e-30f);
+    // chunked: acc / l as one reciprocal a row (a division an element
+    // left ptxas a stack frame at hd 96)
+    const float inv = CHUNKED ? 1.f / fmaxf(l[r], 1e-30f) : 1.f;
     if (row < Sq) {
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
         float2 x = make_float2(cacc[n][2 * r], cacc[n][2 * r + 1]);
-        if (chunked) {
-          x = unpack_bf16x2(accb[n][r]);
-          x.x /= den;
-          x.y /= den;
+        if (CHUNKED) {
+          x = unpack_bf16x2(accb[(2 * n + r) * 32]);
+          x.x *= inv;
+          x.y *= inv;
         }
         *reinterpret_cast<__nv_bfloat162*>(ob + row * ost.s + n * 8 + c2) =
             __floats2bfloat162_rn(x.x, x.y);
       }
     }
   }
+}
+
+// shared memory of the kernel above (its layout, in bytes)
+template <int HD, int W, bool CHUNKED>
+size_t acc_bf16_smem(int cap) {
+  const size_t P = HD + 8;
+  const size_t kept =
+      CHUNKED ? sizeof(uint32_t) * (size_t)W * (HD / 8) * 64
+              : (sizeof(float) * 1024 + sizeof(float2) * 32) * (size_t)W * cap;
+  const size_t q = 2 * P * 16 * W;
+  return 2 * P * 2 * (cap ? 1 : 2) * kTK + (kept > q ? kept : q);
 }
 
 // ---------------------------------------------------------------------------
@@ -1048,7 +1177,7 @@ struct Call {
   Strides qs, ks, vs, os;
   int causal, window;
   float scale;
-  int kv_chunk;
+  int kv_chunk, cap;
   cudaStream_t stream;
 };
 
@@ -1083,27 +1212,47 @@ int launch_f32(const Call& c, bool acc_bf16) {
   return (int)cudaGetLastError();
 }
 
+// the largest shared-memory carveout, so that as many blocks of the
+// bf16-accumulate kernel fit on an SM as its shared memory allows
+template <int HD, int W, bool CHUNKED>
+int prepare_acc_bf16(size_t smem) {
+  auto kern = flash_attention_bf16_acc_bf16_kernel<HD, W, CHUNKED>;
+  if (const int e = prepare(kern, smem)) return e;
+  return (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <int HD, int W, bool CHUNKED>
+int launch_acc_bf16(const Call& c) {
+  const size_t smem = acc_bf16_smem<HD, W, CHUNKED>(c.cap);
+  const dim3 grid(c.B * c.H, (c.Sq + 16 * W - 1) / (16 * W));
+  auto kern = flash_attention_bf16_acc_bf16_kernel<HD, W, CHUNKED>;
+  if (const int e = prepare_acc_bf16<HD, W, CHUNKED>(smem)) return e;
+  kern<<<grid, W * 32, smem, c.stream>>>(
+      static_cast<const __nv_bfloat16*>(c.q),
+      static_cast<const __nv_bfloat16*>(c.k),
+      static_cast<const __nv_bfloat16*>(c.v),
+      static_cast<__nv_bfloat16*>(c.o), c.H, c.KV, c.Sq, c.Skv, c.qs, c.ks,
+      c.vs, c.os, c.causal, c.window, c.scale * kLog2e, c.kv_chunk, c.cap);
+  return (int)cudaGetLastError();
+}
+
 template <int HD, int W>
 int launch_bf16(const Call& c, bool acc_bf16) {
+  if (acc_bf16)
+    return c.kv_chunk > 0 ? launch_acc_bf16<HD, W, true>(c)
+                          : launch_acc_bf16<HD, W, false>(c);
   const size_t smem = bf16_smem_bytes<HD, W>();
   const dim3 grid(c.B * c.H, (c.Sq + 16 * W - 1) / (16 * W));
-  const __nv_bfloat16 *q = static_cast<const __nv_bfloat16*>(c.q),
-                      *k = static_cast<const __nv_bfloat16*>(c.k),
-                      *v = static_cast<const __nv_bfloat16*>(c.v);
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(c.o);
-  if (acc_bf16) {
-    auto kern = flash_attention_bf16_acc_bf16_kernel<HD, W>;
-    if (const int e = prepare(kern, smem)) return e;
-    kern<<<grid, W * 32, smem, c.stream>>>(
-        q, k, v, o, c.H, c.KV, c.Sq, c.Skv, c.qs, c.ks, c.vs, c.os, c.causal,
-        c.window, c.scale * kLog2e, c.kv_chunk);
-  } else {
-    auto kern = flash_attention_bf16_kernel<HD, W>;
-    if (const int e = prepare(kern, smem)) return e;
-    kern<<<grid, W * 32, smem, c.stream>>>(
-        q, k, v, o, c.H, c.KV, c.Sq, c.Skv, c.qs, c.ks, c.vs, c.os, c.causal,
-        c.window, c.scale * kLog2e);
-  }
+  auto kern = flash_attention_bf16_kernel<HD, W>;
+  if (const int e = prepare(kern, smem)) return e;
+  kern<<<grid, W * 32, smem, c.stream>>>(
+      static_cast<const __nv_bfloat16*>(c.q),
+      static_cast<const __nv_bfloat16*>(c.k),
+      static_cast<const __nv_bfloat16*>(c.v),
+      static_cast<__nv_bfloat16*>(c.o), c.H, c.KV, c.Sq, c.Skv, c.qs, c.ks,
+      c.vs, c.os, c.causal, c.window, c.scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -1127,9 +1276,11 @@ extern "C" {
 // acc_bf16 = 0: the float32-accumulate kernels (kv_chunk is ignored: one
 // online softmax computes the dense and the chunked function alike);
 // 1: the bf16-accumulate kernels, dense when kv_chunk == 0, else over
-// kv_chunk-key chunks.  Returns cudaGetLastError() after the launch (0 =
-// launched), or cudaErrorInvalidValue for an hd, dtype, warp count or
-// chunk width it lacks.
+// kv_chunk-key chunks; dense, the bf16 one keeps `cap` tiles' values in
+// shared memory (one walk; cap = 0: two walks, as every chunked launch;
+// see kernel.py `acc_bf16_route`).  Returns cudaGetLastError()
+// after the launch (0 = launched), or cudaErrorInvalidValue for an hd,
+// dtype, warp count, chunk width or cap it lacks (cap > 0 with chunks).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int H, int KV, int Sq, int Skv,
                            int hd, int dtype, long long qsb, long long qsh,
@@ -1138,12 +1289,13 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            long long vss, long long osb, long long osh,
                            long long oss, int causal, int window, float scale,
                            int warps, int acc_bf16, int kv_chunk,
-                           void* stream) {
-  if (kv_chunk < 0) return (int)cudaErrorInvalidValue;
+                           int cap, void* stream) {
+  if (kv_chunk < 0 || cap < 0 || (kv_chunk > 0 && cap > 0))
+    return (int)cudaErrorInvalidValue;
   const Call c{q, k, v, o, B, H, KV, Sq, Skv,
                Strides{qsb, qsh, qss}, Strides{ksb, ksh, kss},
                Strides{vsb, vsh, vss}, Strides{osb, osh, oss},
-               causal, window, scale, kv_chunk,
+               causal, window, scale, kv_chunk, cap,
                static_cast<cudaStream_t>(stream)};
   switch (hd) {
     case 32: return launch_hd<32>(c, dtype, warps, acc_bf16 != 0);

@@ -5,7 +5,9 @@ and prefill (with its KV-cache build), and single-token decode against a
 
 Order of operations follows the reference (`repro/models/attention.py`
 ``gqa_attention``, ``apply_full``, ``apply_prefill``, ``apply_decode``):
-q is scaled by ``head_dim ** -0.5`` *in the compute dtype*, the logits,
+q is scaled by ``head_dim ** -0.5`` *in the compute dtype*, the scale
+itself first rounded to that dtype as the reference's weakly typed
+Python float is (`q_scale`: bf16 at hd 96 and 128), the logits,
 their max and the softmax denominator run in float32, and the softmax
 weights and the PV sum are float32 or, under ``attn_f32=False``, bf16
 on every full-sequence path (dense up to ``CHUNK_THRESHOLD`` keys, above
@@ -38,15 +40,17 @@ each slot's absolute position for masking.
 
 Both kernels cast q to float32 and then multiply by their ``scale``
 argument (the reference's kernels do the same with ``hd ** -0.5``); the
-decoder has already scaled q in the compute dtype, as the reference's
-model path does, and passes ``scale=1.0``.  In bf16 the two orders round
-differently at hd = 96, so the choice keeps the model path's numbers.
+decoder has already scaled q in the compute dtype by the rounded scale,
+as the reference's model path does, and passes ``scale=1.0``.  In bf16
+the two orders round differently at hd = 96 and 128, so the choice keeps
+the model path's numbers.
 
 Caches are updated in place (the reference returns new arrays): a
 decode step writes one slot per layer instead of copying the cache.
 """
 from __future__ import annotations
 
+import struct
 from typing import Dict, Optional
 
 import torch
@@ -62,6 +66,19 @@ from repro_torch.models.param import Initializer
 CHUNK_THRESHOLD = 2048
 KV_CHUNK = 1024
 NEG_INF = -1e30
+
+
+def q_scale(hd: int, dtype: torch.dtype) -> float:
+    """``hd ** -0.5`` as the reference multiplies q by it: a weakly typed
+    Python float takes q's dtype, so for bf16 q it is rounded to bf16 first
+    (to nearest even; exact at hd 64, not at 96 or 128).  A Python float,
+    so that fake and distributed tensors take it as they take a literal."""
+    scale = hd ** -0.5
+    if dtype != torch.bfloat16:
+        return scale
+    bits = struct.unpack("<I", struct.pack("<f", scale))[0]
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
 
 
 def _mask_logits(scores: torch.Tensor, q_pos: torch.Tensor,
@@ -97,18 +114,19 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     reference's ``gqa_attention``.  q: (B, Sq, H, hd), k/v: (B, Skv, KV,
     hd) -> (B, Sq, H, hd) in q's dtype.
 
-    q is scaled by ``hd ** -0.5`` in its own dtype, the logits and their
-    running max and denominator are float32, and ``acc_dtype`` is the
-    dtype of the softmax weights and the PV accumulator (bf16 is the
-    config's ``attn_f32=False``).  Above ``CHUNK_THRESHOLD`` keys (and
-    more than one query) the keys are taken ``KV_CHUNK`` at a time with
-    an online softmax, so the (Sq, Skv) logits never exist whole; the
-    ragged last chunk is padded with position -1 and ``valid=False``.
+    q is scaled by ``hd ** -0.5`` in its own dtype (`q_scale`), the
+    logits and their running max and denominator are float32, and
+    ``acc_dtype`` is the dtype of the softmax weights and the PV
+    accumulator (bf16 is the config's ``attn_f32=False``).  Above
+    ``CHUNK_THRESHOLD`` keys (and more than one query) the keys are taken
+    ``KV_CHUNK`` at a time with an online softmax, so the (Sq, Skv)
+    logits never exist whole; the ragged last chunk is padded with
+    position -1 and ``valid=False``.
     """
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
-    qf = (q.reshape(B, Sq, KV, G, hd) * hd ** -0.5).float()
+    qf = (q.reshape(B, Sq, KV, G, hd) * q_scale(hd, q.dtype)).float()
     if chunked is None:
         chunked = Skv > CHUNK_THRESHOLD and Sq > 1
     if not chunked:
@@ -262,7 +280,7 @@ class Attention(nn.Module):
         return F.linear(o.reshape(B, S, -1), self.wo.to(o.dtype))
 
     def _scaled(self, q: torch.Tensor) -> torch.Tensor:
-        return q * self.cfg.head_dim ** -0.5
+        return q * q_scale(self.cfg.head_dim, q.dtype)
 
     def forward(self, x: torch.Tensor, sin: torch.Tensor,
                 cos: torch.Tensor) -> torch.Tensor:

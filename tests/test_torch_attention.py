@@ -49,7 +49,7 @@ from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.models import LM, state_dict_from_reference
-from repro_torch.models.attention import decode_mask
+from repro_torch.models.attention import decode_mask, q_scale
 
 F32 = dict(atol=2e-5, rtol=1e-4)
 BF16_LAST = dict(atol=1e-2, rtol=1e-2)
@@ -190,9 +190,9 @@ def test_decode_attention_fully_masked_row_follows_plain_reference():
 
 
 def test_scale_argument_follows_the_model_path_in_bf16():
-    """The decoder scales q in bf16 and passes ``scale=1.0``: the result
-    is the reference model's ``gqa_attention`` (prefill: causal over
-    implicit positions; decode: one query against a masked cache)."""
+    """The decoder scales q in bf16 (`q_scale`) and passes ``scale=1.0``:
+    the result is the reference model's ``gqa_attention`` (prefill: causal
+    over implicit positions; decode: one query against a masked cache)."""
     rng = np.random.default_rng(3)
     B, S, H, KV, hd = 2, 24, 4, 2, 96
     q, k, v = (rng.standard_normal(s).astype(np.float32)
@@ -202,8 +202,8 @@ def test_scale_argument_follows_the_model_path_in_bf16():
     pos = jnp.arange(S)
     want = gqa_attention(jq, jk, jv, q_pos=pos, kv_pos=pos, causal=True,
                          window=0)
-    got = fa_ops.flash_attention(tq * hd ** -0.5, tk, tv, causal=True,
-                                 scale=1.0)
+    got = fa_ops.flash_attention(tq * q_scale(hd, tq.dtype), tk, tv,
+                                 causal=True, scale=1.0)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), **BF16_LAST)
     valid = rng.random((B, S)) > 0.3
@@ -212,8 +212,8 @@ def test_scale_argument_follows_the_model_path_in_bf16():
                          kv_pos=jnp.broadcast_to(pos[None], (B, S)),
                          causal=True, window=0,
                          kv_valid=jnp.asarray(valid), chunked=False)
-    got = da_ops.decode_attention(tq[:, -1:] * hd ** -0.5, tk, tv,
-                                  torch.as_tensor(valid), scale=1.0)
+    got = da_ops.decode_attention(tq[:, -1:] * q_scale(hd, tq.dtype), tk,
+                                  tv, torch.as_tensor(valid), scale=1.0)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), **BF16_LAST)
 

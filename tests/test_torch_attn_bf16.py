@@ -103,22 +103,40 @@ REF_CASES = (("dense 32", 32, True, 0),
 def test_plain_flash_bf16_matches_reference_gqa_attention(case, dtype):
     """(i) ``ref.flash_attention(acc_dtype=bf16)`` with the reference's
     branch (`kv_chunk_for`) against ``gqa_attention(acc_dtype=bf16)``.
-    The plain version is handed q as the reference scales it (in q's
-    dtype, the scale a weakly typed constant of that dtype) and
-    ``scale=1``, as the model calls it."""
+    The plain version is handed q scaled by the port's own `q_scale` in
+    q's dtype and ``scale=1``, as the model calls it."""
     _, S, causal, window = case
     q, k, v = _qkv(7, S, dtype)
     want = _jref(q, k, v, dtype, causal, window, jnp.bfloat16)
     want32 = _jref(q, k, v, dtype, causal, window, jnp.float32)
     td = getattr(torch, dtype)
-    qs = np.asarray((jnp.asarray(q, jnp.dtype(dtype)) * HD ** -0.5)
-                    .astype(jnp.float32))
-    tq, tk, tv = (torch.from_numpy(x).to(td) for x in (qs, k, v))
+    tq, tk, tv = (torch.from_numpy(x).to(td) for x in (q, k, v))
     assert flash_ref.kv_chunk_for(S, S) == (1024 if S > 2048 else 0)
-    got = flash_ops.flash_attention(tq, tk, tv, causal=causal,
-                                    window=window, scale=1.0, acc_bf16=True)
+    got = flash_ops.flash_attention(tq * pattn.q_scale(HD, td), tk, tv,
+                                    causal=causal, window=window, scale=1.0,
+                                    acc_bf16=True)
     assert got.dtype == td
     _check(got, want, want32, float(np.abs(_np(tv)).max()), case[0])
+
+
+@pytest.mark.parametrize("hd", [64, 96, 128])
+def test_bf16_q_is_scaled_as_the_reference_scales_it(hd):
+    """The reference multiplies bf16 q by the weakly typed ``hd ** -0.5``,
+    which takes q's dtype (rounded to bf16 first); the port's `q_scale`,
+    as ``Attention`` and `gqa_attention` apply it, gives the same bf16
+    values bit for bit at every published head width (the float32 scale
+    differs at hd 96 and 128), and leaves float32 q as before."""
+    x = np.random.default_rng(hd).standard_normal(4096).astype(np.float32)
+    want = np.asarray((jnp.asarray(x, jnp.bfloat16) * hd ** -0.5)
+                      .astype(jnp.float32))
+    t = torch.from_numpy(x)
+    got = (t.bfloat16() * pattn.q_scale(hd, torch.bfloat16)).float()
+    np.testing.assert_array_equal(got.numpy(), want)
+    unrounded = (t.bfloat16() * hd ** -0.5).float().numpy()
+    assert (unrounded != want).any() == (hd != 64)
+    np.testing.assert_array_equal(
+        (t * pattn.q_scale(hd, torch.float32)).numpy(),
+        (t * hd ** -0.5).numpy())
 
 
 def test_plain_flash_float32_chunked_is_the_dense_function():
@@ -277,7 +295,7 @@ def test_lm_prefill_and_decode_logits_match_reference(layer0):
     above, then 4 teacher-forced decode steps (float32 attention on both
     sides) within `test_torch_decoder.py`'s float32 tolerance.  Not in
     bf16 activations: there the model's other bf16 roundings (norms,
-    projections, RoPE, q's scale) already put the port's logits about
+    projections, RoPE) already put the port's logits about
     as far from the reference's at ``attn_f32=True`` as the flag moves
     the reference's own, so no logit can show the flag; the plain flash
     version's bf16 case is held under the tight bounds in (i)."""

@@ -8,7 +8,12 @@ card: nothing is compiled here).
 * The cosine top-k kernel's splits of N cover every key row with
   non-empty splits of whole key tiles.
 * The flash kernel's bf16 block size (2 warps of 16 query rows up to
-  Sq = 32, else 4).
+  Sq = 32, else 4), and its bf16-accumulate route (one walk or two, the
+  warps, the shared memory) at ``chip_smoke.py``'s flash shapes and
+  route edges and every zoo decoder's prefill: within the block's
+  shared memory, one walk exactly where the mode is dense and no block
+  walks more than ``ONE_WALK_TILES`` tiles, the tiles counted as a plain
+  mask counts them.
 * The decode kernel's splits of the cache cover L exactly with whole
   64-row tiles and keep one split (one launch) when the units alone fill
   the card; which kernel (row or mma) a dtype and group width take.
@@ -19,9 +24,14 @@ card: nothing is compiled here).
   exactly once, the grid never exceeds the CTAs the card holds at once,
   and the training batch is one CTA.
 """
+import importlib.util
+from pathlib import Path
+
 import pytest
 import torch
 
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ASSIGNED_ARCHS
 from repro_torch.kernels import _build
 from repro_torch.kernels.cascade_lookup import kernel as cl_kernel
 from repro_torch.kernels.contrastive import kernel as co_kernel
@@ -29,8 +39,13 @@ from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.cosine_topk import kernel as ct_kernel
 from repro_torch.kernels.cosine_topk.kernel import SOURCE as CT_SOURCE
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ref as fa_ref
 
 PTX = _build.INCLUDE_DIR / "ptx.cuh"
+_SMOKE = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_SMOKE)
+_SMOKE.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture
@@ -126,6 +141,72 @@ def test_cosine_topk_key_tile(Q, N, n_sm, tile):
 @pytest.mark.parametrize("Sq,warps", [(1, 2), (32, 2), (33, 4), (2048, 4)])
 def test_flash_bf16_block_size(Sq, warps):
     assert fa_kernel.warps(Sq) == warps
+
+
+def _zoo_prefills():
+    """(name, S, hd) of each attention decoder's prefill in
+    `chip_smoke.py` (its prompt behind the frontend's frames)."""
+    out = []
+    for name in ASSIGNED_ARCHS:
+        cfg = get_config(name)
+        if any(spec.mixer == "attn" for spec in cfg.period):
+            S = chip_smoke.GEN_PROMPT + (cfg.frontend_len
+                                         if cfg.frontend else 0)
+            out.append((name, S, cfg.head_dim))
+    return out
+
+
+ROUTE_SHAPES = ([(n, S, hd, c, w) for n, _, _, _, S, hd, c, w in
+                 chip_smoke.FLASH_SHAPES + chip_smoke.FLASH_ACC_BF16_EDGES]
+                + [(n, S, hd, True, 0) for n, S, hd in _zoo_prefills()]
+                + [(f"1024-key chunks hd {hd} S={S}", S, hd, True, 0)
+                   for hd in (96, 128) for S in (2049, 4096, 32768)])
+
+
+@pytest.mark.parametrize("name,S,hd,causal,window", ROUTE_SHAPES,
+                         ids=[r[0] for r in ROUTE_SHAPES])
+def test_flash_acc_bf16_route(name, S, hd, causal, window):
+    chunk = fa_ref.kv_chunk_for(S, S)
+    r = fa_kernel.acc_bf16_route(S, S, hd, causal, window, chunk)
+    need = fa_kernel.tiles_per_chunk(S, S, 16 * r.warps, causal, window,
+                                     chunk)
+    assert r.warps == fa_kernel.warps(S)
+    assert r.smem == fa_kernel.acc_bf16_smem(hd, r.warps, chunk > 0, r.cap)
+    assert r.smem <= fa_kernel.SMEM_LIMIT
+    if chunk == 0 and need <= fa_kernel.ONE_WALK_TILES:
+        assert (r.route, r.cap) == ("one walk", need)
+    else:
+        assert (r.route, r.cap) == ("two walks", 0)
+    # the decoders' 32-token prompts walk their keys once; the 288-row
+    # frontend prefills and the reference's 1024-key chunks twice
+    if S <= chip_smoke.GEN_PROMPT:
+        assert r.route == "one walk"
+    if chunk or S >= 288:
+        assert r.route == "two walks"
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,window,kv_chunk", [
+    (77, 77, True, 0, 0), (300, 300, True, 0, 100), (300, 300, True, 70, 100),
+    (130, 130, False, 0, 48), (70, 70, False, 20, 0), (33, 80, True, 0, 0),
+    (2100, 2100, True, 700, 1024), (1, 1, True, 0, 0)])
+@pytest.mark.parametrize("rows", [32, 64])
+def test_flash_tiles_per_chunk_counts_the_walk(Sq, Skv, causal, window,
+                                               kv_chunk, rows):
+    """The tiles a block walks in each chunk, from a plain mask: from the
+    tile (counted from the chunk's start) holding the first key any of its
+    rows reaches to the one holding the last."""
+    T, C = fa_kernel.TILE, kv_chunk or Skv
+    ok = fa_ref.position_mask(Sq, Skv, causal=causal, window=window)
+    most = 0
+    for q0 in range(0, Sq, rows):
+        cols = ok[q0:q0 + rows].any(0).nonzero()[:, 0].tolist()
+        lo, hi = min(cols), max(cols)
+        for c in range(lo // C, hi // C + 1):
+            first = max(lo, c * C) - c * C
+            last = min(hi, c * C + C - 1) - c * C
+            most = max(most, last // T - first // T + 1)
+    assert fa_kernel.tiles_per_chunk(Sq, Skv, rows, causal, window,
+                                     kv_chunk) == most
 
 
 @pytest.mark.parametrize("B,KV,L", [(8, 32, 64), (8, 32, 4096),

@@ -41,9 +41,13 @@ serving- and training-shape checks in ``chip_smoke.py`` do not.
   refused (float32 takes them); the bf16-accumulate mode
   (``attn_f32=False``), dense and chunked (a chunk of one tile, a chunk
   off the tile, a window across chunks, bidirectional chunks, a ragged
-  last chunk), against its plain version in that mode: max |diff|
-  within 2^-6 max|v| and mean |diff| within a quarter of the plain
-  version's own True-vs-False gap (`chip_smoke.py`'s bounds);
+  last chunk), every case through both routes of the bf16 kernel (one
+  walk and two walks), and the routes' edges (the longest one walk, two
+  walks over an odd tile count, the reference's 1024-key chunks whole,
+  with a ragged last chunk and with a window starting mid-chunk),
+  against its plain version in that mode: max |diff| within 2^-6 max|v|
+  and mean |diff| within a quarter of the plain version's own
+  True-vs-False gap (`chip_smoke.py`'s bounds);
 * decode attention: the same dtypes and widths, ragged cache lengths,
   random, ring-buffer and fully masked validity, MHA, GQA and MQA, 128
   query heads on one KV head, and the refusals (misaligned caches);
@@ -1026,26 +1030,17 @@ def test_flash_attention_bf16_refuses_misaligned_views(dev):
         _flash_check(x, x, x, causal=True)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 64, 96, 128])
-@pytest.mark.parametrize("B,H,KV,Sq,Skv,causal,window,kv_chunk", [
-    (2, 4, 2, 100, 100, True, 0, 0),      # dense, GQA, ragged
-    (1, 4, 4, 64, 64, False, 0, 0),       # dense, bidirectional
-    (1, 4, 2, 200, 200, True, 48, 0),     # dense, sliding window
-    (1, 8, 2, 33, 80, True, 0, 0),        # dense, fewer queries than keys
-    (1, 4, 2, 300, 300, True, 0, 64),     # a chunk of one tile
-    (1, 4, 2, 300, 300, True, 0, 100),    # chunks off the tiles, ragged
-    (1, 4, 1, 300, 300, True, 70, 100),   # a window across chunks
-    (2, 4, 4, 130, 130, False, 0, 48),    # bidirectional chunks
-])
-def test_flash_attention_acc_bf16_matches_plain_version(
-        dev, dtype, hd, B, H, KV, Sq, Skv, causal, window, kv_chunk):
-    g = torch.Generator(device=dev).manual_seed(hd * 5 + Sq + kv_chunk)
-    q = torch.randn(B, Sq, H, hd, generator=g, device=dev).to(dtype)
-    k = torch.randn(B, Skv, KV, hd, generator=g, device=dev).to(dtype)
-    v = torch.randn(B, Skv, KV, hd, generator=g, device=dev).to(dtype)
-    kw = dict(causal=causal, window=window, kv_chunk=kv_chunk)
+def _acc_bf16_inputs(dev, dtype, B, H, KV, Sq, Skv, hd, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(B, Sq, H, hd, generator=g, device=dev).to(dtype),
+            torch.randn(B, Skv, KV, hd, generator=g, device=dev).to(dtype),
+            torch.randn(B, Skv, KV, hd, generator=g, device=dev).to(dtype))
+
+
+def _acc_bf16_check(q, k, v, **kw):
+    """The bf16-accumulate mode against its plain version in that mode:
+    max |diff| <= 2^-6 max|v|, mean |diff| <= 1/4 of the plain version's
+    True-vs-False gap (`chip_smoke.py`'s bounds); one launch."""
     t = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     want = fa_ref.flash_attention(*t, acc_dtype=torch.bfloat16,
                                   **kw).transpose(1, 2).float()
@@ -1054,12 +1049,93 @@ def test_flash_attention_acc_bf16_matches_plain_version(
     got = fa_ops.flash_attention(q, k, v, acc_bf16=True, **kw)
     torch.cuda.synchronize()
     assert fa_kernel.COUNTS["flash_attention"] == before + 1
-    assert got.shape == q.shape and got.dtype == dtype
+    assert got.shape == q.shape and got.dtype == q.dtype
     assert torch.isfinite(got).all()
     err = (got.float() - want).abs()
     gap = float((want32 - want).abs().mean())
     assert float(err.max()) <= 2.0 ** -6 * float(v.float().abs().max())
     assert float(err.mean()) <= 0.25 * gap, (float(err.mean()), gap)
+
+
+ACC_BF16_CASES = [
+    (2, 4, 2, 100, 100, True, 0, 0),      # dense, GQA, ragged
+    (1, 4, 4, 64, 64, False, 0, 0),       # dense, bidirectional
+    (1, 4, 2, 200, 200, True, 48, 0),     # dense, sliding window
+    (1, 8, 2, 33, 80, True, 0, 0),        # dense, fewer queries than keys
+    (1, 4, 2, 300, 300, True, 0, 64),     # a chunk of one tile
+    (1, 4, 2, 300, 300, True, 0, 100),    # chunks off the tiles, ragged
+    (1, 4, 1, 300, 300, True, 70, 100),   # a window across chunks
+    (2, 4, 4, 130, 130, False, 0, 48),    # bidirectional chunks
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128])
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,causal,window,kv_chunk",
+                         ACC_BF16_CASES)
+def test_flash_attention_acc_bf16_matches_plain_version(
+        dev, dtype, hd, B, H, KV, Sq, Skv, causal, window, kv_chunk):
+    q, k, v = _acc_bf16_inputs(dev, dtype, B, H, KV, Sq, Skv, hd,
+                               hd * 5 + Sq + kv_chunk)
+    _acc_bf16_check(q, k, v, causal=causal, window=window,
+                    kv_chunk=kv_chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["one walk", "two walks"])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128])
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,causal,window,kv_chunk",
+                         ACC_BF16_CASES)
+def test_flash_attention_acc_bf16_both_routes(
+        dev, monkeypatch, route, hd, B, H, KV, Sq, Skv, causal, window,
+        kv_chunk):
+    """Each dense shape through both routes of the bf16 kernel, whichever
+    `acc_bf16_route` picks: one walk keeping every tile a block walks, and
+    two walks.  A chunked launch has two walks only: one walk forced on it
+    is refused, with nothing launched."""
+    w = fa_kernel.warps(Sq)
+    need = fa_kernel.tiles_per_chunk(Sq, Skv, 16 * w, causal, window,
+                                     kv_chunk)
+    cap = need if route == "one walk" else 0
+    r = fa_kernel.Route(w, fa_kernel.acc_bf16_smem(hd, w, kv_chunk > 0, cap),
+                        cap)
+    assert r.route == route and r.smem <= fa_kernel.SMEM_LIMIT
+    monkeypatch.setattr(fa_kernel, "acc_bf16_route", lambda *a: r)
+    q, k, v = _acc_bf16_inputs(dev, torch.bfloat16, B, H, KV, Sq, Skv, hd,
+                               hd * 7 + Sq + kv_chunk)
+    if kv_chunk and cap:
+        before = fa_kernel.COUNTS["flash_attention"]
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   acc_bf16=True, kv_chunk=kv_chunk)
+        assert fa_kernel.COUNTS["flash_attention"] == before
+        return
+    _acc_bf16_check(q, k, v, causal=causal, window=window,
+                    kv_chunk=kv_chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,S,hd,window,route", [
+    # the longest one walk: the last 64-row block reaches 192 keys, the
+    # buffer's ONE_WALK_TILES tiles
+    (2, 4, 4, 192, 128, 0, "one walk"),
+    # two walks over 5 tiles: the paired statistics step lacks a second
+    (1, 4, 2, 300, 96, 0, "two walks"),
+    # the reference's 1024-key chunks: whole chunks at hd 128, a ragged
+    # last chunk of 77 keys, a window starting mid-chunk
+    (1, 2, 2, 3072, 128, 0, "two walks"),
+    (1, 2, 2, 4096 + 77, 96, 0, "two walks"),
+    (1, 2, 1, 4096, 96, 1500, "two walks"),
+])
+def test_flash_attention_acc_bf16_route_edges(dev, B, H, KV, S, hd, window,
+                                              route):
+    chunk = fa_ref.kv_chunk_for(S, S)
+    assert fa_kernel.acc_bf16_route(S, S, hd, True, window,
+                                    chunk).route == route
+    q, k, v = _acc_bf16_inputs(dev, torch.bfloat16, B, H, KV, S, S, hd,
+                               S + hd + window)
+    _acc_bf16_check(q, k, v, causal=True, window=window)
 
 
 def _bf16_view(x):

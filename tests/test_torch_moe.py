@@ -21,6 +21,7 @@ bf16 hidden states, which the two frameworks round at different
 places).
 """
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -287,18 +288,60 @@ def test_prefill_and_decode_match_reference(case):
                 np.testing.assert_allclose(_np(st[n]), _np(jst[n]), **tol)
 
 
+def _near_tie_shifts(cfg, router_logits):
+    """The load-balance loss's change were each of the port's near-tie
+    top-1 router choices flipped to the runner-up: a token whose two
+    largest router logits lie within one bf16 ulp of the larger.  The loss
+    (``E coef sum_e f_e p_e``, f_e the share of tokens whose first choice
+    is e) then moves by ``E coef (p_b - p_a) / T``."""
+    m = cfg.moe
+    out = []
+    for lg in router_logits:
+        top, ids = lg.topk(2, dim=-1)
+        p = torch.softmax(lg, dim=-1).mean(0)
+        ulp = torch.finfo(torch.bfloat16).eps * top[:, 0].abs()
+        for t in ((top[:, 0] - top[:, 1]) <= ulp).nonzero()[:, 0].tolist():
+            a, b = ids[t].tolist()
+            out.append(m.num_experts * m.load_balance_coef
+                       * float(p[b] - p[a]) / lg.shape[0])
+    return out
+
+
 @pytest.mark.parametrize("case", ["granite-moe", "granite-moe-bf16"])
 def test_forward_lm_sums_the_aux_losses(case):
+    """The reference compiled, as it serves, and in bf16 also op by op.
+    Compiled, XLA may keep a bf16 product in float32 (q times its bf16
+    scale, here), and where two router logits lie within one bf16 ulp that
+    can flip a top-1 choice and the aux loss with it: the compiled bf16 aux
+    must equal the port's once some of the port's near-tie choices are
+    flipped (at most two), op by op it must equal the port's as is."""
     jcfg, pv, lm = _models(case)
     toks = _tokens(jcfg)
-    jl, jaux = jforward_lm(pv, jcfg, toks)
+    router = []
+    hooks = [blk.moe.register_forward_hook(
+        lambda mod, args, _: router.append(
+            args[0].reshape(-1, args[0].shape[-1]).float()
+            @ mod.router.float())) for blk in lm.layers]
     with torch.no_grad():
         pl, aux = lm.forward_lm(torch.as_tensor(toks))
-    np.testing.assert_allclose(_np(pl), _np(jl), **TOL[jcfg.dtype])
+    for h in hooks:
+        h.remove()
     assert aux.dtype == torch.float32 and float(aux) > 0
-    np.testing.assert_allclose(
-        float(aux), float(jaux),
-        rtol=AUX_RTOL if jcfg.dtype == "float32" else AUX_RTOL_BF16)
+    bf16 = jcfg.dtype == "bfloat16"
+    rtol = AUX_RTOL_BF16 if bf16 else AUX_RTOL
+    jl, jaux = jforward_lm(pv, jcfg, toks)
+    np.testing.assert_allclose(_np(pl), _np(jl), **TOL[jcfg.dtype])
+    shifts = _near_tie_shifts(lm.cfg, router) if bf16 else []
+    assert len(shifts) <= 2, shifts
+    flipped = [float(aux) + sum(c) for n in range(len(shifts) + 1)
+               for c in itertools.combinations(shifts, n)]
+    assert any(abs(f - float(jaux)) <= rtol * abs(float(jaux))
+               for f in flipped), (float(jaux), flipped)
+    if bf16:
+        with jax.disable_jit():
+            jl, jaux = jforward_lm(pv, jcfg, toks)
+        np.testing.assert_allclose(_np(pl), _np(jl), **TOL[jcfg.dtype])
+        np.testing.assert_allclose(float(aux), float(jaux), rtol=rtol)
     # the sum is over every layer's aux
     with torch.no_grad():
         h = lm.embed(torch.as_tensor(toks))

@@ -41,6 +41,7 @@ from repro_torch.models import LM, layers, state_dict_from_reference
 from repro_torch.serving import ContinuousBatcher, Request, ServeEngine
 from repro_torch.serving import engine as engine_mod
 from repro_torch.serving import frontend, scheduler
+from torch_decode_gap import decode_gaps
 
 TOL = dict(atol=2e-4, rtol=1e-3)
 PROMPT, CACHE_LEN = 10, 14
@@ -155,6 +156,19 @@ def test_decode_matches_forward_lm(case):
     for t in range(PROMPT, CACHE_LEN):
         logits, state = lm.decode_step(state, toks[:, t:t + 1])
         torch.testing.assert_close(logits, full[:, n_fe + t], **TOL)
+
+
+@pytest.mark.parametrize("case", ["jamba", "xlstm"])
+def test_decode_vs_forward_gap_is_the_references_own(case):
+    """The recurrent decoders' float32 decode drifts from ``forward_lm``
+    further than attention-only ones do, in the reference as in the port
+    (the recurrences sum in another order step by step than over the
+    whole sequence): from the same weights, over a 32-token prompt and 16
+    steps (`chip_smoke.py` phase 11(b)'s), the port's largest decode-vs-
+    forward logit gap stays within twice the reference's own."""
+    ref_gap, gap, _ = decode_gaps(case, "reduced")
+    assert 0 < ref_gap <= TOL["atol"]
+    assert gap <= 2 * ref_gap, (gap, ref_gap)
 
 
 @pytest.mark.parametrize("case", list(CASES))
