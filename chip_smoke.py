@@ -11,15 +11,16 @@ or the port is not beside the script.  Phases, each fatal on failure:
 
 1. build every CUDA kernel of the port from the checkout's sources (one
    ``nvcc`` per source, all started together), and read the built code
-   with ``cuobjdump --dump-sass``: every bf16 flash-attention kernel must
-   run on the tensor cores (``HMMA``) and the float32 one must not; the
-   cosine top-k kernels must be float32 FMA (``FFMA``) with no ``HMMA``;
-   the bf16 decode-attention kernels of the mma path must have ``HMMA``
-   and the others none; the cascade kernels must be ``FFMA`` with no
-   ``HMMA``; and ``cuobjdump --dump-resource-usage`` must show no stack
-   or local memory (no spill) in the decode, cascade and contrastive
-   kernels and the bf16 flash kernels of the bf16-accumulate mode (every
-   such kernel's registers printed);
+   with ``cuobjdump --dump-sass``: every flash-attention kernel must run
+   on the tensor cores (``HMMA``): the bf16 ones on bf16 products, the
+   float32 ones on TF32 products (3xTF32) and the float32
+   bf16-accumulate ones on both; the cosine top-k kernels must be
+   float32 FMA (``FFMA``) with no ``HMMA``; the bf16 decode-attention
+   kernels of the mma path must have ``HMMA`` and the others none; the
+   cascade kernels must be ``FFMA`` with no ``HMMA``; and ``cuobjdump
+   --dump-resource-usage`` must show no stack or local memory (no spill)
+   in the decode, cascade, contrastive and flash kernels (every such
+   kernel's registers printed);
 2. kernel parity, each kernel against its plain torch version on the
    same CUDA tensors, all timed with CUDA events (median of repeats
    after warm-up) over eager calls and over replays of a captured CUDA
@@ -75,8 +76,8 @@ or the port is not beside the script.  Phases, each fatal on failure:
      ``FLASH_ACC_BF16_EDGES``: held to its plain version in that mode
      (``ACC_BF16_MAX_REL``, ``ACC_BF16_MEAN_SHARE``), timed beside the
      float32-accumulate kernel on the same inputs (their graph-time
-     ratio printed) and, bf16, with the route the launch takes (one or
-     two walks, warps, shared memory; ``tests/torch_flash_routes.py``
+     ratio printed) and with the route the launch takes (one or two
+     walks, warps, shared memory; ``tests/torch_flash_routes.py``
      times the routes it does not take);
 3. serving: the full-width ``modernbert-149m`` encoder (seeded random
    weights) behind ``CacheService(fused=True)`` and
@@ -342,6 +343,10 @@ CONTRASTIVE_B = (16, 4096)  # the paper's batch; a large one
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
+# float32 attention's bound: the published dense TF32 rate over 3, the
+# cheapest float32-accurate use of the card (3xTF32: three TF32 products
+# a product; one TF32 product is not float32-accurate)
+TF32X3_FLOPS = 494.7e12 / 3
 # attention kernels against their plain versions: fp32 as the reference's
 # kernel tests (sums in another order); bf16 outputs round once, at the
 # end, on both sides (the reference's bf16 tolerance)
@@ -1785,8 +1790,17 @@ def ensemble_learning_phase(dev, embed_fn, names, thr: float,
 # phase 2: the attention kernels
 # ---------------------------------------------------------------------------
 
-def attention_bound_ms(n_bytes: int, flops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def attention_bound_ms(n_bytes: int, flops: float, dtype,
+                       pv_bf16: bool = False):
+    """The least time for attention's bytes and flops in ``dtype``: bf16 at
+    the bf16 tensor-core rate, float32 at the 3xTF32 rate.  ``pv_bf16``
+    (the float32 bf16-accumulate mode, whose weights and V are bf16 by its
+    function): the P V half of the flops at the bf16 rate."""
+    import torch
+    rate = BF16_FLOPS if dtype == torch.bfloat16 else TF32X3_FLOPS
+    pv_rate = BF16_FLOPS if pv_bf16 else rate
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / 2 / rate + flops / 2 / pv_rate
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes >= t_ops else "operations"
 
@@ -1880,12 +1894,14 @@ def attention_kernel_phase(dev):
                  f"{ACC_BF16_MEAN_SHARE} x gap {gap:.3g})")
         return float(err.max()), float(err.mean()), gap
 
-    def acc_bf16_row(tag, q, k, v, want, kw, bound, by, row):
+    def acc_bf16_row(tag, q, k, v, want, kw, n_bytes, flops, row):
         """The bf16-accumulate mode (attn_f32=False) at the reference's
         branch for this length (dense, or 1024-key chunks), held to its
         plain version and timed beside the float32-accumulate ``row`` of
-        the same inputs; bf16: the route the launch takes."""
+        the same inputs, with the route the launch takes; its bound takes
+        P V at the bf16 rate (its weights and V are bf16)."""
         S, hd = q.shape[1], q.shape[3]
+        bound, by = attention_bound_ms(n_bytes, flops, q.dtype, pv_bf16=True)
 
         def plain_b():
             return fref.flash_attention(
@@ -1909,14 +1925,12 @@ def attention_kernel_phase(dev):
                     device_kernels=device_kernels(kern_b), kv_chunk=chunk)
         rowb["f32_acc_graph_ms"] = row["graph_ms"]
         rowb["ratio_to_f32_acc"] = rowb["graph_ms"] / row["graph_ms"]
-        extra = ""
-        if q.dtype == torch.bfloat16:
-            r = fkern.acc_bf16_route(S, S, hd, kw["causal"], kw["window"],
-                                     chunk)
-            rowb.update(route=r.route, warps=r.warps, cap=r.cap,
-                        smem=r.smem)
-            extra = (f"; route {r.route}, {r.warps} warps, {r.smem} B "
-                     "shared")
+        r = fkern.acc_bf16_route(S, S, hd, kw["causal"], kw["window"],
+                                 chunk, q.dtype == torch.float32)
+        rowb.update(route=r.route, warps=r.warps, cap=r.cap, smem=r.smem)
+        extra = (f"; route {r.route}, {r.warps} warps, "
+                 f"{'at most ' if q.dtype == torch.float32 else ''}"
+                 f"{r.smem} B shared")
         fb["by_shape"][tag] = rowb
         print(f"  flash_attention acc_bf16 {tag} (kv_chunk {chunk}): max "
               f"|diff| {err_b:.3g} (limit "
@@ -1954,7 +1968,8 @@ def attention_kernel_phase(dev):
                                               err)
             es = q.element_size()
             n_bytes = es * (2 * B * S * H * hd + 2 * B * S * KV * hd)
-            bound, by = attention_bound_ms(n_bytes, 4.0 * hd * live * B * H)
+            flops = 4.0 * hd * live * B * H
+            bound, by = attention_bound_ms(n_bytes, flops, dtype)
             row = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=5),
                        library_ms=cuda_ms(library), bound_ms=bound,
                        bound_by=by, max_abs_err=err,
@@ -1981,7 +1996,7 @@ def attention_kernel_phase(dev):
                      f"{row['graph_ms_by_warps']})" if "warps" in row
                      else ""))
 
-            acc_bf16_row(tag, q, k, v, want, kw, bound, by, row)
+            acc_bf16_row(tag, q, k, v, want, kw, n_bytes, flops, row)
     for i, (name, B, H, KV, L, hd, cur, window) in enumerate(DECODE_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, valid, library = decode_case(dev, B, H, KV, L, hd, cur,
@@ -2002,7 +2017,8 @@ def attention_kernel_phase(dev):
             n_valid = int(valid.sum())          # rows the function needs
             n_bytes = es * (2 * B * H * hd + 2 * n_valid * KV * hd) \
                 + B * L
-            bound, by = attention_bound_ms(n_bytes, 4.0 * hd * n_valid * H)
+            bound, by = attention_bound_ms(n_bytes, 4.0 * hd * n_valid * H,
+                                           dtype)
             row = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=5),
                        library_ms=cuda_ms(library), bound_ms=bound,
                        bound_by=by, max_abs_err=err,
@@ -4525,8 +4541,10 @@ def cache_program_phase(dev, one: dict, card: str) -> dict:
 
 
 def sass_counts(lib: str) -> dict:
-    """{kernel function (mangled): {"HMMA": n, "FFMA": n}} in a built
-    library, from ``cuobjdump --dump-sass`` (beside ``nvcc``)."""
+    """{kernel function (mangled): {"HMMA": n, "FFMA": n, "HMMA_TF32": n,
+    "HMMA_BF16": n}} in a built library, from ``cuobjdump --dump-sass``
+    (beside ``nvcc``); the last two count the tensor-core products by
+    input type (``HMMA.1688.F32.TF32``, ``HMMA.16816.F32.BF16``)."""
     from repro_torch.kernels import _build
     exe = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     res = subprocess.run([exe, "--dump-sass", lib], capture_output=True,
@@ -4537,10 +4555,14 @@ def sass_counts(lib: str) -> dict:
     for line in res.stdout.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            out[name] = {"HMMA": 0, "FFMA": 0}
+            out[name] = {"HMMA": 0, "FFMA": 0, "HMMA_TF32": 0,
+                         "HMMA_BF16": 0}
         elif name is not None:
             for op in ("HMMA", "FFMA"):
                 out[name][op] += f" {op}" in line
+            if " HMMA" in line:
+                out[name]["HMMA_TF32"] += ".TF32" in line
+                out[name]["HMMA_BF16"] += ".BF16" in line
     return out
 
 
@@ -4567,21 +4589,33 @@ def resource_usage(lib: str) -> dict:
 
 
 def sass_phase(libs: dict) -> dict:
-    """The bf16 flash kernels run on the tensor cores, the float32 one and
-    cosine top-k on the FMA units: counted in the built SASS.  The bf16
-    decode kernels of the mma path run on the tensor cores and the
-    cascade kernels on the FMA units, and neither they nor the
-    contrastive kernels spill."""
+    """Every flash kernel runs on the tensor cores: the bf16 ones on bf16
+    products, the float32 ones on TF32 products (3xTF32), the float32
+    bf16-accumulate one on both (q k^T in TF32, P V in bf16); cosine
+    top-k on the FMA units: counted in the built SASS.  The bf16 decode
+    kernels of the mma path run on the tensor cores and the cascade
+    kernels on the FMA units, and neither they, the contrastive kernels
+    nor the flash kernels spill."""
     fa = sass_counts(libs["flash_attention"])
     bf16 = {n: c for n, c in fa.items()
             if "flash_attention_bf16_kernel" in n
             or "flash_attention_bf16_acc_bf16_kernel" in n}
-    f32 = {n: c for n, c in fa.items() if "flash_attention_kernel" in n
-           or "flash_attention_acc_bf16_kernel" in n}
-    if not bf16 or any(c["HMMA"] == 0 for c in bf16.values()):
-        fail(f"flash_attention: a bf16 kernel without HMMA: {bf16}")
-    if not f32 or any(c["HMMA"] for c in f32.values()):
-        fail(f"flash_attention: the float32 kernel has HMMA: {f32}")
+    f32 = {n: c for n, c in fa.items()
+           if "flash_attention_f32_kernel" in n}
+    f32_acc = {n: c for n, c in fa.items()
+               if "flash_attention_f32_acc_bf16_kernel" in n}
+    if not bf16 or any(c["HMMA_BF16"] == 0 or c["HMMA_TF32"]
+                       for c in bf16.values()):
+        fail(f"flash_attention: a bf16 kernel without bf16 HMMA, or with "
+             f"TF32: {bf16}")
+    if not f32 or any(c["HMMA_TF32"] == 0 or c["HMMA_BF16"]
+                      for c in f32.values()):
+        fail(f"flash_attention: a float32 kernel without TF32 HMMA, or "
+             f"with bf16: {f32}")
+    if not f32_acc or any(c["HMMA_TF32"] == 0 or c["HMMA_BF16"] == 0
+                          for c in f32_acc.values()):
+        fail(f"flash_attention: a float32 bf16-accumulate kernel without "
+             f"both TF32 and bf16 HMMA: {f32_acc}")
     ct = sass_counts(libs["cosine_topk"])
     part = {n: c for n, c in ct.items() if "cosine_topk_partial_kernel" in n}
     if any(c["HMMA"] for c in ct.values()) or not part \
@@ -4608,12 +4642,11 @@ def sass_phase(libs: dict) -> dict:
     usage["flash_attention"] = resource_usage(libs["flash_attention"])
     acc = {n: u for n, u in usage["flash_attention"].items()
            if "acc_bf16" in n}
-    redesigned = {n: u for n, u in acc.items()
-                  if "flash_attention_bf16_acc_bf16_kernel" in n}
-    if not redesigned or any(u.get("STACK", 0) or u.get("LOCAL", 0)
-                             for u in redesigned.values()):
-        fail(f"flash_attention: the bf16 bf16-accumulate kernels spill or "
-             f"were not read: {redesigned}")
+    spills = {n: u for n, u in usage["flash_attention"].items()
+              if u.get("STACK", 0) or u.get("LOCAL", 0)}
+    if len(usage["flash_attention"]) != len(fa) or spills:
+        fail(f"flash_attention: kernels spill (stack or local memory) or "
+             f"were not read: {spills or usage['flash_attention']}")
     out = {
         "decode_attention": {
             "kernels": len(da), "mma_kernels": len(mma),
@@ -4629,17 +4662,19 @@ def sass_phase(libs: dict) -> dict:
             "spills": 0},
         "flash_attention": {
             "acc_bf16_kernels": sum("acc_bf16" in n for n in fa),
-            "acc_bf16_max_registers": max(
-                (u["REG"] for u in acc.values()), default=None),
-            "acc_bf16_bf16_max_registers": max(
-                u["REG"] for u in redesigned.values()),
-            "acc_bf16_spills": {n[:60]: u for n, u in acc.items()
-                                if u.get("STACK", 0) or u.get("LOCAL", 0)},
+            "acc_bf16_max_registers": max(u["REG"] for u in acc.values()),
+            "max_registers": max(u["REG"] for u in
+                                 usage["flash_attention"].values()),
+            "spills": 0,
             "bf16_kernels": len(bf16),
             "bf16_HMMA": sum(c["HMMA"] for c in bf16.values()),
             "f32_kernels": len(f32),
-            "f32_FFMA": sum(c["FFMA"] for c in f32.values()),
-            "f32_HMMA": 0},
+            "f32_HMMA_TF32": sum(c["HMMA_TF32"] for c in f32.values()),
+            "f32_acc_bf16_kernels": len(f32_acc),
+            "f32_acc_bf16_HMMA_TF32": sum(c["HMMA_TF32"]
+                                          for c in f32_acc.values()),
+            "f32_acc_bf16_HMMA_BF16": sum(c["HMMA_BF16"]
+                                          for c in f32_acc.values())},
         "cosine_topk": {
             "kernels": len(ct),
             "FFMA": sum(c["FFMA"] for c in ct.values()), "HMMA": 0},

@@ -1,7 +1,8 @@
 // Inline-PTX wrappers shared by the port's Hopper kernels (sm_90a):
 // asynchronous global -> shared copies (cp.async), shared-memory matrix
-// fragment loads (ldmatrix) and the bf16 tensor-core product
-// (mma.sync m16n8k16, float32 accumulate).  Included by the kernels'
+// fragment loads (ldmatrix), the bf16 tensor-core product (mma.sync
+// m16n8k16, float32 accumulate) and the TF32 one (m16n8k8) with its
+// float32 -> tf32 rounding.  Included by the kernels'
 // sources; `_build.py` passes this directory with -I and hashes this file
 // into every library that includes it.
 #pragma once
@@ -82,6 +83,38 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to tf32 (10 mantissa bits; to nearest, ties away from zero:
+// cvt.rna), in a 32-bit register with the low 13 bits zero.
+__device__ __forceinline__ uint32_t cvt_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d += a b for a 16x8 tf32 A (row-major fragment, 4 registers), an 8x8
+// tf32 B (column fragment, 2 registers) and a 16x8 float32 D.  With g =
+// lane / 4 and t = lane % 4: a[0] = A[g][t], a[1] = A[g+8][t], a[2] =
+// A[g][t+4], a[3] = A[g+8][t+4]; b0 = B[t][g], b1 = B[t+4][g]; d as for
+// m16n8k16 (d[0..1] = D[g][2t..2t+1], d[2..3] = D[g+8][2t..2t+1]).
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 1 / x within 1 ulp (rcp.approx; x normal): no slow path, whose call
+// can leave ptxas a stack frame in a kernel that holds many registers.
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
 }
 
 // Two floats rounded to bf16 (nearest even) in one register, `lo` in the

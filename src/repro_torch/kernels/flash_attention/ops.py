@@ -6,10 +6,11 @@ is no fallback from the card.  The kernel takes float32 or bfloat16,
 head widths 32, 64, 96 and 128, and any layout whose head axis is
 contiguous: the (B, S, H, hd) tensors are read in place.  bfloat16
 tensors also need 16-byte aligned base pointers and (b, s, h) strides
-(its tensor-core kernel copies rows with 16-byte ``cp.async``); the
-model's separate q, k and v projections are.  It refuses a window that
-leaves some query row with no key in reach (Sq >= Skv + W), where the
-plain version averages v over every key.  ``acc_bf16`` is the config's
+(its kernels copy rows with 16-byte ``cp.async`` only); the model's
+separate q, k and v projections are.  float32 tensors take any such
+view (their kernels copy 4 bytes at a time where 16 do not fit).  It
+refuses a window that leaves some query row with no key in reach (Sq >=
+Skv + W), where the plain version averages v over every key.  ``acc_bf16`` is the config's
 ``attn_f32=False`` (bf16 weights and PV sums, `ref.flash_attention`
 with ``acc_dtype=torch.bfloat16``) and ``kv_chunk`` the reference's
 branch (0 dense, else the chunk width; ``None``: `ref.kv_chunk_for`); in

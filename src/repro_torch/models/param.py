@@ -82,8 +82,12 @@ class Initializer:
 
 
 def make_initializer(cfg: ModelConfig, seed: int, device) -> Initializer:
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
+    """On the ``meta`` device (shapes only, for weights assigned later)
+    there is nothing to draw, so no generator."""
+    gen = None
+    if torch.device(device).type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
     return Initializer(gen, dtype=getattr(torch, cfg.param_dtype),
                        device=device)
 
@@ -132,8 +136,8 @@ def _mixer_leaf(mixer: str, leaf: str, a: np.ndarray):
     return f"{mixer}.{leaf}", a
 
 
-def state_dict_from_reference(tree: Mapping, cfg: ModelConfig
-                              ) -> Dict[str, torch.Tensor]:
+def state_dict_from_reference(tree: Mapping, cfg: ModelConfig, *,
+                              copy: bool = True) -> Dict[str, torch.Tensor]:
     """The reference model's value tree (``split(init_lm(cfg))[0]``,
     leaves as numpy arrays) -> this port's ``Encoder`` or ``LM`` state dict.
 
@@ -165,13 +169,23 @@ def state_dict_from_reference(tree: Mapping, cfg: ModelConfig
     ``(h*hd,)``), the GELU MLP's ``b_up``/``b_down`` and the recurrent
     mixers' other leaves.  The same function carries an ``Encoder``'s
     and an ``LM``'s weights.
+
+    ``copy=False`` returns views of the reference's arrays (transposes
+    included; bfloat16 ones through their 16-bit pattern), for
+    ``load_state_dict(..., assign=True)`` into a model built on the
+    ``meta`` device: the two frameworks then share one copy of the
+    weights.
     """
     flat = _flatten(tree)
     P = len(cfg.period)
     sd: Dict[str, torch.Tensor] = {}
 
     def t(a):
-        return torch.from_numpy(np.array(a, copy=True))
+        if copy:
+            return torch.from_numpy(np.array(a, copy=True))
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+        return torch.from_numpy(a)
 
     sd["embed.table"] = t(flat["embed/table"])
     if "embed/unembed" in flat and not cfg.is_encoder:

@@ -185,6 +185,21 @@ def test_flash_acc_bf16_route(name, S, hd, causal, window):
         assert r.route == "two walks"
 
 
+@pytest.mark.parametrize("name,S,hd,causal,window", ROUTE_SHAPES,
+                         ids=[r[0] for r in ROUTE_SHAPES])
+def test_flash_acc_bf16_route_float32(name, S, hd, causal, window):
+    """The float32 inputs' bf16-accumulate launch takes the bf16 one's
+    route and warps, with its own shared memory, within the card's: the
+    most its layout takes (the q tile in float32, two ring slots of a
+    tile of (hd + 4)-float rows, the kept tiles)."""
+    chunk = fa_ref.kv_chunk_for(S, S)
+    r = fa_kernel.acc_bf16_route(S, S, hd, causal, window, chunk, True)
+    b = fa_kernel.acc_bf16_route(S, S, hd, causal, window, chunk)
+    assert (r.warps, r.cap) == (b.warps, b.cap)
+    assert r.smem == fa_kernel.f32_acc_bf16_smem(hd, r.warps, r.cap)
+    assert r.smem <= fa_kernel.SMEM_LIMIT
+
+
 @pytest.mark.parametrize("Sq,Skv,causal,window,kv_chunk", [
     (77, 77, True, 0, 0), (300, 300, True, 0, 100), (300, 300, True, 70, 100),
     (130, 130, False, 0, 48), (70, 70, False, 20, 0), (33, 80, True, 0, 0),

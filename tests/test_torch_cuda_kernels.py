@@ -38,12 +38,16 @@ serving- and training-shape checks in ``chip_smoke.py`` do not.
   the ``scale`` argument and the refusals; for the bf16 tensor-core
   kernel, Sq of 1, 17, 33 and 100 (2- and 4-warp blocks, ragged 16-row
   warp tiles), Skv off the 64-row K/V tiles, and misaligned views
-  refused (float32 takes them); the bf16-accumulate mode
+  refused (float32 takes them); for both float32 kernels (3xTF32), Sq
+  of 1, 16, 17, 32, 33 and 100, Skv off the key tiles, GQA, MQA and
+  windows, |logits| near 50, and misaligned views through their 4-byte
+  copies; the bf16-accumulate mode
   (``attn_f32=False``), dense and chunked (a chunk of one tile, a chunk
   off the tile, a window across chunks, bidirectional chunks, a ragged
-  last chunk), every case through both routes of the bf16 kernel (one
-  walk and two walks), and the routes' edges (the longest one walk, two
-  walks over an odd tile count, the reference's 1024-key chunks whole,
+  last chunk), every case through both routes of the bf16 and the
+  float32 kernels (one walk and two walks), and the routes' edges (the
+  longest one walk, two walks over an odd tile count, the reference's
+  1024-key chunks whole,
   with a ragged last chunk and with a window starting mid-chunk),
   against its plain version in that mode: max |diff| within 2^-6 max|v|
   and mean |diff| within a quarter of the plain version's own
@@ -1136,6 +1140,117 @@ def test_flash_attention_acc_bf16_route_edges(dev, B, H, KV, S, hd, window,
     q, k, v = _acc_bf16_inputs(dev, torch.bfloat16, B, H, KV, S, S, hd,
                                S + hd + window)
     _acc_bf16_check(q, k, v, causal=True, window=window)
+
+
+F32_EDGES = [
+    (2, 4, 4, 1, 1, True, 0),           # one row: a 2-warp block
+    (3, 4, 2, 16, 16, True, 0),         # one whole 16-row warp tile
+    (3, 4, 2, 17, 17, True, 0),         # a ragged 16-row warp tile
+    (2, 8, 8, 32, 32, True, 0),         # the largest 2-warp block
+    (1, 8, 2, 33, 97, True, 0),         # 4 warps; Skv off the key tiles
+    (1, 4, 1, 100, 100, True, 40),      # MQA, a window across tiles
+    (2, 4, 4, 17, 130, False, 0),       # bidirectional, Sq < Skv
+    (1, 6, 2, 33, 33, False, 9),        # bidirectional window
+    (1, 8, 2, 100, 163, True, 0),       # GQA, 4 warps, Skv off the tiles
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc_bf16", [False, True],
+                         ids=["f32_acc", "acc_bf16"])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128])
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,causal,window", F32_EDGES)
+def test_flash_attention_f32_tensor_core_edges(dev, acc_bf16, hd, B, H, KV,
+                                               Sq, Skv, causal, window):
+    """Both float32 kernels (3xTF32) at Sq of 1, 16, 17, 32, 33 and 100
+    (2- and 4-warp blocks, whole and ragged 16-row warp tiles), Skv off
+    the key tiles, GQA, MQA and windows; the float32-accumulate kernel
+    within ``ATTN_TOL``, the bf16-accumulate one within its bounds."""
+    g = torch.Generator(device=dev).manual_seed(hd * 17 + Sq + Skv)
+    q = torch.randn(B, Sq, H, hd, generator=g, device=dev)
+    k = torch.randn(B, Skv, KV, hd, generator=g, device=dev)
+    v = torch.randn(B, Skv, KV, hd, generator=g, device=dev)
+    for scale in (None, 0.3):
+        kw = dict(causal=causal, window=window, scale=scale)
+        if acc_bf16:
+            _acc_bf16_check(q, k, v, kv_chunk=0, **kw)
+        else:
+            _flash_check(q, k, v, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc_bf16", [False, True],
+                         ids=["f32_acc", "acc_bf16"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_f32_logits_near_50(dev, acc_bf16, hd):
+    """|logits| up to ~50, where the split's small halves matter: one TF32
+    product would move the logits by ~2^-11 of 50, 3xTF32 by ~2^-22."""
+    g = torch.Generator(device=dev).manual_seed(50 + hd)
+    q = 3.5 * torch.randn(2, 100, 4, hd, generator=g, device=dev)
+    k = 3.5 * torch.randn(2, 100, 2, hd, generator=g, device=dev)
+    v = torch.randn(2, 100, 2, hd, generator=g, device=dev)
+    s = torch.einsum("bqhd,bkhd->bhqk", q[:, :, :2], k) * hd ** -0.5
+    assert 35 < float(s.abs().max()) < 90
+    if acc_bf16:
+        _acc_bf16_check(q, k, v, causal=True, window=0, kv_chunk=0)
+        _acc_bf16_check(q, k, v, causal=True, window=0, kv_chunk=32)
+    else:
+        _flash_check(q, k, v, causal=True, window=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc_bf16", [False, True],
+                         ids=["f32_acc", "acc_bf16"])
+def test_flash_attention_f32_reads_misaligned_views(dev, acc_bf16):
+    """float32 views whose base pointer or (b, s, h) strides are not
+    16-byte aligned go through the kernels' 4-byte copies: the host picks
+    them from the tensors (`aligned16`), and the results match."""
+    g = torch.Generator(device=dev).manual_seed(61)
+    wide = torch.randn(1, 70, 2, 66, generator=g, device=dev)
+    flat = torch.randn(1 + 70 * 2 * 64, generator=g, device=dev)
+    good = torch.randn(1, 70, 2, 64, generator=g, device=dev)
+    for x in (wide[..., :64], flat[1:].view(1, 70, 2, 64)):
+        assert not fa_kernel.aligned16(x)
+        for q, k, v in ((x, x, x), (x, good, good), (good, good, x)):
+            if acc_bf16:
+                _acc_bf16_check(q, k, v, causal=True, window=0, kv_chunk=0)
+                _acc_bf16_check(q, k, v, causal=True, window=0,
+                                kv_chunk=16)
+            else:
+                _flash_check(q, k, v, causal=True, window=0)
+    assert fa_kernel.aligned16(good)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["one walk", "two walks"])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128])
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,causal,window,kv_chunk",
+                         ACC_BF16_CASES)
+def test_flash_attention_f32_acc_bf16_both_routes(
+        dev, monkeypatch, route, hd, B, H, KV, Sq, Skv, causal, window,
+        kv_chunk):
+    """The float32 bf16-accumulate kernel through both routes at each
+    dense shape (one walk keeping every tile a block walks, and two
+    walks); a chunked launch has two walks only, and one walk forced on
+    it is refused with nothing launched."""
+    w = fa_kernel.warps(Sq)
+    need = fa_kernel.tiles_per_chunk(Sq, Skv, 16 * w, causal, window,
+                                     kv_chunk)
+    cap = need if route == "one walk" else 0
+    r = fa_kernel.Route(w, fa_kernel.f32_acc_bf16_smem(hd, w, cap), cap)
+    assert r.route == route and r.smem <= fa_kernel.SMEM_LIMIT
+    monkeypatch.setattr(fa_kernel, "acc_bf16_route", lambda *a: r)
+    q, k, v = _acc_bf16_inputs(dev, torch.float32, B, H, KV, Sq, Skv, hd,
+                               hd * 11 + Sq + kv_chunk)
+    if kv_chunk and cap:
+        before = fa_kernel.COUNTS["flash_attention"]
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   acc_bf16=True, kv_chunk=kv_chunk)
+        assert fa_kernel.COUNTS["flash_attention"] == before
+        return
+    _acc_bf16_check(q, k, v, causal=causal, window=window,
+                    kv_chunk=kv_chunk)
 
 
 def _bf16_view(x):

@@ -1,18 +1,20 @@
-"""Both routes of the bf16 flash kernel's bf16-accumulate mode, on the
-card: one walk (each tile's float32 values kept in shared memory between
-the statistics and the weights phase) against two walks (K copied again
-and q k^T run again), each forced on the same inputs and held to the
-plain version in that mode under ``chip_smoke.py``'s bounds, and timed in
-a CUDA graph.  ``kernel.acc_bf16_route`` takes one walk for a dense reach
+"""Both routes of the flash kernels' bf16-accumulate mode, on the card:
+one walk (each tile's float32 values kept in shared memory between the
+statistics and the weights phase) against two walks (K copied again and
+q k^T run again), each forced on the same inputs and held to the plain
+version in that mode under ``chip_smoke.py``'s bounds, and timed in a
+CUDA graph.  ``kernel.acc_bf16_route`` takes one walk for a dense reach
 of up to ``ONE_WALK_TILES`` tiles; these are the times behind that rule.
 
-    python3 tests/torch_flash_routes.py     # on an H100; ~1 min
+    python3 tests/torch_flash_routes.py            # on an H100; ~2 min
+    python3 tests/torch_flash_routes.py bfloat16   # one dtype
 
-Rows: ``chip_smoke.py``'s dense flash shapes and route edges in bf16 (its
-phase 2 seeds), then a ladder of causal prefills at Phi-3-mini's heads
-(B=8, H=KV=32, hd 96) whose last block reaches 1..6 tiles.  Chunked
-launches have no one-walk route.  Prints one line a row and, last, a JSON
-object; writes the same to ``build/flash_routes.json``.
+Rows, in each dtype (bfloat16 and float32, or the one named):
+``chip_smoke.py``'s dense flash shapes and route edges (its phase 2
+seeds), then a ladder of causal prefills at Phi-3-mini's heads (B=8,
+H=KV=32, hd 96) whose last block reaches 1..6 tiles.  Chunked launches
+have no one-walk route.  Prints one line a row and, last, a JSON object;
+writes the same to ``build/flash_routes.json``.
 """
 import json
 import sys
@@ -39,9 +41,10 @@ def rows():
     return [r for r in out if fref.kv_chunk_for(r[4], r[4]) == 0]
 
 
-def one_row(dev, name, B, H, KV, S, hd, causal, window, seed):
+def one_row(dev, dtype, name, B, H, KV, S, hd, causal, window, seed):
     q, k, v, _, _ = chip_smoke.flash_case(dev, B, H, KV, S, hd, causal,
-                                          window, torch.bfloat16, seed)
+                                          window, dtype, seed)
+    f32 = dtype == torch.float32
     kw = dict(causal=causal, window=window, kv_chunk=0)
     t = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     want = fref.flash_attention(*t, acc_dtype=torch.bfloat16,
@@ -49,12 +52,13 @@ def one_row(dev, name, B, H, KV, S, hd, causal, window, seed):
     gap = float((fref.flash_attention(*t, **kw).transpose(1, 2).float()
                  - want).abs().mean())
     lim = chip_smoke.ACC_BF16_MAX_REL * float(v.float().abs().max())
-    taken = fkern.acc_bf16_route(S, S, hd, causal, window, 0)
+    taken = fkern.acc_bf16_route(S, S, hd, causal, window, 0, f32)
     w = taken.warps
     need = fkern.tiles_per_chunk(S, S, 16 * w, causal, window, 0)
     row = dict(tiles=need, warps=w, route_taken=taken.route, graph_ms={})
     for cap in (need, 0):
-        r = fkern.Route(w, fkern.acc_bf16_smem(hd, w, False, cap), cap)
+        r = fkern.Route(w, fkern.f32_acc_bf16_smem(hd, w, cap) if f32
+                        else fkern.acc_bf16_smem(hd, w, False, cap), cap)
         if r.smem > fkern.SMEM_LIMIT:
             continue
 
@@ -72,7 +76,8 @@ def one_row(dev, name, B, H, KV, S, hd, causal, window, seed):
     ms = row["graph_ms"]
     if len(ms) == 2:
         row["one_over_two"] = ms["one walk"] / ms["two walks"]
-    print(f"  {name} (B={B} S={S} H={H} KV={KV} hd={hd} W={window}): "
+    print(f"  {name} {str(dtype)[6:]} (B={B} S={S} H={H} KV={KV} hd={hd} "
+          f"W={window}): "
           f"{need} tiles, {w} warps, takes {taken.route}; graph ms {ms}"
           + (f", one / two {row['one_over_two']:.3f}"
              if "one_over_two" in row else ""), flush=True)
@@ -86,7 +91,10 @@ def main() -> int:
     dev = torch.device("cuda")
     card = chip_smoke.card_line()
     print(f"card: {card}")
-    out = {"card": card, "rows": {r[0]: one_row(dev, *r) for r in rows()}}
+    names = sys.argv[1:] or ["bfloat16", "float32"]
+    out = {"card": card,
+           "rows": {f"{r[0]} {n}": one_row(dev, getattr(torch, n), *r)
+                    for n in names for r in rows()}}
     text = json.dumps(out)
     (ROOT / "build").mkdir(exist_ok=True)
     (ROOT / "build" / "flash_routes.json").write_text(text)
