@@ -14,13 +14,15 @@ or the port is not beside the script.  Phases, each fatal on failure:
    with ``cuobjdump --dump-sass``: every flash-attention kernel must run
    on the tensor cores (``HMMA``): the bf16 ones on bf16 products, the
    float32 ones on TF32 products (3xTF32) and the float32
-   bf16-accumulate ones on both; the cosine top-k kernels must be
-   float32 FMA (``FFMA``) with no ``HMMA``; the bf16 decode-attention
-   kernels of the mma path must have ``HMMA`` and the others none; the
-   cascade kernels must be ``FFMA`` with no ``HMMA``; and ``cuobjdump
-   --dump-resource-usage`` must show no stack or local memory (no spill)
-   in the decode, cascade, contrastive and flash kernels (every such
-   kernel's registers printed);
+   bf16-accumulate ones on both; the cosine top-k kernels over float32
+   keys must be float32 FMA (``FFMA``) with no ``HMMA``, those over bf16
+   keys bf16 ``HMMA`` with no TF32 (and no other ``HMMA`` in the
+   library); the bf16 decode-attention kernels of the mma path must have
+   ``HMMA`` and the others none; the cascade kernels must be ``FFMA``
+   with no ``HMMA``; and ``cuobjdump --dump-resource-usage`` must show no
+   stack or local memory (no spill) in the decode, cascade, contrastive,
+   cosine top-k and flash kernels (every such kernel's registers
+   printed);
 2. kernel parity, each kernel against its plain torch version on the
    same CUDA tensors, all timed with CUDA events (median of repeats
    after warm-up) over eager calls and over replays of a captured CUDA
@@ -39,9 +41,13 @@ or the port is not beside the script.  Phases, each fatal on failure:
      capacity) and N=65536, 25 % invalid rows, k in {1, 4}, a panel
      ragged across the kernel's tiles (Q=33, N=4099, k up to its
      maximum) and an all-invalid panel; indices equal, scores within
-     ``SCORE_ATOL``; and at N=4096 and 65536 with q and keys in bf16
-     (widened to float32 as staged), timed beside a bf16 ``torch.matmul``
-     + ``torch.topk``;
+     ``SCORE_ATOL``; and at N=4096 and 65536 the other dtype pairs on
+     the same values — bf16 q and keys, float32 q with bf16 keys (both
+     the bf16 tensor-core kernel) and bf16 q with float32 keys (widened
+     into the float32 kernel) — k in {1, 4}, each timed with its bound
+     beside its plain version and the library yardstick, ``torch.topk``
+     of the float32 matmul of the widened values (TF32 off); the ragged
+     and the all-invalid panels again for both bf16-key pairs;
    * the contrastive forward and backward at B=16 (the paper's batch)
      and B=4096, D=768, on mixed, all-duplicate and all-distinct
      labels; components ``rtol 1e-5``, gradients within ``GRAD_ATOL``
@@ -290,7 +296,15 @@ or the port is not beside the script.  Phases, each fatal on failure:
    this shape); its arguments must hold the one-rank dry-run's argument
    bytes exactly and the kernel must launch once per run; its median
    time over ``CACHE_RUN_REPS`` runs is set beside the dry-run's
-   ``t_bound`` and its peak memory beside the dry-run's estimate.
+   ``t_bound`` and its peak memory beside the dry-run's estimate.  Then
+   the same program over the same keys in bf16 (``build_cache_program(
+   keys_dtype=bfloat16)``: float32 queries with bf16 keys, the bf16-key
+   kernel held first to its plain version, indices equal and scores
+   within ``SCORE_ATOL``), its arguments the port's bf16 program's (the
+   float32 run's less N D 2 bytes), one launch of that kernel a run and
+   none of the float32 one; its time, ``store.query``'s and the kernel's
+   alone (beside its plain version, library call and bound) printed
+   beside the float32 run's.
 
 Prints the card's name and power limit, the stage latencies, a JSON
 line of phase 12's training numbers, a JSON line of phase 14's dry-run
@@ -914,24 +928,35 @@ def score_report(embed_fn, stream) -> dict:
     return out
 
 
-def topk_bound_ms(Q: int, N: int, D: int, k: int, elem: int = 4):
-    """Least time for one cosine top-k: queries, keys (``elem`` bytes a
-    value: 4 float32, 2 bf16) and the valid mask read once and the
-    outputs written once over HBM bandwidth, vs its 2 Q N D flops over
-    the card's rate for the inputs' type (bf16 products are exact in
-    float32, so bf16 tensor cores accumulating in float32 compute the
-    same function)."""
-    n_bytes = elem * Q * D + elem * N * D + N + 8 * Q * k
-    rate = BF16_FLOPS if elem == 2 else FP32_FLOPS
+def topk_bound_ms(Q: int, N: int, D: int, k: int, q_elem: int = 4,
+                  k_elem: int = 4):
+    """Least time for one cosine top-k: queries (``q_elem`` bytes a
+    value: 4 float32, 2 bf16), keys (``k_elem``) and the valid mask read
+    once and the outputs written once over HBM bandwidth, vs its 2 Q N D
+    flops over the cheapest rate that computes the function: both bf16,
+    the bf16 tensor cores (a bf16 product is exact in float32, summed in
+    float32); one float32 operand, three bf16 products a product (its
+    three bf16 terms: 989 / 3 TFLOP/s, the cheapest float32-accurate
+    rate); both float32, 3xTF32 (``TF32X3_FLOPS``, as float32
+    attention), whatever the kernel runs on."""
+    n_bytes = q_elem * Q * D + k_elem * N * D + N + 8 * Q * k
+    rate = {4: BF16_FLOPS, 6: BF16_FLOPS / 3}.get(q_elem + k_elem,
+                                                  TF32X3_FLOPS)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 2 * Q * N * D / rate
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes >= t_ops else "operations"
 
 
+TOPK_PAIRS = (("bf16", "bfloat16", "bfloat16"),
+              ("mixed", "float32", "bfloat16"),
+              ("bf16q_f32keys", "bfloat16", "float32"))
+
+
 def topk_phase(dev):
-    """The cosine top-k kernel against its plain version at the flat
+    """The cosine top-k kernels against their plain version at the flat
     cache's shapes, and the times of both and of the two-call library
-    reference (matmul + ``torch.topk``, TF32 off)."""
+    reference (matmul + ``torch.topk``, TF32 off): float32 q and keys,
+    then the other dtype pairs (bf16 keys: the tensor-core kernel)."""
     import torch
     from repro_torch.kernels.cosine_topk import ops, ref
     g = torch.Generator(device=dev).manual_seed(1)
@@ -950,9 +975,36 @@ def topk_phase(dev):
         err = float((a[0] - b[0]).abs().max())
         if err > SCORE_ATOL:
             fail(f"cosine_topk {what}: max |score diff| {err:.3g}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        if keys.dtype == torch.bfloat16:
+            out["bf16_keys_max_abs_err"] = max(out["bf16_keys_max_abs_err"],
+                                               err)
         return err
 
-    out = {"max_abs_err": 0.0, "by_n": {}, "bf16_by_n": {}}
+    def timed(q, keys, valid):
+        """Eager and graph ms at k=1 of the kernel, its plain version and
+        the library call: ``torch.topk`` of the float32 matmul of the
+        widened values (the kernels' function; a bf16 @ bf16 matmul
+        would round every score to bf16)."""
+        def kern():
+            return ops.cosine_topk(q, keys, valid, 1)
+
+        def plain():
+            return ref.cosine_topk(q, keys, valid, 1)
+
+        def library():
+            return torch.topk(torch.where(valid, q.float() @ keys.float().T,
+                                          -1e30), 1)
+        bound, by = topk_bound_ms(Q, keys.shape[0], D, 1, q.element_size(),
+                                  keys.element_size())
+        return dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=5),
+                    library_ms=cuda_ms(library), bound_ms=bound,
+                    bound_by=by, graph_ms=graph_ms(kern),
+                    plain_graph_ms=graph_ms(plain, iters=5),
+                    library_graph_ms=graph_ms(library))
+
+    out = {"max_abs_err": 0.0, "bf16_keys_max_abs_err": 0.0, "by_n": {},
+           **{f"{p}_by_n": {} for p, _, _ in TOPK_PAIRS}}
     for N in TOPK_N:
         keys = unit(torch.randn(N, D, generator=g, device=dev))
         valid = torch.rand(N, generator=g, device=dev) >= 0.25
@@ -961,86 +1013,54 @@ def topk_phase(dev):
                                               device=dev)])
         q = unit(q + 0.05 * torch.randn(Q, D, generator=g, device=dev))
         for k in (1, 4):
-            err = check(q, keys, valid, k, f"N={N} k={k}")
-            out["max_abs_err"] = max(out["max_abs_err"], err)
-        def kern():
-            return ops.cosine_topk(q, keys, valid, 1)
-
-        def plain():
-            return ref.cosine_topk(q, keys, valid, 1)
-
-        def library():
-            return torch.topk(torch.where(valid, q @ keys.T, -1e30), 1)
-        bound, by = topk_bound_ms(Q, N, D, 1)
-        row = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=5),
-                   library_ms=cuda_ms(library), bound_ms=bound, bound_by=by,
-                   graph_ms=graph_ms(kern),
-                   plain_graph_ms=graph_ms(plain, iters=5),
-                   library_graph_ms=graph_ms(library))
+            check(q, keys, valid, k, f"N={N} k={k}")
+        row = timed(q, keys, valid)
         kernel = ops._kernel
         row["key_tile"] = kernel.key_tile(
             Q, N, torch.cuda.get_device_properties(dev).multi_processor_count,
-            kernel.query_tile())
+            kernel.query_tile(), kernel.blocks_per_sm(1))
         row["graph_ms_by_key_tile"] = {}
         for kt in kernel.KEY_TILES:
             with forced(kernel, "key_tile", kt):
-                row["graph_ms_by_key_tile"][kt] = graph_ms(kern)
+                row["graph_ms_by_key_tile"][kt] = graph_ms(
+                    lambda: ops.cosine_topk(q, keys, valid, 1))
         out["by_n"][N] = row
-        # bf16 q and keys (the reference's bf16 panels), widened to
-        # float32 as the kernel stages them; the plain version multiplies
-        # the same values in float32
-        qb, kb = q.bfloat16(), keys.bfloat16()
-        for k in (1, 4):
-            err = check(qb, kb, valid, k, f"bf16 N={N} k={k}")
-            out["max_abs_err"] = max(out["max_abs_err"], err)
-
-        def kern_b():
-            return ops.cosine_topk(qb, kb, valid, 1)
-
-        def plain_b():
-            return ref.cosine_topk(qb, kb, valid, 1)
-
-        def library_b():
-            # the kernel's function: float32 sums of the (exact) products
-            # of the bf16 values, so the matmul takes them widened (TF32
-            # off), not bf16 @ bf16, which rounds every score to bf16
-            return torch.topk(torch.where(valid, qb.float() @ kb.float().T,
-                                          -1e30), 1)
-        bound_b, by_b = topk_bound_ms(Q, N, D, 1, elem=2)
-        out["bf16_by_n"][N] = rb = dict(
-            ms=cuda_ms(kern_b), plain_ms=cuda_ms(plain_b, iters=5),
-            library_ms=cuda_ms(library_b), bound_ms=bound_b,
-            bound_by=by_b, graph_ms=graph_ms(kern_b),
-            plain_graph_ms=graph_ms(plain_b, iters=5),
-            library_graph_ms=graph_ms(library_b))
-        print(f"  cosine_topk bf16 N={N}: indices equal; k=1 graph: kernel "
-              f"{rb['graph_ms']:.4f} ms, plain {rb['plain_graph_ms']:.4f}, "
-              f"library (widened matmul + topk) "
-              f"{rb['library_graph_ms']:.4f}; "
-              f"bound {bound_b:.4f} ({by_b})")
         print(f"  cosine_topk N={N}: indices equal, max |dscore| "
               f"{out['max_abs_err']:.3g}; k=1 eager: kernel {row['ms']:.4f} "
               f"ms, plain {row['plain_ms']:.4f}, library "
               f"{row['library_ms']:.4f}; graph: kernel "
               f"{row['graph_ms']:.4f}, plain {row['plain_graph_ms']:.4f}, "
-              f"library {row['library_graph_ms']:.4f}; bound {bound:.4f} "
-              f"({by}); key tile {row['key_tile']} (graph ms by key tile "
+              f"library {row['library_graph_ms']:.4f}; bound "
+              f"{row['bound_ms']:.4f} ({row['bound_by']}); key tile "
+              f"{row['key_tile']} (graph ms by key tile "
               f"{row['graph_ms_by_key_tile']})")
-    # ragged across the kernel's query tiles and key tiles
+        # the other dtype pairs on the same values, rounded where bf16
+        for pair, q_dt, k_dt in TOPK_PAIRS:
+            qp, kp = q.to(getattr(torch, q_dt)), keys.to(getattr(torch, k_dt))
+            for k in (1, 4):
+                check(qp, kp, valid, k, f"{pair} N={N} k={k}")
+            out[f"{pair}_by_n"][N] = rp = timed(qp, kp, valid)
+            print(f"  cosine_topk {q_dt} q x {k_dt} keys N={N}: indices "
+                  f"equal; k=1 graph: kernel {rp['graph_ms']:.4f} ms, plain "
+                  f"{rp['plain_graph_ms']:.4f}, library (widened matmul + "
+                  f"topk) {rp['library_graph_ms']:.4f}; bound "
+                  f"{rp['bound_ms']:.4f} ({rp['bound_by']})")
+    # ragged across the kernels' query tiles and key tiles
     keys = unit(torch.randn(4099, D, generator=g, device=dev))
     valid = torch.rand(4099, generator=g, device=dev) >= 0.25
     q33 = unit(keys[-33:] + 0.05 * torch.randn(33, D, generator=g,
                                                 device=dev))
-    for k in (1, ops._kernel.max_k()):
-        err = check(q33, keys, valid, k, f"Q=33 N=4099 k={k}")
-        out["max_abs_err"] = max(out["max_abs_err"], err)
-    print(f"  cosine_topk Q=33 N=4099 k in (1, {ops._kernel.max_k()}): "
-          "indices equal")
-    keys = unit(torch.randn(256, D, generator=g, device=dev))
-    check(q, keys, torch.zeros(256, dtype=torch.bool, device=dev), 4,
-          "all-invalid")
-    print("  cosine_topk all-invalid panel: indices 0..k-1 as the plain "
-          "version")
+    empty = torch.zeros(256, dtype=torch.bool, device=dev)
+    for pair, q_dt, k_dt in (("float32", "float32", "float32"),
+                             *TOPK_PAIRS[:2]):
+        qp = q33.to(getattr(torch, q_dt))
+        kp = keys.to(getattr(torch, k_dt))
+        for k in (1, ops._kernel.max_k()):
+            check(qp, kp, valid, k, f"{pair} Q=33 N=4099 k={k}")
+        check(q.to(qp.dtype), kp[:256], empty, 4, f"{pair} all-invalid")
+        print(f"  cosine_topk {q_dt} q x {k_dt} keys: Q=33 N=4099 k in (1, "
+              f"{ops._kernel.max_k()}) indices equal; all-invalid panel: "
+              "indices 0..k-1 as the plain version")
     return out
 
 
@@ -4427,16 +4447,22 @@ def cache_program_phase(dev, one: dict, card: str) -> dict:
     """14(b): the dry-run's cache program at one rank, for real on the
     card: the full-width encoder on CACHE_SHAPE's 1024 queries of 64
     tokens, then `core.store.query` over 1,048,576 float32 keys through
-    the cosine top-k kernel.  Its arguments must hold the dry-run's
-    argument bytes; its time (median of CUDA-event runs) is set beside
-    the dry-run's ``t_bound`` and its peak memory (above what the
-    process held before the phase) beside the dry-run's peak estimate.  The kernel is held to its plain version at this
-    shape first."""
+    the float32-key cosine top-k kernel; then the same program over the
+    same keys in bf16 (``build_cache_program(keys_dtype=bfloat16)``:
+    float32 queries with bf16 keys, the bf16-key kernel).  Each run's
+    arguments must hold the program's argument bytes (the float32 run the
+    dry-run's, the bf16 run the port's bf16 program's, N D 2 fewer); its
+    time (median of CUDA-event runs) is set beside the dry-run's
+    ``t_bound`` and its peak memory (above what the process held before
+    the phase) beside the dry-run's peak estimate.  Each kernel is held to
+    its plain version at this shape first, and must launch once a run."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import store
     from repro_torch.kernels.cosine_topk import kernel, ops, ref
-    from repro_torch.launch.programs import CACHE_CAPACITY, CACHE_SHAPE
+    from repro_torch.launch.programs import (
+        CACHE_CAPACITY, CACHE_SHAPE, build_cache_program)
+    from repro_torch.launch.sharding import tree_leaves
     from repro_torch.models import Encoder
 
     cfg = get_config("modernbert-149m").replace(
@@ -4461,81 +4487,140 @@ def cache_program_phase(dev, one: dict, card: str) -> dict:
                            device=dev, dtype=i32)
     lengths = torch.randint(8, T + 1, (Q, 1), generator=gen, device=dev)
     mask = torch.arange(T, device=dev)[None] < lengths
-    args = list(enc.parameters()) + list(st) + [tokens, mask]
-    arg_bytes = sum(t.numel() * t.element_size() for t in args)
-    want = one["args_bytes"]
-    if arg_bytes != want:
-        fail(f"the cache program's arguments hold {arg_bytes} bytes; the "
-             f"dry-run at one rank counts {want}")
 
-    def run():
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def one_store(st, want_bytes, count, what):
+        arg_bytes = nbytes(list(enc.parameters()) + list(st)
+                           + [tokens, mask])
+        if arg_bytes != want_bytes:
+            fail(f"the cache program ({what}) holds {arg_bytes} argument "
+                 f"bytes; the program counts {want_bytes}")
+
+        def run():
+            with torch.no_grad():
+                emb = enc.encode(tokens, mask)
+                return store.query(st, emb, threshold=0.9, k=1)
+
         with torch.no_grad():
+            qn = store._normalise(enc.encode(tokens, mask)).contiguous()
+            ks, ki = ops.cosine_topk(qn, st.keys, st.valid, 1)
+            ps, pi = ref.cosine_topk(qn, st.keys, st.valid, 1)
+        torch.cuda.synchronize()
+        err = float((ks - ps).abs().max())
+        if not torch.equal(ki, pi) or err > SCORE_ATOL:
+            fail(f"cosine_topk ({what}) at Q={Q} N={N}: indices equal "
+                 f"{torch.equal(ki, pi)}, max score error {err:.3e}")
+        del ks, ki, ps, pi
+        free_cuda()
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for key in kernel.COUNTS:
+            kernel.COUNTS[key] = 0
+        times = []
+        for _ in range(CACHE_RUN_REPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            res = run()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        launches = dict(kernel.COUNTS)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        if launches != {k: CACHE_RUN_REPS if k == count else 0
+                        for k in kernel.COUNTS}:
+            fail(f"cache program ({what}): launches {launches} in "
+                 f"{CACHE_RUN_REPS} runs, expected {count} once a run")
+        if not (res.slots.shape == (Q, 1) and bool(torch.isfinite(
+                res.scores).all())):
+            fail(f"the cache program's result ({what}) is not (Q, 1) "
+                 "finite scores")
+        with torch.no_grad():              # the two stages apart
             emb = enc.encode(tokens, mask)
-            return store.query(st, emb, threshold=0.9, k=1)
+            encode_ms = cuda_ms(lambda: enc.encode(tokens, mask), iters=1,
+                                reps=CACHE_RUN_REPS)
+            query_ms = cuda_ms(lambda: store.query(st, emb, 0.9, k=1),
+                               iters=1, reps=CACHE_RUN_REPS)
+        ms = statistics.median(times)
+        return {"ms": ms, "times_ms": times, "launches": launches[count],
+                "encode_ms": encode_ms, "query_ms": query_ms,
+                "max_abs_err": err, "arg_bytes": arg_bytes,
+                "peak_bytes": peak, "qn": qn}
 
-    with torch.no_grad():
-        qn = store._normalise(enc.encode(tokens, mask)).contiguous()
-        ks, ki = ops.cosine_topk(qn, keys, st.valid, 1)
-        ps, pi = ref.cosine_topk(qn, keys, st.valid, 1)
-    torch.cuda.synchronize()
-    err = float((ks - ps).abs().max())
-    if not torch.equal(ki, pi) or err > SCORE_ATOL:
-        fail(f"cosine_topk at Q={Q} N={N}: indices equal "
-             f"{torch.equal(ki, pi)}, max score error {err:.3e}")
-    del qn, ks, ki, ps, pi
-    free_cuda()
-    run()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    kernel.COUNTS["cosine_topk"] = 0
-    times = []
-    for _ in range(CACHE_RUN_REPS):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        res = run()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    launches = kernel.COUNTS["cosine_topk"]
-    peak = torch.cuda.max_memory_allocated(dev) - base
-    with torch.no_grad():                  # the two stages apart
-        emb = enc.encode(tokens, mask)
-        encode_ms = cuda_ms(lambda: enc.encode(tokens, mask), iters=1,
-                            reps=CACHE_RUN_REPS)
-        query_ms = cuda_ms(lambda: store.query(st, emb, 0.9, k=1), iters=1,
-                           reps=CACHE_RUN_REPS)
-    if launches != CACHE_RUN_REPS:
-        fail(f"cosine_topk launched {launches} times in "
-             f"{CACHE_RUN_REPS} runs of the cache program")
-    if not (res.slots.shape == (Q, 1) and bool(torch.isfinite(
-            res.scores).all())):
-        fail("the cache program's result is not (Q, 1) finite scores")
-    ms = statistics.median(times)
+    want = one["args_bytes"]
+    out = one_store(st, want, "cosine_topk", "float32 keys")
+    out.pop("qn")
     t_bound_ms = one["t_bound"] * 1e3
     dry_peak = one["args_bytes"] + one["temp_bytes"]
-    out = {"ms": ms, "times_ms": times, "launches": launches,
-           "encode_ms": encode_ms, "query_ms": query_ms,
-           "max_abs_err": err, "t_bound_ms": t_bound_ms,
-           "bound_fraction": t_bound_ms / ms,
-           "dryrun_bottleneck": one["bottleneck"],
-           "dryrun_terms_ms": {k: one[k] * 1e3 for k in (
-               "t_compute", "t_memory", "t_collective")},
-           "arg_bytes": arg_bytes, "dryrun_arg_bytes": want,
-           "peak_bytes": peak, "dryrun_peak_bytes": dry_peak,
-           "peak_factor": dry_peak / peak, "at": f"Q={Q} T={T} N={N} D={D}",
-           "card": card}
+    ms, peak, err = out["ms"], out["peak_bytes"], out["max_abs_err"]
+    out.update({"t_bound_ms": t_bound_ms,
+                "bound_fraction": t_bound_ms / ms,
+                "dryrun_bottleneck": one["bottleneck"],
+                "dryrun_terms_ms": {k: one[k] * 1e3 for k in (
+                    "t_compute", "t_memory", "t_collective")},
+                "dryrun_arg_bytes": want, "dryrun_peak_bytes": dry_peak,
+                "peak_factor": dry_peak / peak,
+                "at": f"Q={Q} T={T} N={N} D={D}", "card": card})
     print(f"  cache program at one rank: {ms:.2f} ms (median of "
           f"{CACHE_RUN_REPS}; {card}); dry-run t_bound {t_bound_ms:.2f} ms "
           f"({out['dryrun_bottleneck']}): t_bound / measured "
           f"{out['bound_fraction']:.3f}")
-    print(f"  arguments {arg_bytes:,} bytes = the dry-run's; peak memory "
-          f"{peak / 2**30:.2f} GiB against the dry-run's estimate "
+    print(f"  arguments {out['arg_bytes']:,} bytes = the dry-run's; peak "
+          f"memory {peak / 2**30:.2f} GiB against the dry-run's estimate "
           f"{dry_peak / 2**30:.2f} GiB (x{out['peak_factor']:.2f}); "
-          f"cosine_topk launches {launches}, max |score - plain| {err:.2e}")
-    print(f"  apart: encode {encode_ms:.2f} ms, store.query (cosine_topk "
-          f"kernel) {query_ms:.2f} ms")
-    del enc, st, keys, tokens, mask, res, emb
+          f"cosine_topk launches {out['launches']}, max |score - plain| "
+          f"{err:.2e}")
+    print(f"  apart: encode {out['encode_ms']:.2f} ms, store.query "
+          f"(cosine_topk kernel) {out['query_ms']:.2f} ms")
+
+    # the same program over bf16 keys: float32 q x bf16 keys
+    st = st._replace(keys=keys.bfloat16())
+    del keys
+    free_cuda()
+    prog = build_cache_program(variant="auto", keys_dtype=torch.bfloat16)
+    want_b = nbytes(tree_leaves(prog.args))
+    del prog
+    if want_b != want - N * D * 2:
+        fail(f"the bf16 cache program counts {want_b} argument bytes, not "
+             f"the float32 one's {want} less N D 2")
+    ob = one_store(st, want_b, "cosine_topk_bf16", "bf16 keys")
+    qn = ob.pop("qn")
+    kb, valid = st.keys, st.valid
+
+    def kern():
+        return ops.cosine_topk(qn, kb, valid, 1)
+
+    def plain():
+        return ref.cosine_topk(qn, kb, valid, 1)
+
+    def library():
+        return torch.topk(torch.where(valid, qn @ kb.float().T, -1e30), 1)
+    with torch.no_grad():
+        bound, by = topk_bound_ms(Q, N, D, 1, 4, 2)
+        ob.update(kernel_ms=cuda_ms(kern, iters=1, reps=CACHE_RUN_REPS),
+                  plain_ms=cuda_ms(plain, iters=1, reps=3),
+                  library_ms=cuda_ms(library, iters=1, reps=3),
+                  bound_ms=bound, bound_by=by)
+    free_cuda()
+    ob.update({"peak_factor": dry_peak / ob["peak_bytes"],
+               "at": f"float32 q x bf16 keys, Q={Q} T={T} N={N} D={D}",
+               "card": card})
+    print(f"  bf16 keys (float32 q x bf16 keys, the bf16-key kernel): "
+          f"{ob['ms']:.2f} ms (float32 keys {ms:.2f}); arguments "
+          f"{ob['arg_bytes']:,} bytes = the port's bf16 program's "
+          f"(float32 less N D 2); peak {ob['peak_bytes'] / 2**30:.2f} GiB; "
+          f"launches {ob['launches']}, max |score - plain| "
+          f"{ob['max_abs_err']:.2e}")
+    print(f"  apart: encode {ob['encode_ms']:.2f} ms, store.query "
+          f"{ob['query_ms']:.2f} ms (float32 keys {out['query_ms']:.2f}); "
+          f"the kernel alone {ob['kernel_ms']:.3f} ms, plain "
+          f"{ob['plain_ms']:.2f}, library (widened matmul + topk) "
+          f"{ob['library_ms']:.2f}, bound {bound:.3f} ({by})")
+    out["bf16_keys"] = ob
+    del enc, st, tokens, mask, qn, kb, valid
     free_cuda()
     return out
 
@@ -4592,10 +4677,11 @@ def sass_phase(libs: dict) -> dict:
     """Every flash kernel runs on the tensor cores: the bf16 ones on bf16
     products, the float32 ones on TF32 products (3xTF32), the float32
     bf16-accumulate one on both (q k^T in TF32, P V in bf16); cosine
-    top-k on the FMA units: counted in the built SASS.  The bf16 decode
-    kernels of the mma path run on the tensor cores and the cascade
-    kernels on the FMA units, and neither they, the contrastive kernels
-    nor the flash kernels spill."""
+    top-k over float32 keys on the FMA units and over bf16 keys on bf16
+    products: counted in the built SASS.  The bf16 decode kernels of the
+    mma path run on the tensor cores and the cascade kernels on the FMA
+    units, and neither they, the contrastive, cosine top-k nor flash
+    kernels spill."""
     fa = sass_counts(libs["flash_attention"])
     bf16 = {n: c for n, c in fa.items()
             if "flash_attention_bf16_kernel" in n
@@ -4618,9 +4704,15 @@ def sass_phase(libs: dict) -> dict:
              f"both TF32 and bf16 HMMA: {f32_acc}")
     ct = sass_counts(libs["cosine_topk"])
     part = {n: c for n, c in ct.items() if "cosine_topk_partial_kernel" in n}
-    if any(c["HMMA"] for c in ct.values()) or not part \
+    ct_mma = {n: c for n, c in ct.items() if "cosine_topk_mma_kernel" in n}
+    if any(c["HMMA"] for n, c in ct.items() if n not in ct_mma) or not part \
             or any(c["FFMA"] == 0 for c in part.values()):
-        fail(f"cosine_topk: HMMA present or FFMA missing: {ct}")
+        fail(f"cosine_topk: HMMA outside the bf16-key kernels or FFMA "
+             f"missing in a float32-key kernel: {ct}")
+    if not ct_mma or any(c["HMMA_BF16"] == 0 or c["HMMA_TF32"]
+                         for c in ct_mma.values()):
+        fail(f"cosine_topk: a bf16-key kernel without bf16 HMMA, or with "
+             f"TF32: {ct_mma}")
     da = sass_counts(libs["decode_attention"])
     mma = {n: c for n, c in da.items() if "decode_mma_kernel" in n}
     if not mma or any(c["HMMA"] == 0 for c in mma.values()):
@@ -4632,7 +4724,8 @@ def sass_phase(libs: dict) -> dict:
             c["FFMA"] for n, c in cl.items() if "cascade_score_kernel" in n):
         fail(f"cascade_lookup: HMMA present or FFMA missing: {cl}")
     usage = {}
-    for name in ("decode_attention", "cascade_lookup", "contrastive"):
+    for name in ("decode_attention", "cascade_lookup", "contrastive",
+                 "cosine_topk"):
         usage[name] = resource_usage(libs[name])
         spills = {n: u for n, u in usage[name].items()
                   if u.get("STACK", 0) or u.get("LOCAL", 0)}
@@ -4676,8 +4769,16 @@ def sass_phase(libs: dict) -> dict:
             "f32_acc_bf16_HMMA_BF16": sum(c["HMMA_BF16"]
                                           for c in f32_acc.values())},
         "cosine_topk": {
-            "kernels": len(ct),
-            "FFMA": sum(c["FFMA"] for c in ct.values()), "HMMA": 0},
+            "kernels": len(ct), "mma_kernels": len(ct_mma),
+            "FFMA": sum(c["FFMA"] for c in part.values()),
+            "HMMA_BF16": sum(c["HMMA_BF16"] for c in ct_mma.values()),
+            "HMMA_outside_mma": 0,
+            "mma_max_registers": max(
+                u["REG"] for n, u in usage["cosine_topk"].items()
+                if "cosine_topk_mma_kernel" in n),
+            "max_registers": max(u["REG"] for u in
+                                 usage["cosine_topk"].values()),
+            "spills": 0},
         "contrastive": {
             "kernels": len(usage["contrastive"]),
             "max_registers": max(u["REG"] for u in
@@ -4688,7 +4789,7 @@ def sass_phase(libs: dict) -> dict:
           f"{out['decode_attention']}; cascade_lookup "
           f"{out['cascade_lookup']}; contrastive {out['contrastive']}")
     for name in ("decode_attention", "cascade_lookup", "contrastive",
-                 "flash_attention"):
+                 "cosine_topk", "flash_attention"):
         print(f"  registers per thread, {name}: " + "; ".join(
             f"{n[:60]} {u['REG']}" for n, u in usage[name].items()))
     return out
@@ -4885,6 +4986,7 @@ def main() -> int:
 
     n_flat = FLAT_CAPACITY
     b_train = CONTRASTIVE_B[0]
+    cpb = cpr["bf16_keys"]
     kernels = [{
         "name": "cascade_lookup", "route": "cuda",
         "source": "src/repro_torch/kernels/cascade_lookup/csrc/"
@@ -4925,12 +5027,28 @@ def main() -> int:
         "launches": fl["launches"], "max_abs_err": tp["max_abs_err"],
         **tp["by_n"][n_flat],
         "at": f"Q=64 D=768 N={n_flat} k=1",
-        "by_n": tp["by_n"], "bf16_by_n": tp["bf16_by_n"],
+        "by_n": tp["by_n"],
+        "bf16q_f32keys_by_n": tp["bf16q_f32keys_by_n"],
         "flat_p50_ms": fl["p50_ms"],
         "flat_hit_rate": fl["hit_rate"], "sass": sass["cosine_topk"],
         "cache_program_launches": cpr["launches"],
-        "cache_program": {k: v for k, v in cpr.items() if k != "card"},
+        "cache_program": {k: v for k, v in cpr.items()
+                          if k not in ("card", "bf16_keys")},
         "card": card,
+    }, {
+        "name": "cosine_topk_bf16", "route": "cuda",
+        "source": "src/repro_torch/kernels/cosine_topk/csrc/cosine_topk.cu",
+        "replaces": "src/repro/kernels/cosine_topk/kernel.py:86",
+        "launches": cpb["launches"],
+        "max_abs_err": max(tp["bf16_keys_max_abs_err"], cpb["max_abs_err"]),
+        "ms": cpb["kernel_ms"], "plain_ms": cpb["plain_ms"],
+        "bound_ms": cpb["bound_ms"], "bound_by": cpb["bound_by"],
+        "library_ms": cpb["library_ms"],
+        "library": "torch.topk of the float32 matmul of the widened keys",
+        "at": cpb["at"] + " k=1 (14(b))",
+        "mixed_by_n": tp["mixed_by_n"], "bf16_by_n": tp["bf16_by_n"],
+        "cache_program": {k: v for k, v in cpb.items() if k != "card"},
+        "sass": sass["cosine_topk"], "card": card,
     }, {
         "name": "contrastive_components", "route": "cuda",
         "source": "src/repro_torch/kernels/contrastive/csrc/contrastive.cu",

@@ -104,16 +104,17 @@ def test_redesigned_kernels_hash_the_shared_ptx_header(source):
 @pytest.mark.parametrize("Q,N", [(64, 4096), (64, 65536), (33, 4099),
                                  (1, 1), (130, 31), (64, 5), (1000, 10 ** 6)])
 @pytest.mark.parametrize("n_sm", [132, 8])
-def test_cosine_topk_splits_cover_n(Q, N, n_sm):
+@pytest.mark.parametrize("per_sm", [2, 1])     # k <= 8, k > 8
+def test_cosine_topk_splits_cover_n(Q, N, n_sm, per_sm):
     q_tile = 64
-    k_tile = ct_kernel.key_tile(Q, N, n_sm, q_tile)
-    S, rows = ct_kernel.splits(Q, N, n_sm, q_tile, k_tile)
+    k_tile = ct_kernel.key_tile(Q, N, n_sm, q_tile, per_sm)
+    S, rows = ct_kernel.splits(Q, N, n_sm, q_tile, k_tile, per_sm)
     assert rows % k_tile == 0 and rows > 0
     assert (S - 1) * rows < N <= S * rows       # every split non-empty
     assert S <= -(-N // k_tile)
     blocks = -(-Q // q_tile) * S
     # enough blocks to fill the card, unless N has too few key tiles
-    assert blocks >= min(ct_kernel.BLOCKS_PER_SM * n_sm,
+    assert blocks >= min(per_sm * n_sm,
                          -(-Q // q_tile) * -(-N // k_tile)) // 2
 
 
@@ -121,8 +122,8 @@ def test_cosine_topk_splits_at_the_flat_cache():
     """Q = 64 at the flat cache's 4096 rows on 132 SMs: one 32-row key
     tile per block, 128 blocks; at 65536 rows four 64-row tiles a block,
     256 blocks."""
-    assert ct_kernel.splits(64, 4096, 132, 64, 32) == (128, 32)
-    assert ct_kernel.splits(64, 65536, 132, 64, 64) == (256, 256)
+    assert ct_kernel.splits(64, 4096, 132, 64, 32, 2) == (128, 32)
+    assert ct_kernel.splits(64, 65536, 132, 64, 64, 2) == (256, 256)
 
 
 @pytest.mark.parametrize("Q,N,n_sm,tile", [
@@ -134,7 +135,7 @@ def test_cosine_topk_splits_at_the_flat_cache():
     (64, 4096, 8, 64),       # a small card
 ])
 def test_cosine_topk_key_tile(Q, N, n_sm, tile):
-    assert ct_kernel.key_tile(Q, N, n_sm, 64) == tile
+    assert ct_kernel.key_tile(Q, N, n_sm, 64, 2) == tile
     assert tile in ct_kernel.KEY_TILES
 
 

@@ -24,7 +24,12 @@ serving- and training-shape checks in ``chip_smoke.py`` do not.
   first), all-invalid and fewer-valid-than-k panels, an empty batch, a
   float64 recomputation and the refusals; Q, N and D ragged across the
   register-tiled kernel's query tiles, key tiles and D chunks, and a
-  split of N with no valid row;
+  split of N with no valid row; over bf16 keys (the tensor-core kernel)
+  with float32 or bf16 q: the same cases, every k, D wider than the
+  staged queries' slab, element-wise copies (odd D, misaligned views),
+  the float32 split held to a float64 recomputation, also on inputs
+  whose third bf16 term moves a score by ~4e-6 (``THIRD_TERM_ATOL``),
+  and bf16 q with float32 keys through the float32 kernel;
 * contrastive forward and backward: mixed and one-class batches, B = 1,
   zero rows (the clamped denominator), large B, float64 recomputations
   and the refusals; for the cooperative forward, a ragged last CTA
@@ -68,6 +73,7 @@ bf16 tolerance: both versions accumulate in float32; the kernel also
 rounds the softmax weights to bf16 before P V, within 2^-9 of each,
 which ``tests/test_torch_attention.py`` shows stays inside it).
 """
+import numpy as np
 import pytest
 import torch
 
@@ -661,9 +667,10 @@ def test_cosine_topk_split_with_no_valid_row(dev):
     Q, N, D = 64, 4096, 768
     q, keys, _ = _panel(dev, g, Q, N, D)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    qt = ct_kernel.query_tile()
+    qt, per_sm = ct_kernel.query_tile(), ct_kernel.blocks_per_sm(4)
     S, rows = ct_kernel.splits(Q, N, n_sm, qt,
-                               ct_kernel.key_tile(Q, N, n_sm, qt))
+                               ct_kernel.key_tile(Q, N, n_sm, qt, per_sm),
+                               per_sm)
     assert S > 2
     valid = torch.ones(N, dtype=torch.bool, device=dev)
     valid[rows:2 * rows] = False
@@ -682,13 +689,260 @@ def test_cosine_topk_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="k=5"):
         ct_ops.cosine_topk(q, keys[:4], valid[:4], 5)
     with pytest.raises(ValueError, match="dtype"):
-        ct_ops.cosine_topk(q, keys.bfloat16(), valid, 1)
+        ct_ops.cosine_topk(q, keys.half(), valid, 1)
+    with pytest.raises(ValueError, match="dtype"):
+        ct_ops.cosine_topk(q.double(), keys.bfloat16(), valid, 1)
     with pytest.raises(ValueError, match="contiguous"):
         ct_ops.cosine_topk(q, torch.cat([keys, keys], 1)[:, ::2], valid, 1)
     with pytest.raises(ValueError, match="on cpu"):
         ct_ops.cosine_topk(q, keys, valid.cpu(), 1)
     with pytest.raises(ValueError, match="shape"):
         ct_ops.cosine_topk(q, keys, valid[:-1], 1)
+
+
+# ---------------------------------------------------------------------------
+# cosine top-k over bf16 keys (the tensor-core kernel) and mixed dtypes
+# ---------------------------------------------------------------------------
+
+def _mixed_check(q, keys, valid, k, count="cosine_topk_bf16"):
+    """`_topk_check` for any dtype pair: the launch counted under the
+    kernel the pair takes (bf16 keys: the tensor-core kernel; float32
+    keys: the float32 kernel)."""
+    before = dict(ct_kernel.COUNTS)
+    a = ct_ref.cosine_topk(q, keys, valid, k)
+    b = ct_ops.cosine_topk(q, keys, valid, k)
+    torch.cuda.synchronize()
+    assert ct_kernel.COUNTS[count] == before[count] + 1
+    assert sum(ct_kernel.COUNTS.values()) == sum(before.values()) + 1
+    assert b[0].shape == a[0].shape == (q.shape[0], k)
+    assert b[0].dtype == torch.float32 and b[1].dtype == torch.int32
+    torch.testing.assert_close(b[0], a[0], rtol=0, atol=SCORE_ATOL)
+    assert torch.equal(b[1], a[1])
+    return b
+
+
+def _bf16_panel(dev, g, Q, N, D, q_dtype, invalid=0.25):
+    q, keys, valid = _panel(dev, g, Q, N, D, invalid)
+    n = min(4, Q, N)                    # near-copies of the last rows
+    q[:n] = _unit(keys[-n:] + 0.05 * torch.randn(n, D, generator=g,
+                                                  device=dev))
+    return q.to(q_dtype), keys.bfloat16(), valid
+
+
+Q_DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", Q_DTYPES, ids=["f32q", "bf16q"])
+@pytest.mark.parametrize("Q,N,D", [
+    (1, 31, 768),        # one query, less than one key tile
+    (33, 4099, 768),     # a ragged query tile and key tile
+    (65, 97, 37),        # three query tiles, D odd (element copies)
+    (17, 300, 64),       # D one stage of four k-steps
+    (64, 65536, 100),    # many key tiles and splits, D % 8 != 0
+    (70, 2050, 200),     # D % 8 == 0, off a stage of 64 columns
+])
+def test_cosine_topk_bf16_keys_ragged_across_tiles(dev, q_dtype, Q, N, D):
+    g = torch.Generator(device=dev).manual_seed(Q + N + D)
+    q, keys, valid = _bf16_panel(dev, g, Q, N, D, q_dtype)
+    for k in (1, 4, ct_kernel.max_k()):
+        _mixed_check(q, keys, valid, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", Q_DTYPES, ids=["f32q", "bf16q"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 8, 16])
+def test_cosine_topk_bf16_keys_every_k(dev, q_dtype, k):
+    g = torch.Generator(device=dev).manual_seed(40 + k)
+    q, keys, valid = _bf16_panel(dev, g, 19, 3001, 768, q_dtype)
+    _mixed_check(q, keys, valid, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", Q_DTYPES, ids=["f32q", "bf16q"])
+@pytest.mark.parametrize("D", [2000, 3000])
+def test_cosine_topk_bf16_keys_wider_than_a_slab(dev, q_dtype, D):
+    """Past the staged queries' room (float32 q past D 768 at k <= 4,
+    bf16 q past 2432) the kernel stages q in slabs, again for every key
+    tile."""
+    g = torch.Generator(device=dev).manual_seed(D)
+    q, keys, valid = _bf16_panel(dev, g, 40, 700, D, q_dtype)
+    for k in (1, 16):
+        _mixed_check(q, keys, valid, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", Q_DTYPES, ids=["f32q", "bf16q"])
+def test_cosine_topk_bf16_keys_ties_lowest_index_first(dev, q_dtype):
+    D = 8
+    a_key = torch.zeros(D, device=dev)
+    a_key[:4] = 0.5
+    b_key = a_key.clone()
+    b_key[3] = -0.5
+    keys = torch.stack([b_key, a_key, b_key, a_key, a_key, b_key, a_key])
+    valid = torch.tensor([1, 1, 1, 0, 1, 1, 1], dtype=torch.bool,
+                         device=dev)
+    q = a_key[None].repeat(3, 1).to(q_dtype)
+    s, i = _mixed_check(q, keys.bfloat16(), valid, 5)
+    assert i[0].tolist() == [1, 4, 6, 0, 2]
+    assert s[0].tolist() == [1.0, 1.0, 1.0, 0.5, 0.5]
+    # ties across key tiles and splits: one key repeated over 3000 rows
+    keys = a_key[None].repeat(3000, 1).bfloat16()
+    valid = torch.ones(3000, dtype=torch.bool, device=dev)
+    valid[:7] = False
+    s, i = _mixed_check(q, keys, valid, 16)
+    assert i[0].tolist() == list(range(7, 23))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", Q_DTYPES, ids=["f32q", "bf16q"])
+@pytest.mark.parametrize("n_valid", [0, 2])
+def test_cosine_topk_bf16_keys_fewer_valid_rows_than_k(dev, q_dtype,
+                                                       n_valid):
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, keys, _ = _panel(dev, g, 5, 40, 16)
+    valid = torch.zeros(40, dtype=torch.bool, device=dev)
+    valid[[7, 30][:n_valid]] = True
+    s, i = _mixed_check(q.to(q_dtype), keys.bfloat16(), valid, 4)
+    masked = [r for r in range(40) if not bool(valid[r])][:4 - n_valid]
+    for row in i.tolist():
+        assert sorted(row[:n_valid]) == [7, 30][:n_valid]
+        assert row[n_valid:] == masked
+    assert (s[:, n_valid:] == ct_ref.NEG_INF).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", Q_DTYPES, ids=["f32q", "bf16q"])
+def test_cosine_topk_bf16_keys_all_invalid_and_empty(dev, q_dtype):
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, keys, _ = _bf16_panel(dev, g, 64, 256, 768, q_dtype)
+    none = torch.zeros(256, dtype=torch.bool, device=dev)
+    s, i = _mixed_check(q, keys, none, 4)
+    assert (i == torch.arange(4, device=dev, dtype=torch.int32)).all()
+    before = dict(ct_kernel.COUNTS)
+    s, i = ct_ops.cosine_topk(q[:0], keys, none, 2)
+    assert s.shape == (0, 2) and i.shape == (0, 2)
+    assert ct_kernel.COUNTS == before
+    _mixed_check(q[:3], keys[:5], none[:5], 5)      # k == N
+    _mixed_check(q[:3], keys[:1], none[:1] | True, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", Q_DTYPES, ids=["f32q", "bf16q"])
+@pytest.mark.parametrize("offset", [1, 4])
+def test_cosine_topk_bf16_keys_misaligned_views(dev, q_dtype, offset):
+    """Keys off their 16-byte alignment (by 2 or 8 bytes) and q by one
+    element: the keys are copied element by element; q is read as it
+    lies."""
+    g = torch.Generator(device=dev).manual_seed(20 + offset)
+    Q, N, D = 21, 1500, 768
+    q, keys, valid = _bf16_panel(dev, g, Q, N, D, q_dtype)
+    keys = torch.cat([keys.new_zeros(offset), keys.reshape(-1)])[
+        offset:].reshape(N, D)
+    q = torch.cat([q.new_zeros(1), q.reshape(-1)])[1:].reshape(Q, D)
+    assert keys.data_ptr() % 16 and q.data_ptr() % 16
+    assert not ct_kernel.mma_vector_loads(keys)
+    _mixed_check(q, keys, valid, 4)
+
+
+@pytest.mark.cuda
+def test_cosine_topk_float32_q_is_split_in_three_terms(dev):
+    """Scores of float32 q against bf16 keys: a float64 recomputation of
+    q against the bf16 values within 1e-6 (float32 accuracy: one bf16
+    term alone misses by ~1e-3; two by ~5e-7 on these random values, the
+    next test's inputs by ~4e-6), and the split's float64 sum within 1e-7
+    of it."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    q, keys, valid = _bf16_panel(dev, g, 33, 5000, 768, torch.float32)
+    s, i = _mixed_check(q, keys, valid, 4)
+    kd = keys[i.long()].double()
+    exact = torch.einsum("qd,qkd->qk", q.double(), kd)
+    torch.testing.assert_close(s.double(), exact, rtol=0, atol=1e-6)
+    three = sum(torch.einsum("qd,qkd->qk", t.double(), kd)
+                for t in ct_ref.split_terms(q))
+    torch.testing.assert_close(three, exact, rtol=0, atol=1e-7)
+
+
+THIRD_TERM_ATOL = 1.5e-6   # three terms: ~5e-7 here; two: ~4e-6
+
+
+def third_term_panel(Q=8, N=4096, D=768, seed=18):
+    """float32 q whose third bf16 term is as large as it gets, each value
+    hi + mid + lo with mid = 0.75 half an ulp of hi and lo = 0.75 half an
+    ulp of mid, all of hi's sign (the three terms exact), and bf16 keys,
+    random unit rows but for row j (N // Q) + 3, which is query j's hi:
+    every lo term meets a key of its own sign, so a split into two terms
+    misses that score by ~2^-18 (~4e-6), where three miss by float32's
+    rounding only.  Returns (q (Q, D) float32, keys (N, D) bf16, rows),
+    on the CPU, from numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((Q, D))
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    hi = torch.tensor(x, dtype=torch.float32).bfloat16().double().numpy()
+    hi[hi == 0] = 2.0 ** -12
+    e, sgn = np.floor(np.log2(np.abs(hi))), np.sign(hi)
+    q = hi + sgn * 0.75 * 2.0 ** (e - 8) + sgn * 0.75 * 2.0 ** (e - 17)
+    keys = rng.standard_normal((N, D))
+    keys /= np.linalg.norm(keys, axis=-1, keepdims=True)
+    rows = np.arange(Q) * (N // Q) + 3
+    keys[rows] = hi
+    return (torch.tensor(q, dtype=torch.float32),
+            torch.tensor(keys, dtype=torch.float32).bfloat16(), rows)
+
+
+def third_term_error(dev) -> float:
+    """The largest |score - float64 score| of the kernel's top-4 on
+    `third_term_panel`, once its indices equal the plain version's."""
+    q, keys, _ = third_term_panel()
+    q, keys = q.to(dev), keys.to(dev)
+    valid = torch.ones(keys.shape[0], dtype=torch.bool, device=dev)
+    s, i = ct_ops.cosine_topk(q, keys, valid, 4)
+    want = ct_ref.cosine_topk(q, keys, valid, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(i, want[1])
+    exact = torch.einsum("qd,qkd->qk", q.double(), keys[i.long()].double())
+    return float((s.double() - exact).abs().max())
+
+
+@pytest.mark.cuda
+def test_cosine_topk_float32_q_third_term_matters(dev):
+    """On `third_term_panel` the kernel's top-1 is each query's own hi
+    row, and its scores are within ``THIRD_TERM_ATOL`` of float64: a
+    kernel built with two terms misses it (by ~4e-6)."""
+    q, keys, rows = third_term_panel()
+    valid = torch.ones(keys.shape[0], dtype=torch.bool, device=dev)
+    s, i = _mixed_check(q.to(dev), keys.to(dev), valid, 4)
+    assert i[:, 0].tolist() == rows.tolist()
+    assert third_term_error(dev) <= THIRD_TERM_ATOL
+
+
+@pytest.mark.cuda
+def test_cosine_topk_bf16_q_with_float32_keys_is_widened(dev):
+    """bf16 q with float32 keys: q widened on the device (exact) into the
+    float32 kernel."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    q, keys, valid = _panel(dev, g, 33, 4099, 768)
+    q[:4] = _unit(keys[-4:] + 0.05 * torch.randn(4, 768, generator=g,
+                                                  device=dev))
+    for k in (1, ct_kernel.max_k()):
+        _mixed_check(q.bfloat16(), keys, valid, k, count="cosine_topk")
+
+
+@pytest.mark.cuda
+def test_cosine_topk_bf16_keys_split_with_no_valid_row(dev):
+    g = torch.Generator(device=dev).manual_seed(17)
+    Q, N, D = 64, 65536, 768
+    q, keys, valid = _bf16_panel(dev, g, Q, N, D, torch.float32, 0.0)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    S, rows = ct_kernel.mma_splits(Q, N, n_sm, ct_kernel.mma_query_tile(4),
+                                   ct_kernel.mma_key_tile(),
+                                   ct_kernel.mma_blocks_per_sm())
+    assert S > 2
+    valid[rows:2 * rows] = False
+    q[:8] = keys[rows:rows + 8].float()
+    s, i = _mixed_check(q, keys, valid, 4)
+    assert not ((i >= rows) & (i < 2 * rows)).any()
+    assert (s > -1.0).all()
 
 
 # ---------------------------------------------------------------------------

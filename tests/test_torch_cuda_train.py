@@ -99,11 +99,11 @@ def test_cosine_topk_bf16_matches_plain_version(dev, D, offset, k):
                                                device=dev)
     q = (q / q.norm(dim=-1, keepdim=True)).bfloat16()
     valid = torch.rand(N, generator=g, device=dev) >= 0.25
-    before = ct_kernel.COUNTS["cosine_topk"]
+    before = ct_kernel.COUNTS["cosine_topk_bf16"]
     a = ct_ref.cosine_topk(q, keys, valid, k)
     b = ct_ops.cosine_topk(q, keys, valid, k)
     torch.cuda.synchronize()
-    assert ct_kernel.COUNTS["cosine_topk"] == before + 1
+    assert ct_kernel.COUNTS["cosine_topk_bf16"] == before + 1
     assert b[0].dtype == torch.float32 and b[1].dtype == torch.int32
     torch.testing.assert_close(b[0], a[0], rtol=0, atol=1e-5)
     assert torch.equal(b[1], a[1])

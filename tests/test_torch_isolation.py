@@ -21,6 +21,7 @@ STANDALONE = sorted(PORT.rglob("*.py")) + [
     ROOT / "tests" / "test_torch_cuda_train.py",
     ROOT / "tests" / "torch_flash_routes.py",
     ROOT / "tests" / "torch_flash_variants.py",
+    ROOT / "tests" / "torch_topk_variants.py",
     ROOT / "tests" / "torch_jamba_gap.py",
     ROOT / "tests" / "test_torch_ranks.py"]      # the sharded tests' ranks
 KERNELS = ("cascade_lookup", "cosine_topk", "contrastive",
