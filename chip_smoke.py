@@ -281,10 +281,18 @@ or the port is not beside the script.  Phases, each fatal on failure:
    and Phi-3-mini's prefill_32k and decode_32k with ``--attn-bf16``
    (decode's counts must equal the flag-less run's, and prefill must
    move fewer bytes; its bytes and temp are printed beside the
-   flag-less run's) — each in a process of its own on a fake process
+   flag-less run's), and the recurrent decoders' train_4k and
+   prefill_32k, xLSTM-125M's whole and Jamba's by ``--extrapolate``
+   (1- and 2-period runs scaled to its 9 periods), whose token loops
+   the dry-run counts (``localcost.CountedScan``: each run must count
+   at least one) — each in a process of its own on a fake process
    group (no data, no transfers), all started together, beside
    ``localcost.local_count_check`` (the local flops of three sharded
-   products must equal their counts by hand); every run must end with
+   products must equal their counts by hand) and
+   ``dryrun.loop_count_check`` for the mLSTM, the sLSTM and Mamba (one
+   reduced layer each, train and prefill at ``LOOP_CHECK_TOKENS``: the
+   counted loops' counts, temp and collectives must equal the real
+   loops' on this host's torch release); every run must end with
    exit code 0 within ``DRYRUN_TIMEOUT_S``, count work and, on more
    than one rank, collectives, and fall back only on the known gaps of
    ``DTensor``'s strategies; per pair the per-device memory, flops,
@@ -498,7 +506,19 @@ DRYRUN_PAIRS = (
     ("langcache-shardmap", "cache_lookup", ("--tag", "again")),
     ("phi3-mini-3.8b", "prefill_32k", ("--attn-bf16", "--tag", "bf16")),
     ("phi3-mini-3.8b", "decode_32k", ("--attn-bf16", "--tag", "bf16")),
+    ("xlstm-125m", "train_4k", ()),
+    ("xlstm-125m", "prefill_32k", ()),
+    # Jamba's whole prefill_32k runs 8064 counted chunk loops, ~250 s on
+    # one host core: 1- and 2-period runs scaled to its 9 periods instead
+    (JAMBA, "train_4k", ("--extrapolate",)),
+    (JAMBA, "prefill_32k", ("--extrapolate",)),
 )
+# the recurrent decoders, whose token loops the dry-run counts
+DRYRUN_LOOP_ARCHS = ("xlstm-125m", JAMBA)
+# beside them, `dryrun.loop_count_check` on this host's torch: each mixer
+# cut to one reduced layer, train and prefill at LOOP_CHECK_TOKENS, its
+# counted loops against its real ones (one process a mixer)
+LOOP_CHECK_TOKENS = 64
 DRYRUN_TIMEOUT_S = 300
 CACHE_RUN_REPS = 5
 
@@ -4312,10 +4332,15 @@ def dryrun_phase(card: str) -> dict:
     `localcost.local_count_check` beside them; each must finish within
     ``DRYRUN_TIMEOUT_S`` with exit code 0, and every op that ran outside
     ``DTensor``'s sharding strategies must be a known gap
-    (`dryrun.KNOWN_FALLBACKS`)."""
+    (`dryrun.KNOWN_FALLBACKS`).  Beside them, `dryrun.loop_count_check`
+    for each mixer of ``LOOP_MIXERS`` at ``LOOP_CHECK_TOKENS``: on this
+    host's torch, its counted token loops must count exactly as its real
+    ones."""
     import tempfile
 
-    from repro_torch.launch.dryrun import check_fallbacks
+    import torch
+
+    from repro_torch.launch.dryrun import LOOP_MIXERS, check_fallbacks
     tmp = tempfile.mkdtemp(prefix="dryrun-")
     prefix = os.path.join(tmp, "dr")
     env = dict(os.environ)
@@ -4328,6 +4353,13 @@ def dryrun_phase(card: str) -> dict:
     cmds.append([sys.executable, "-c",
                  "import json; from repro_torch.launch.localcost import "
                  "local_count_check as f; print(json.dumps(f()))"])
+    n_loop = len(LOOP_MIXERS)
+    for m in LOOP_MIXERS:
+        cases = [(m, sh, LOOP_CHECK_TOKENS)
+                 for sh in ("train_4k", "prefill_32k")]
+        cmds.append([sys.executable, "-c",
+                     "import json; from repro_torch.launch.dryrun import "
+                     f"loop_count_check as f; print(json.dumps(f({cases!r})))"])
     t0 = time.perf_counter()
     procs = []
     for i, cmd in enumerate(cmds):
@@ -4355,14 +4387,36 @@ def dryrun_phase(card: str) -> dict:
                 p.wait()
             out.close()
     wall = time.perf_counter() - t0
-    with open(procs[-1][1].name) as f:
-        counts = json.loads(f.read().strip().splitlines()[-1])
+
+    def last_json(i):
+        with open(procs[i][1].name) as f:
+            return json.loads(f.read().strip().splitlines()[-1])
+    counts = last_json(-1 - n_loop)
     for case, (got, hand) in counts.items():
         if got != hand:
             fail(f"local flop count of the {case} product is {got}, by hand "
                  f"{hand}")
     print(f"  local flop counts equal the hand counts: "
           f"{ {c: v[0][0] for c, v in counts.items()} }")
+    loops = {}
+    for i in range(n_loop):
+        loops.update(last_json(len(procs) - n_loop + i))
+    for case, r in loops.items():
+        counted, real = dict(r["counted"]), dict(r["real"])
+        if not (counted.pop("counted_loops") >= 1
+                and real.pop("counted_loops") == 0):
+            fail(f"loop check {case}: the counted run counted no loop, or "
+                 f"the real run counted one")
+        diff = {k: (counted[k], real[k]) for k in counted
+                if counted[k] != real[k]}
+        if diff:
+            fail(f"loop check {case}: the counted loops differ from the "
+                 f"real ones: {diff}")
+    print(f"  counted token loops equal the real loops on torch "
+          f"{torch.__version__} (args, output, temp, flops, bytes, "
+          f"collectives, fallbacks): "
+          + "; ".join(f"{c}: flops {r['real']['flops']:.6e}, temp "
+                      f"{r['real']['temp']}" for c, r in loops.items()))
     rows = {}
     print(f"  {'pair':<52} {'args':>7} {'temp':>9} {'flops/dev':>10} "
           f"{'bytes/dev':>10} {'coll B/dev':>10} {'t_comp':>9} "
@@ -4372,7 +4426,8 @@ def dryrun_phase(card: str) -> dict:
             r = json.load(f)
         mem, rf = r["memory"], r["roofline"]
         key = " ".join((a, sh, "x".join(map(str, r["mesh"])),
-                        *[x for x in flags if x.startswith(("--c", "--a"))],
+                        *[x for x in flags
+                          if x.startswith(("--c", "--a", "--e"))],
                         *(["again"] if "again" in flags else [])))
         rows[key] = {
             "mesh": r["mesh"], "mesh_axes": r["mesh_axes"],
@@ -4393,6 +4448,8 @@ def dryrun_phase(card: str) -> dict:
             "fallbacks": r["fallbacks"],
             "axes_sharding_args": r["mesh_axes_sharding_args"],
             "run_s": r["compile_seconds"], "build_place_s": r["lower_seconds"],
+            "counted_loops": r["counted_loops"],
+            "extrapolated": bool(r.get("extrapolated")),
         }
         x = rows[key]
         print(f"  {key:<52} {x['args_bytes'] / 2**30:7.3f} "
@@ -4400,7 +4457,8 @@ def dryrun_phase(card: str) -> dict:
               f"{x['bytes']:10.3e} {x['collective_bytes']:10.3e} "
               f"{x['t_compute'] * 1e3:9.3f} {x['t_memory'] * 1e3:10.3f} "
               f"{x['t_collective'] * 1e3:10.3f}  {x['bottleneck']}")
-        print(f"  {'':<52} fallbacks {x['fallbacks'] or 'none'}")
+        print(f"  {'':<52} fallbacks {x['fallbacks'] or 'none'}; counted "
+              f"token loops {x['counted_loops']}; run {x['run_s']} s")
         try:
             check_fallbacks(key, x["fallbacks"])
         except RuntimeError as e:
@@ -4409,6 +4467,9 @@ def dryrun_phase(card: str) -> dict:
             fail(f"dry-run {key} counted no work")
         if math.prod(r["mesh"]) > 1 and not x["collective_bytes"] > 0:
             fail(f"dry-run {key} issued no collective")
+        if a in DRYRUN_LOOP_ARCHS and sh != "decode_32k" and \
+                not x["counted_loops"] > 0:
+            fail(f"dry-run {key} counted no token loop")
         if "--multi-pod" in flags and "pod" not in x["axes_sharding_args"]:
             fail(f"multi-pod dry-run {key}: no argument sharded over pod "
                  f"({x['axes_sharding_args']})")
@@ -4440,7 +4501,8 @@ def dryrun_phase(card: str) -> dict:
         fail(f"prefill_32k under --attn-bf16 moves {pre_b['bytes']:.6e} "
              f"bytes, not fewer than {pre['bytes']:.6e}")
     print(f"  {len(DRYRUN_PAIRS)} dry-runs in {wall:.1f} s (in parallel)")
-    return {"pairs": rows, "local_counts": counts, "wall_s": wall}
+    return {"pairs": rows, "local_counts": counts, "loop_check": loops,
+            "wall_s": wall}
 
 
 def cache_program_phase(dev, one: dict, card: str) -> dict:

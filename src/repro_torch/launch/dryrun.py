@@ -44,8 +44,8 @@ from torch import nn
 from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES
 from repro_torch.launch import mesh as _mesh
 from repro_torch.launch.localcost import (
-    EinsumRule, LocalCost, contiguous_stride, fake_mesh, local_mixers,
-    nbytes_of, tensors_in,
+    TOKEN_LOOP_LIMIT, EinsumRule, LocalCost, contiguous_stride, fake_mesh,
+    local_mixers, nbytes_of, tensors_in,
 )
 from repro_torch.launch.programs import get_program
 from repro_torch.launch.roofline import model_flops, roofline_terms
@@ -70,6 +70,14 @@ KNOWN_FALLBACKS = {
     "aten.index_put.default (replicated)":
         "2.11: the embedding's backward, an accumulating index_put into "
         "the table's gradient",
+    "aten.view.default (replicated, a sharded dim split)":
+        "2.11 and 2.13: a view splitting a sharded dim into an outer "
+        "factor its mesh dim does not divide (`localcost._splits_shards`; "
+        "any other view that falls back fails): the attention's q.reshape "
+        "of the query heads, sharded over model=16, into fewer KV groups "
+        "(StarCoder2-15B's 48 into 4, Jamba's 64 into 8 on 2.11).  The "
+        "attention then runs on q replicated over model, which the "
+        "reference's GSPMD does not: the pair's counts are this plan's",
 }
 
 
@@ -117,12 +125,13 @@ def _axes_used(placed, mesh) -> list:
     return sorted(used)
 
 
-def measure(prog, mesh, rules: str = "train", constrain_acts: bool = False
-            ) -> dict:
+def measure(prog, mesh, rules: str = "train", constrain_acts: bool = False,
+            loop_limit: int = TOKEN_LOOP_LIMIT) -> dict:
     """Run ``prog`` on ``mesh`` (a ``DeviceMesh`` of the fake group) and
     count it: argument, output and temp bytes per device, local flops
     and bytes, collective records and fallbacks (raises on a fallback
-    outside ``KNOWN_FALLBACKS``)."""
+    outside ``KNOWN_FALLBACKS``).  A recurrent token loop longer than
+    ``loop_limit`` tokens is counted, not run (`localcost.CountedScan`)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.models.actsharding import activation_ctx
@@ -143,7 +152,8 @@ def measure(prog, mesh, rules: str = "train", constrain_acts: bool = False
         cost = LocalCost(n_dev)
         acts = activation_ctx(mesh) if constrain_acts \
             else contextlib.nullcontext()
-        with implicit_replication(), acts, local_mixers(prog.model, mesh), \
+        with implicit_replication(), acts, \
+                local_mixers(prog.model, mesh, cost, loop_limit), \
                 EinsumRule(), cost:
             out = prog.fn(*placed, place=place)
         t_run = time.perf_counter() - t0 - t_place
@@ -154,6 +164,7 @@ def measure(prog, mesh, rules: str = "train", constrain_acts: bool = False
     return {"args": arg_bytes, "output": output_bytes, "temp": cost.peak,
             "flops": cost.flops, "bytes": cost.bytes,
             "records": cost.records, "fallbacks": dict(cost.fallbacks),
+            "counted_loops": cost.counted_loops,
             "axes_used": axes_used, "t_place": t_place, "t_run": t_run}
 
 
@@ -221,6 +232,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         "hlo_total_flops": total_flops,
         "useful_flops_ratio": (mf / total_flops if total_flops else 0.0),
         "fallbacks": r["fallbacks"],
+        "counted_loops": r["counted_loops"],
         "mesh_axes_sharding_args": r["axes_used"],
         "lower_seconds": round(t_build + r["t_place"], 2),
         "compile_seconds": round(r["t_run"], 2),
@@ -245,7 +257,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
               f"collective={terms['t_collective'] * 1e3:.3f}ms "
               f"-> bottleneck={terms['bottleneck']}")
         print(f"  MODEL_FLOPS/LOCAL_FLOPS={result['useful_flops_ratio']:.3f}"
-              f"  fallbacks={r['fallbacks']}  build+place="
+              f"  fallbacks={r['fallbacks']}  counted loops="
+              f"{r['counted_loops']}  build+place="
               f"{result['lower_seconds']}s run={result['compile_seconds']}s")
     return result
 
@@ -260,8 +273,9 @@ def run_extrapolated(arch: str, shape_name: str, *, rules: str = "train",
     2-period variants and scale the per-period delta,
     X(N) = X(1) + (N-1)·(X(2) - X(1)) — exact for layer-linear terms
     (flops, bytes, collectives and argument bytes of identical layers);
-    embed/loss costs live in X(1).  Temp is a peak, not a sum: its
-    extrapolation is the reference's estimate.  An ``n_layers`` override
+    embed/loss costs live in X(1); collective counts, fallbacks and
+    counted token loops scale the same way.  Temp is a peak, not a sum:
+    its extrapolation is the reference's estimate.  An ``n_layers`` override
     sets N; the others reach every variant.  Decoders only: the cache
     program has no layer periods to scale (refused)."""
     from repro_torch.configs import get_config
@@ -290,11 +304,20 @@ def run_extrapolated(arch: str, shape_name: str, *, rules: str = "train",
         xs.append({"flops": r["flops"], "bytes": r["bytes"],
                    "coll": coll["per_device_collective_bytes"],
                    "t_coll": coll["t_collective"],
-                   "args": r["args"], "temp": r["temp"]})
+                   "args": r["args"], "temp": r["temp"],
+                   "counts": coll["collective_counts"],
+                   "links": coll["collective_by_link"],
+                   "loops": r["counted_loops"], "fallbacks": r["fallbacks"],
+                   "axes": r["axes_used"], "t_run": r["t_run"],
+                   "t_place": r["t_place"]})
     x1, x2 = xs
 
-    def ext(key):
-        return x1[key] + (n - 1) * (x2[key] - x1[key])
+    def ext(key, a=x1, b=x2):
+        return a.get(key, 0) + (n - 1) * (b.get(key, 0) - a.get(key, 0))
+
+    def ext_all(field):
+        keys = sorted(set(x1[field]) | set(x2[field]))
+        return {k: ext(k, x1[field], x2[field]) for k in keys}
 
     full = resolve_config(cfg.replace(n_layers=n * period), shape,
                           unroll=unroll)
@@ -307,7 +330,8 @@ def run_extrapolated(arch: str, shape_name: str, *, rules: str = "train",
         "t_compute": ext("flops") / _mesh.PEAK_FLOPS_BF16,
         "t_memory": ext("bytes") / _mesh.HBM_BANDWIDTH,
         "t_collective": ext("t_coll"),
-        "collective_counts": {},
+        "collective_counts": ext_all("counts"),
+        "collective_by_link": ext_all("links"),
         "collective_top_ops": [],
         "collective_breakdown": {},
     }
@@ -339,7 +363,10 @@ def run_extrapolated(arch: str, shape_name: str, *, rules: str = "train",
         "model_flops": mf,
         "hlo_total_flops": total,
         "useful_flops_ratio": mf / total if total else 0.0,
-        "lower_seconds": 0.0, "compile_seconds": 0.0,
+        "fallbacks": ext_all("fallbacks"), "counted_loops": ext("loops"),
+        "mesh_axes_sharding_args": x2["axes"],
+        "lower_seconds": round(x1["t_place"] + x2["t_place"], 2),
+        "compile_seconds": round(x1["t_run"] + x2["t_run"], 2),
     }
     if verbose:
         print(f"== {arch} × {shape_name} (EXTRAPOLATED {n} periods) ==")
@@ -350,6 +377,50 @@ def run_extrapolated(arch: str, shape_name: str, *, rules: str = "train",
         print(f"  MODEL/LOCAL={result['useful_flops_ratio']:.3f} "
               f"args={ext('args') / 2**30:.2f}GiB")
     return result
+
+
+# the loop check's mixers: one reduced decoder layer each, (arch, the
+# layer's position in the reduced config's period)
+LOOP_MIXERS = {"mlstm": ("xlstm-125m", 0), "slstm": ("xlstm-125m", 1),
+               "mamba": ("jamba-1.5-large-398b", 0)}
+
+
+def loop_count_check(cases) -> dict:
+    """The counted token loops against the real ones, through the same
+    program: for each (mixer of ``LOOP_MIXERS``, shape name, tokens), the
+    reduced arch cut to that one mixer layer, the shape at that many
+    tokens and a global batch of 4, measured on a fake 2x2 ("data",
+    "model") mesh once with every loop longer than
+    ``TOKEN_LOOP_LIMIT`` counted (`localcost.CountedScan`) and once with
+    every loop run token by token.  {"mixer shape tokens": {"counted":
+    counts, "real": counts}}, counts being argument, output and temp
+    bytes, flops, bytes, every collective (op, bytes, group, link,
+    shape), fallbacks and loops counted; both must be equal but the
+    last."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.programs import build_program
+    out = {}
+    for mixer, shape, tokens in cases:
+        arch, i = LOOP_MIXERS[mixer]
+        cfg = get_config(arch).reduced()
+        cfg = cfg.replace(n_layers=1, period=cfg.period[i:i + 1])
+        assert cfg.period[0].mixer == mixer, cfg.period
+        sh = dataclasses.replace(INPUT_SHAPES[shape], seq_len=tokens,
+                                 global_batch=4)
+        runs = {}
+        for kind, limit in (("counted", TOKEN_LOOP_LIMIT), ("real", 10 ** 9)):
+            prog = build_program(cfg, sh)
+            with fake_mesh({"data": 2, "model": 2}) as m:
+                r = measure(prog, m, loop_limit=limit)
+            runs[kind] = {
+                **{k: r[k] for k in ("args", "output", "temp", "flops",
+                                     "bytes", "fallbacks", "counted_loops")},
+                "collectives": [[c.op, c.out_bytes, c.group, c.link,
+                                 list(c.shape)] for c in r["records"]]}
+        out[f"{mixer} {shape} {tokens}"] = runs
+    return out
 
 
 def parse_args(argv=None):

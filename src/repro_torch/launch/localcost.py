@@ -35,8 +35,12 @@ local shard; any other op whose sharding ``DTensor`` cannot propagate
 runs on its inputs replicated first (and on their local copies when it
 has no strategy at all).  Each such op is counted under ``fallbacks`` in
 the result.  The MoE FFN and the recurrent mixers run batch-local on
-gathered weights (`local_mixers`); an xLSTM token loop longer than
-``TOKEN_LOOP_LIMIT`` is refused (its train and prefill pairs fail).
+gathered weights (`local_mixers`).  Their token loops (`models.scan`)
+run token by token up to ``TOKEN_LOOP_LIMIT`` tokens; a longer loop is
+counted (`CountedScan`): a few of its steps run for real and the rest
+are the steady step's counts scaled, forward and backward, with the
+live bytes every step leaves behind held as fake storage, so flops,
+bytes and temp are those of the whole loop.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ from collections import Counter
 
 import torch
 from torch import nn
+from torch.autograd.graph import get_gradient_edge as _edge
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -66,10 +71,9 @@ _C10D = {"allgather_": "all-gather", "_allgather_base_": "all-gather",
          "allreduce_": "all-reduce", "reduce_scatter_": "reduce-scatter",
          "_reduce_scatter_base_": "reduce-scatter", "alltoall_": "all-to-all",
          "alltoall_base_": "all-to-all", "broadcast_": "collective-permute"}
-# the longest sequence an xLSTM token loop runs on fake tensors (each op
-# costs ~0.2 ms of host time: a reduced xLSTM-125M train step at S=4096
-# took 18 minutes on one CPU core)
-TOKEN_LOOP_LIMIT = 256
+# the longest token loop (`models.scan.scan`) the dry-run runs token by
+# token; a longer one is counted from a few real steps (`CountedScan`)
+TOKEN_LOOP_LIMIT = 16
 _PROP_ROOTS = (aten.empty_strided.default, aten.lift_fresh.default,
                aten.lift_fresh_copy.default)
 _NO_BYTES = {"empty", "empty_like", "empty_strided", "new_empty",
@@ -116,6 +120,32 @@ def _group_info(func, args, n_default: int):
     return len(ranks), _mesh.link_of(ranks)
 
 
+def _splits_shards(x, size) -> bool:
+    """Whether a view of the ``DTensor`` ``x`` to ``size`` splits a dim
+    that a mesh dim shards, with an outer factor that mesh dim does not
+    divide: ``DTensor`` can keep the shards only on the outer factor
+    (the attention's q.reshape of query heads into fewer KV groups)."""
+    from torch.distributed.tensor import Shard
+    size = list(size)
+    if -1 in size:
+        size[size.index(-1)] = x.numel() // -math.prod(size)
+    for m, p in enumerate(x.placements):
+        if not isinstance(p, Shard):
+            continue
+        d, lead, j = p.dim, math.prod(x.shape[:p.dim]), 0
+        acc = 1
+        while j < len(size) and acc < lead:
+            acc *= size[j]
+            j += 1
+        while j < len(size) - 1 and size[j] == 1 != x.shape[d]:
+            j += 1
+        if acc == lead and j < len(size) and size[j] != x.shape[d] \
+                and x.shape[d] % size[j] == 0 \
+                and size[j] % x.device_mesh.size(m):
+            return True
+    return False
+
+
 class LocalCost(TorchDispatchMode):
     """Per-device flops, bytes, collectives and live memory of a
     ``DTensor`` program on fake tensors (see the module docstring)."""
@@ -129,6 +159,7 @@ class LocalCost(TorchDispatchMode):
         self.fallbacks = Counter()
         self.live = 0
         self.peak = 0
+        self.counted_loops = 0      # token loops `CountedScan` counted
         self._storages = {}
         self._prop = set()          # ids of shape-propagation tensors
         self._inside = False
@@ -218,6 +249,7 @@ class LocalCost(TorchDispatchMode):
                                         if isinstance(v, DTensor) else v)
             return args[0]
         mutated = func._schema.is_mutable
+        split = func is aten.view.default and _splits_shards(*args[:2])
 
         def rep(i, x):
             if isinstance(x, (list, tuple)):
@@ -231,7 +263,8 @@ class LocalCost(TorchDispatchMode):
             out = func(*args, **kwargs)
         except Exception:                # no strategy for any placement
             return self._run_local(func, args, kwargs, first)
-        self.fallbacks[f"{func} (replicated)"] += 1
+        self.fallbacks[f"{func} (replicated"
+                       f"{', a sharded dim split' if split else ''})"] += 1
         return out
 
     def _run_local(self, func, args, kwargs, first):
@@ -400,8 +433,266 @@ def _batch_placements(x, mesh) -> list:
             for p in x.placements]
 
 
+class _Take(torch.autograd.Function):
+    """An alias of ``x`` that requires grad through a 0-d ``anchor``: the
+    gradient reaching it is captured at its node's edge, which holds no
+    tensor (a leaf would keep the input's storage live through its
+    ``AccumulateGrad`` node, where the real loop frees it)."""
+
+    @staticmethod
+    def forward(ctx, anchor, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None
+
+
+def _snapshot(cost) -> tuple:
+    return cost.flops, cost.bytes, len(cost.records), cost.live
+
+
+def _add_bulk(cost, n: int, before, after) -> None:
+    """Add ``n`` times one step's flops and bytes, ``after - before``
+    (counts: flops, bytes, collective records, live bytes); the step
+    must have issued no collective."""
+    if after[2] != before[2]:
+        raise AssertionError("a collective inside a token step: the mixers "
+                             "run on local tensors")
+    cost.flops += n * (after[0] - before[0])
+    cost.bytes += n * (after[1] - before[1])
+
+
+def _reserve(n: int):
+    """``n`` bytes of fake storage, which `LocalCost` tracks as live."""
+    assert n >= 0, n
+    return torch.empty(n, dtype=torch.uint8) if n else None
+
+
+class _Loop:
+    """One counted loop of S tokens (see `CountedScan`).  Real steps run
+    at tokens 0, 1, S-2 and S-1; steps 2 .. S-3 are the bulk, counted as
+    step 1 counted.  Tokens 1 and S-2 are steady steps (token 0 starts
+    from the caller's carry, token S-1 ends the loop), so the bulk sits
+    between two real steady steps, forward and backward, and a peak
+    inside it is one of theirs (live bytes move by the same amount each
+    step)."""
+
+    def __init__(self, cost, step, carry, xs, params):
+        self.cost, self.step = cost, step
+        self.args = (carry, xs, params)
+        self.S = xs[0].shape[1]
+        self.idx = (0, 1, self.S - 2, self.S - 1)
+        self.box = {}          # what the backward's hooks share
+
+    def forward(self, need=None):
+        """Run the real steps (recording a graph of them when ``need``
+        names the inputs that need grad: carry, xs, params) and count the
+        loop.  Returns (ys (B, S, ...), the carry after the last token)."""
+        cost, S = self.cost, self.S
+        carry, xs, params = self.args
+        self.args = None
+        grad = need is not None
+        n_c, n_x = len(carry), len(xs)
+        if not grad:
+            need = [False] * (n_c + n_x + len(params))
+        anchor = (torch.empty((), device="meta", requires_grad=True)
+                  if grad else None)
+
+        def take(t, needs):
+            return _Take.apply(anchor, t) if needs else t
+
+        if grad:        # the real steps' graph starts here
+            carry, xs, params = ([t.detach() for t in ts]
+                                 for ts in (carry, xs, params))
+        carry = tuple(take(c, need[i]) for i, c in enumerate(carry))
+        params = tuple(take(p, need[n_c + n_x + i])
+                       for i, p in enumerate(params))
+        if grad:
+            self.in_edges = [[_edge(c) if need[i] else None
+                              for i, c in enumerate(carry)],
+                             [_edge(p) if need[n_c + n_x + i] else None
+                              for i, p in enumerate(params)]]
+            self.x_edges, self.y_edges, self.first = [], [], []
+        ys = []
+        for j, t in enumerate(self.idx):
+            if j == 2:                   # the bulk, steps 2 .. S-3
+                _add_bulk(cost, S - 4, c0, c1)
+                self.box["saved"] = _reserve((S - 4) * (c1[3] - c0[3]))
+            x_t = tuple(take(x.select(1, t), need[n_c + i])
+                        for i, x in enumerate(xs))
+            if grad:
+                self.x_edges.append([_edge(x) if x.requires_grad else None
+                                     for x in x_t])
+            carry, y = self.step(carry, x_t, *params)
+            ys.append(y)
+            del x_t, y
+            if j == 0:
+                c0 = _snapshot(cost)
+            elif j == 1:
+                c1 = _snapshot(cost)
+            if grad:
+                self._mark(ys[-1], carry)
+        if grad:
+            self.carry_edges = [_edge(c) if c.requires_grad else None
+                                for c in carry]
+        y1 = ys[1].untyped_storage()._cdata
+        out = torch.empty((ys[0].shape[0], S, *ys[0].shape[1:]),
+                          dtype=ys[0].dtype)
+        cost.bytes += 2 * nbytes_of(out)       # the stack: S in, S out
+        del ys
+        # what step 1 left live beyond the stack is what every bulk step
+        # leaves: its output freed with the list, unless a later step
+        # saved it
+        keep = c1[3] - c0[3]
+        if y1 not in cost._storages:
+            keep -= nbytes_of(out) // S
+        self.box["saved"] = None
+        self.box["saved"] = _reserve((S - 4) * keep)
+        self.keep = keep
+        return out, carry
+
+    def _mark(self, y, carry) -> None:
+        """The edges of a real step's output and the node its VJP starts
+        at: the last one the step created (its VJP runs after the next
+        token's, before the previous token's)."""
+        self.y_edges.append(_edge(y) if y.requires_grad else None)
+        nodes = [o.grad_fn for o in (y, *carry) if o.grad_fn is not None]
+        self.first.append(max(nodes, key=lambda n: n._sequence_nr())
+                          if nodes else None)
+
+    def backward(self, g_ys, g_carry):
+        """The VJPs of the real steps, in one engine run over their
+        graph, and the bulk's counted between tokens S-2 and 1 (node
+        hooks).  Returns the gradients of the carry, the inputs and the
+        params (None where not needed)."""
+        cost, S, box, keep = self.cost, self.S, self.box, self.keep
+        outs, grads = [], []
+        for j, t in enumerate(self.idx):
+            if g_ys is not None and self.y_edges[j] is not None:
+                outs.append(self.y_edges[j])
+                grads.append(g_ys.select(1, t))
+        for e, g in zip(self.carry_edges, g_carry):
+            if g is not None and e is not None:
+                outs.append(e)
+                grads.append(g)
+        has = [e is not None for e in self.x_edges[0]]
+        per = sum(has)
+        ins = [e for row in self.x_edges for e in row if e is not None]
+        others = [e for row in self.in_edges for e in row if e is not None]
+
+        # the hooks hold no node (a node holds its hooks: no cycle)
+        def at_token_s2(_grads):          # token S-2's VJP starts
+            box["before"] = _snapshot(cost)
+
+        def at_token_1(_grads):           # token S-2's VJP has ended
+            before, after = box["before"], _snapshot(cost)
+            _add_bulk(cost, S - 4, before, after)
+            box["saved"] = None
+            box["pieces"] = _reserve((S - 4) * (after[3] - before[3] + keep))
+        hooks = [self.first[2].register_prehook(at_token_s2),
+                 self.first[1].register_prehook(at_token_1)]
+        try:
+            got = list(torch.autograd.grad(outs, ins + others, grads,
+                                           allow_unused=True))
+        finally:
+            for h in hooks:
+                h.remove()
+        del outs, grads, g_ys, g_carry
+        pieces, got = got[:len(ins)], got[len(ins):]
+        # the real loop's unbind backwards: one stack of S token gradients
+        # per input, the last input's first, each freeing its tokens'
+        # gradients; the bulk's tokens are split as token S-2's are
+        order = [i for i in reversed(range(len(has))) if has[i]]
+        slot = {i: sum(has[:i]) for i in order}
+        last = {}
+        for i in order:
+            p = pieces[2 * per + slot[i]]
+            if p is not None:
+                last[p.untyped_storage()._cdata] = (i, p.untyped_storage()
+                                                    .nbytes())
+        share = {i: 0 for i in order}
+        for i, n in last.values():
+            share[i] += n
+        grew = box["pieces"].numel() if box.get("pieces") is not None else 0
+        if grew != (S - 4) * sum(share.values()):
+            raise AssertionError(
+                f"a bulk step's VJP left {grew // (S - 4)} bytes live, its "
+                f"token gradients hold {sum(share.values())}")
+        box["pieces"] = None
+        parts = {i: _reserve((S - 4) * share[i]) for i in order}
+        x_grads = [None] * len(has)
+        for i in order:
+            mine = pieces[slot[i]::per]
+            ref = next(p for p in mine if p is not None)
+            full = torch.empty((ref.shape[0], S, *ref.shape[1:]),
+                               dtype=ref.dtype)
+            cost.bytes += 2 * nbytes_of(full)
+            x_grads[i] = full
+            for q in range(slot[i], len(pieces), per):
+                pieces[q] = None
+            parts[i] = None
+            del mine, ref, full
+        box.clear()
+        it = iter(got)
+        c_grads, p_grads = [[next(it) if e is not None else None
+                             for e in row] for row in self.in_edges]
+        self.x_edges = self.y_edges = self.first = self.step = None
+        self.carry_edges = self.in_edges = None
+        return c_grads + x_grads + p_grads
+
+
+class _CountedLoop(torch.autograd.Function):
+    """The counted loop under autograd: `_Loop.forward` records a graph
+    of the real steps on detached inputs; the backward runs it."""
+
+    @staticmethod
+    def forward(ctx, loop, n_carry, *tensors):    # carry, xs, params
+        ctx.set_materialize_grads(False)
+        with torch.enable_grad():
+            ys, carry = loop.forward(list(ctx.needs_input_grad[2:]))
+        ctx.loop = loop
+        return (ys, *[c.detach() for c in carry])
+
+    @staticmethod
+    def backward(ctx, g_ys, *g_carry):
+        loop, ctx.loop = ctx.loop, None
+        return (None, None, *loop.backward(g_ys, g_carry))
+
+
+class CountedScan:
+    """`models.scan.scan` for the dry-run: a loop of at most ``limit``
+    tokens runs (None: the caller runs it); a longer one runs its steps
+    at tokens 0, 1, S-2 and S-1 and counts steps 2 .. S-3 as step 1 --
+    its flops and bytes, forward and, under autograd, backward -- and
+    holds the live bytes each leaves behind (autograd's saved tensors,
+    the token outputs until the stack, the token gradients until their
+    stack) as fake storage.  Outputs and the final carry have the whole
+    loop's shapes; the stack of the outputs and of each input's token
+    gradients is counted as the real loop's (S tokens read, S written).
+    No collective may run inside a step."""
+
+    def __init__(self, cost: "LocalCost", limit: int = TOKEN_LOOP_LIMIT):
+        if limit < 4:
+            raise ValueError("a counted loop runs four real steps")
+        self.cost, self.limit = cost, limit
+
+    def __call__(self, step, carry, xs, params):
+        if xs[0].shape[1] <= self.limit:
+            return None
+        self.cost.counted_loops += 1
+        loop = _Loop(self.cost, step, carry, xs, params)
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (*carry, *xs, *params)):
+            out = _CountedLoop.apply(loop, len(carry), *carry, *xs, *params)
+            return tuple(out[1:]), out[0]
+        ys, carry = loop.forward()
+        return carry, ys
+
+
 @contextlib.contextmanager
-def local_mixers(model: nn.Module, mesh):
+def local_mixers(model: nn.Module, mesh, cost: "LocalCost",
+                 loop_limit: int = TOKEN_LOOP_LIMIT):
     """Run the MoE FFN and the recurrent mixers (Mamba, mLSTM, sLSTM)
     data-parallel during a dry-run: their data-dependent dispatch and
     token loops have no ``DTensor`` sharding strategies.  Each call's
@@ -412,9 +703,11 @@ def local_mixers(model: nn.Module, mesh):
     module runs on the local tensors; its outputs come back batch-
     sharded (a 0-d aux loss replicated).  The reference's GSPMD may
     instead partition the experts (all-to-alls); the counts say what
-    this plan costs."""
+    this plan costs.  A token loop longer than ``loop_limit`` is counted
+    into ``cost``, the run's `LocalCost` (`CountedScan`)."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
+    from repro_torch.models import scan as _scan
     from repro_torch.models.mamba import Mamba
     from repro_torch.models.moe import MoE
     from repro_torch.models.xlstm import MLSTM, SLSTM
@@ -423,12 +716,6 @@ def local_mixers(model: nn.Module, mesh):
         def run(x, *rest):     # (x) or (x, state): the mixers' methods
             if not isinstance(x, DTensor):
                 return fn(x, *rest)
-            if isinstance(mod, (MLSTM, SLSTM)) and x.shape[1] > TOKEN_LOOP_LIMIT:
-                raise NotImplementedError(
-                    f"the port's {type(mod).__name__} runs a Python loop of "
-                    f"~15 ops a token; {x.shape[1]} tokens on fake tensors "
-                    f"take hours (a scan kernel is a ROADMAP speed item): "
-                    f"the dry-run takes at most {TOKEN_LOOP_LIMIT}")
             state = rest[0] if rest else None
             lead = [x] + [v for v in (state or {}).values()
                           if isinstance(v, DTensor) and v.dim()]
@@ -487,7 +774,8 @@ def local_mixers(model: nn.Module, mesh):
                     setattr(mod, meth, wrap(mod, getattr(mod, meth)))
                     patched.append((mod, meth))
     try:
-        yield
+        with _scan.counting(CountedScan(cost, loop_limit)):
+            yield
     finally:
         for mod, meth in patched:
             delattr(mod, meth)

@@ -16,8 +16,9 @@ Numerics follow the reference:
 
 The reference evaluates the recurrence with ``lax.associative_scan``
 inside chunks of ``MAMBA_CHUNK`` tokens; torch has no stable associative
-scan, so the port runs it sequentially over each chunk (the reference's
-own unit test holds the chunked scan to this recurrence).  The
+scan, so the port runs it sequentially over each chunk through
+`models.scan.scan`, one `ssm_step` a token (the reference's own unit
+test holds the chunked scan to this recurrence).  The
 ``(B, chunk, d_in, N)`` float32 intermediates are built one chunk at a
 time, so memory stays O(chunk) at Jamba's widths (d_in 16384, N 16:
 1 MiB a token and batch row).  The chunk is a memory knob only: the
@@ -42,6 +43,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.models.param import Initializer
+from repro_torch.models.scan import scan
 
 MAMBA_CHUNK = 256
 
@@ -86,11 +88,17 @@ def chunk_scan(A_bar: torch.Tensor, Bx: torch.Tensor, h0: torch.Tensor
     """The recurrence over one chunk.  A_bar, Bx: (B, L, d_in, N); h0:
     (B, d_in, N).  Returns (h at every position (B, L, d_in, N), h at the
     last)."""
-    hs, h = [], h0
-    for t in range(A_bar.shape[1]):
-        h = torch.addcmul(Bx[:, t], A_bar[:, t], h)
-        hs.append(h)
-    return torch.stack(hs, dim=1), h
+    (h,), hs = scan(ssm_step, (h0,), (A_bar, Bx))
+    return hs, h
+
+
+def ssm_step(carry, inp):
+    """One token of the recurrence: carry (h,), inp (A_bar_t, Bx_t)
+    (B, d_in, N); h_t = A_bar_t h + Bx_t is both the new carry and the
+    output."""
+    (h,), (A_bar, Bx) = carry, inp
+    h = torch.addcmul(Bx, A_bar, h)
+    return (h,), h
 
 
 class Mamba(nn.Module):

@@ -17,10 +17,11 @@ per-head recurrent weights ``r_gates`` (4, H, hd, hd); its ``n`` starts
 at 1, not 0, and ``h`` divides by ``max(n, 1e-6)``; the block ends in
 its own RMS norm and SwiGLU-style FFN.
 
-Both loop over tokens in Python, as the reference's ``lax.scan`` does:
-a chain of small ops a token (host-bound on the card; hand-written
-kernels for these loops are later work).  Decode is the full path at
-S = 1 from the carried state.  States are dicts of batch-first tensors
+Both loop over tokens in Python through `models.scan.scan`, as the
+reference's ``lax.scan`` does, one step function a token
+(`mlstm_step`, `slstm_step`): a chain of small ops a token (host-bound
+on the card; hand-written kernels for these loops are later work).
+Decode is the full path at S = 1 from the carried state.  States are dicts of batch-first tensors
 (mLSTM ``C`` (B, H, hd, hd), ``n`` (B, H, hd), ``m`` (B, H) float32 and
 ``conv`` (B, K-1, d_in) in ``cfg.dtype``; sLSTM ``c``, ``n``, ``h``,
 ``m`` (B, d) float32), set in place by ``prefill`` and ``decode``.
@@ -36,6 +37,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig, XLSTMConfig
 from repro_torch.models.mamba import causal_conv
 from repro_torch.models.param import Initializer
+from repro_torch.models.scan import scan
 
 F32 = torch.float32
 
@@ -78,6 +80,24 @@ def init_mlstm_state(cfg: ModelConfig, batch: int,
                                 device=device)}
 
 
+def mlstm_step(carry, inp):
+    """One token of the mLSTM recurrence (the reference's
+    ``_mlstm_step``).  carry: (C (B, H, hd, hd), n (B, H, hd), m (B, H));
+    inp: the token's q, k, v (B, H, hd) and gates i_log, f_log (B, H),
+    float32.  Returns ((C, n, m) after it, h (B, H, hd))."""
+    C, n, m = carry
+    q, k, v, i_log, f_log = inp
+    m_new = torch.maximum(f_log + m, i_log)
+    i_p = torch.exp(i_log - m_new)
+    f_p = torch.exp(f_log + m - m_new)
+    C = f_p[..., None, None] * C + i_p[..., None, None] * (
+        v[..., :, None] * k[..., None, :])
+    n = f_p[..., None] * n + i_p[..., None] * k
+    num = torch.einsum("bhij,bhj->bhi", C, q)
+    den = torch.einsum("bhj,bhj->bh", n, q).abs().clamp_min(1.0)
+    return (C, n, m_new), num / den[..., None]
+
+
 class MLSTM(nn.Module):
     def __init__(self, ini: Initializer, cfg: ModelConfig):
         super().__init__()
@@ -116,21 +136,8 @@ class MLSTM(nn.Module):
             + self.b_if.float()
         i_log, f_log = gates.chunk(2, dim=-1)                  # (B, S, H)
         f_log = F.logsigmoid(f_log)
-        C, n, m = state["C"], state["n"], state["m"]
-        hs = []
-        for t in range(S):
-            m_new = torch.maximum(f_log[:, t] + m, i_log[:, t])
-            i_p = torch.exp(i_log[:, t] - m_new)
-            f_p = torch.exp(f_log[:, t] + m - m_new)
-            C = f_p[..., None, None] * C + i_p[..., None, None] * (
-                v[:, t, :, :, None] * k[:, t, :, None, :])
-            n = f_p[..., None] * n + i_p[..., None] * k[:, t]
-            num = torch.einsum("bhij,bhj->bhi", C, q[:, t])
-            den = torch.einsum("bhj,bhj->bh", n, q[:, t]).abs().clamp_min(
-                1.0)
-            hs.append(num / den[..., None])
-            m = m_new
-        h = torch.stack(hs, dim=1)                             # (B,S,H,hd)
+        (C, n, m), h = scan(mlstm_step, (state["C"], state["n"], state["m"]),
+                            (q, k, v, i_log, f_log))           # (B,S,H,hd)
         hf = (_rms(h).reshape(B, S, d_in) * self.norm_scale.float())
         y = F.linear(hf.to(dt) * F.silu(z), self.w_down.to(dt))
         return y, {"C": C, "n": n, "m": m, "conv": conv[:, -max(
@@ -176,6 +183,29 @@ def init_slstm_state(cfg: ModelConfig, batch: int,
     return out
 
 
+def slstm_step(carry, inp, r):
+    """One token of the sLSTM recurrence (the reference's
+    ``_slstm_step``).  carry: (c, n, h, m) (B, d); inp: (the token's
+    input pre-activations (B, 4, d), gate-major (i, f, z, o), float32,);
+    r: the recurrent weights (4, H, hd, hd) float32.  Returns ((c, n, h,
+    m) after it, h)."""
+    c, n, h, m = carry
+    (pre_t,) = inp
+    _, H, hd, _ = r.shape
+    B, _, d = pre_t.shape
+    rec = torch.einsum("ghij,bhj->gbhi", r,
+                       h.reshape(B, H, hd)).reshape(4, B, d)
+    i_t, f_t, z_t, o_t = pre_t.transpose(0, 1) + rec
+    lf = F.logsigmoid(f_t)
+    m_new = torch.maximum(lf + m, i_t)
+    i_p = torch.exp(i_t - m_new)
+    f_p = torch.exp(lf + m - m_new)
+    c = f_p * c + i_p * torch.tanh(z_t)
+    n = f_p * n + i_p
+    h = torch.sigmoid(o_t) * c / n.clamp_min(1e-6)
+    return (c, n, h, m_new), h
+
+
 class SLSTM(nn.Module):
     def __init__(self, ini: Initializer, cfg: ModelConfig):
         super().__init__()
@@ -193,30 +223,15 @@ class SLSTM(nn.Module):
     def _run(self, x: torch.Tensor, state: Optional[Dict] = None):
         cfg = self.cfg
         B, S, d = x.shape
-        H, dt = cfg.n_heads, x.dtype
-        hd = d // H
+        dt = x.dtype
         if state is None:
             state = init_slstm_state(cfg, B, x.device)
         # input pre-activations, gate-major columns (i, f, z, o)
         pre = (F.linear(x, self.w_gates.to(dt))
                + self.b_gates.to(dt)).float().reshape(B, S, 4, d)
-        r = self.r_gates.float()
-        c, n, h, m = state["c"], state["n"], state["h"], state["m"]
-        hs = []
-        for t in range(S):
-            rec = torch.einsum("ghij,bhj->gbhi", r,
-                               h.reshape(B, H, hd)).reshape(4, B, d)
-            i_t, f_t, z_t, o_t = pre[:, t].transpose(0, 1) + rec
-            lf = F.logsigmoid(f_t)
-            m_new = torch.maximum(lf + m, i_t)
-            i_p = torch.exp(i_t - m_new)
-            f_p = torch.exp(lf + m - m_new)
-            c = f_p * c + i_p * torch.tanh(z_t)
-            n = f_p * n + i_p
-            h = torch.sigmoid(o_t) * c / n.clamp_min(1e-6)
-            m = m_new
-            hs.append(h)
-        hseq = torch.stack(hs, dim=1)                          # (B, S, d)
+        (c, n, h, m), hseq = scan(
+            slstm_step, (state["c"], state["n"], state["h"], state["m"]),
+            (pre,), (self.r_gates.float(),))
         hn = (_rms(hseq) * self.norm_scale.float()).to(dt)
         y = F.linear(F.silu(F.linear(hn, self.ff_gate.to(dt)))
                      * F.linear(hn, self.ff_up.to(dt)), self.ff_down.to(dt))

@@ -177,6 +177,46 @@ def test_an_unknown_fallback_fails_the_pair():
                               "aten.mm.default (replicated)": 1})
 
 
+def _view_fallbacks(sizes):
+    """The fallbacks of a view of a (2, 3, 8, 5) ``DTensor`` whose dim 2
+    is sharded over model=4 (of a fake 1x4 mesh) to each of ``sizes``."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.localcost import (
+        LocalCost, contiguous_stride, fake_mesh,
+    )
+    out = []
+    with fake_mesh({"data": 1, "model": 4}) as mesh, FakeTensorMode():
+        shape = (2, 3, 8, 5)
+        x = DTensor.from_local(torch.empty(2, 3, 2, 5), mesh,
+                               [Replicate(), Shard(2)], run_check=False,
+                               shape=shape, stride=contiguous_stride(shape))
+        for size in sizes:
+            with implicit_replication(), LocalCost(4) as cost:
+                x.view(*size)
+            out.append(dict(cost.fallbacks))
+    return out
+
+
+def test_a_view_is_a_known_fallback_only_where_it_splits_shards():
+    """A view that splits the sharded dim (8 over 4 shards) into an outer
+    factor the mesh dim does not divide (2 x 4: the attention's q.reshape
+    into fewer KV groups than shards) falls back under its own key, which
+    ``KNOWN_FALLBACKS`` names; the plain replicated-view key is no known
+    gap, so any other view that fell back would fail its pair.  A split
+    into 4 x 2 and views that merge dims keep their shards."""
+    split = "aten.view.default (replicated, a sharded dim split)"
+    assert split in KNOWN_FALLBACKS
+    assert "aten.view.default (replicated)" not in KNOWN_FALLBACKS
+    got = in_child(_view_fallbacks, ([(2, 3, 2, 4, 5), (2, 3, -1, 4, 5),
+                                      (2, 3, 4, 2, 5), (6, 8, 5),
+                                      (2, 3, 40)],), timeout=120)
+    assert got == [{split: 1}, {split: 1}, {}, {}, {}]
+
+
 OTHER_RULES = ("serve_nofsdp", "cache_dp")
 
 

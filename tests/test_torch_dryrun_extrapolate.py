@@ -32,6 +32,9 @@ def test_extrapolation_equals_the_whole_run_on_layer_linear_terms():
                 "per_device_collective_bytes"):
         assert ext["roofline"][key] == whole["roofline"][key], key
         assert whole["roofline"][key] > 0, key
+    assert ext["roofline"]["collective_counts"] == \
+        whole["roofline"]["collective_counts"]
+    assert ext["fallbacks"] == whole["fallbacks"]
     assert ext["roofline"]["t_collective"] == pytest.approx(
         whole["roofline"]["t_collective"], rel=1e-12)
     assert ext["memory"]["argument_bytes_per_device"] == \

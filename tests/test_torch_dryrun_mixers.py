@@ -3,12 +3,13 @@ sharding strategy — the MoE FFN's data-dependent dispatch, Mamba's chunk
 scan, xLSTM's token loops — on a fake 2x2 ("data", "model") mesh: their
 decode steps run with those modules batch-local on gathered weights
 (`localcost.local_mixers`), and the argument bytes per device equal the
-reference's ``sharded_bytes``; an xLSTM token loop past the dry-run's
-limit is refused, by name; an op with no sharding strategy falls back
-to replicated local copies, counted.  Each dry-run runs in a spawned
-child (`test_torch_ranks.in_child`)."""
+reference's ``sharded_bytes``; xLSTM's train step at 4096 tokens runs,
+its token loops counted (`localcost.CountedScan`); an op with no
+sharding strategy falls back to replicated local copies, counted.  Each
+dry-run runs in a spawned child (`test_torch_ranks.in_child`)."""
 import pytest
 
+from repro_torch.launch.dryrun import KNOWN_FALLBACKS
 from test_torch_dryrun import MESH, _run_cases, reference_arg_bytes
 from test_torch_ranks import in_child
 
@@ -40,18 +41,17 @@ def _fallback_counts():
 
 def _mixer_cases():
     """Decode steps of the MoE, Mamba and xLSTM decoders (their mixers
-    run batch-local on gathered weights), an xLSTM train step past the
-    token-loop limit, whose refusal is returned, and the fallbacks."""
+    run batch-local on gathered weights), xLSTM's train step at 4096
+    tokens, and the fallbacks."""
     from repro_torch.launch.dryrun import run_one
     out = _run_cases([(a, "decode_32k", MESH, {"reduced": True})
                       for a in MIXER_ARCHS])
-    refusal = None
-    try:
-        run_one("xlstm-125m", "train_4k", mesh=MESH, reduced=True,
+    r = run_one("xlstm-125m", "train_4k", mesh=MESH, reduced=True,
                 device="cpu", verbose=False)
-    except NotImplementedError as e:
-        refusal = str(e)
-    return out, refusal, _fallback_counts()
+    train = {"args": r["memory"]["argument_bytes_per_device"],
+             "flops": r["roofline"]["per_device_flops"],
+             "counted": r["counted_loops"], "fallbacks": r["fallbacks"]}
+    return out, train, _fallback_counts()
 
 
 MIXER_ARCHS = ("granite-moe-3b-a800m", "jamba-1.5-large-398b", "xlstm-125m")
@@ -63,12 +63,15 @@ def results():
 
 
 def test_moe_and_recurrent_mixers_run_batch_local(results):
-    res, refusal, _ = results
+    res, train, _ = results
     for arch, r in zip(MIXER_ARCHS, res):
         assert r["memory"]["argument_bytes_per_device"] == \
             reference_arg_bytes(arch, "decode_32k", MESH), arch
         assert r["flops"] > 0 and r["counts"].get("all-gather", 0) > 0, arch
-    assert refusal is not None and "4096 tokens" in refusal
+    assert train["args"] == reference_arg_bytes("xlstm-125m", "train_4k",
+                                                MESH)
+    assert train["flops"] > 0 and train["counted"] > 0
+    assert set(train["fallbacks"]) <= set(KNOWN_FALLBACKS)
 
 
 def test_ops_without_a_strategy_fall_back(results):

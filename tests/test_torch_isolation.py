@@ -54,7 +54,7 @@ def test_the_slice_modules_are_covered():
                 "cache_service/tiers.py", "cache_service/service.py",
                 "training/optim.py", "kernels/_build.py",
                 "models/attention.py", "models/model.py",
-                "models/mamba.py", "models/xlstm.py",
+                "models/mamba.py", "models/xlstm.py", "models/scan.py",
                 "serving/engine.py", "serving/frontend.py",
                 "launch/serve.py", "launch/train.py",
                 "launch/mesh.py", "core/distrib.py",

@@ -7,8 +7,18 @@ Tolerances: schedules ``rtol 1e-6`` (float32; the two libraries' cosine
 rounds its last bit differently at a few steps); the train step's loss
 ``rtol 1e-5`` per step and the parameters after three steps within 5 %
 of lr (as `tests/test_torch_training.py`: Adam moves a weight whose
-gradient is near eps by a few percent of lr on a tiny difference); the
-in-place update, checkpoint bytes, the codec's bytes and the round trips
+gradient is near eps by a few percent of lr on a tiny difference); for
+the recurrent decoders (xLSTM's mLSTM / sLSTM, Jamba's Mamba), whose
+gradients go through the token loops, each leaf's gradient at step 0
+within ``3e-5`` relative L2 of ``jax.grad``'s (worst readings 9.0e-6,
+xLSTM's mLSTM ``b_if``, and 6.3e-6, Jamba's Mamba ``A_log``), xLSTM's
+grad norm ``rtol 5e-4`` (its exponential gates make the third step's
+1.8e-4 apart, the first two 1e-5; Jamba's three are within 6.6e-6 and
+keep ``1e-4``), and the parameters within 0.25 lr, at most 16 of them
+past 5 % of lr: Adam, dividing by sqrt(v), moves the few weights whose
+gradients are ~1e-6 of the norm (v ~ 1e-11 .. 1e-13) by up to 0.21 lr
+on float32 noise (12 such weights in xLSTM, 5 in Jamba); the in-place
+update, checkpoint bytes, the codec's bytes and the round trips
 exactly; the launcher's checkpoint read by the reference to the port's
 logits ``atol 1e-5``.
 """
@@ -76,9 +86,15 @@ def test_schedules_match_reference(name, args):
 # the train step
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["phi3-mini-3.8b", "granite-moe-3b-a800m"])
+RECURRENT = ("xlstm-125m", "jamba-1.5-large-398b")
+
+
+@pytest.mark.parametrize("name", ["phi3-mini-3.8b", "granite-moe-3b-a800m",
+                                  *RECURRENT])
 def test_three_train_steps_match_reference(name):
     lr = 1e-3
+    norm_rtol = 5e-4 if name == "xlstm-125m" else 1e-4
+    far, n_far = (0.25, 16) if name in RECURRENT else (0.05, 0)
     jcfg, pv, lm = _models(name)
     jinit, jupd = jadamw(lr, max_grad_norm=1.0)
     jopt = jinit(pv)
@@ -97,15 +113,40 @@ def test_three_train_steps_match_reference(name):
             np.testing.assert_allclose(float(pm[k]), float(jm[k]),
                                        rtol=1e-5, err_msg=f"{k} step {i}")
         np.testing.assert_allclose(float(pm["grad_norm"]),
-                                   float(jm["grad_norm"]), rtol=1e-4)
+                                   float(jm["grad_norm"]), rtol=norm_rtol)
     assert popt.step == int(jopt.step) == 3
     after = state_dict_from_reference(_np(pv), lm.cfg)
+    past = 0
     for n, p in lm.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), after[n].numpy(),
-                                   rtol=0, atol=0.05 * lr, err_msg=n)
+                                   rtol=0, atol=far * lr, err_msg=n)
+        past += int((np.abs(p.detach().numpy() - after[n].numpy())
+                     > 0.05 * lr).sum())
+    assert past <= n_far, past
     ev = make_eval_step(lm)({"tokens": torch.from_numpy(toks)})
     assert set(ev) == {"loss", "nll", "aux"} and bool(
         torch.isfinite(ev["loss"]))
+
+
+@pytest.mark.parametrize("name", RECURRENT)
+def test_gradients_through_the_token_loops_match_reference(name):
+    """Each parameter's gradient of the loss at step 0, through the
+    port's token loops (`models.scan`), against ``jax.grad`` through the
+    reference's ``lax.scan``: relative L2 within 3e-5 leaf by leaf, so a
+    gradient off in scale (which Adam would hide) fails."""
+    from repro.models import lm_loss as jlm_loss
+    jcfg, pv, lm = _models(name)
+    toks = np.random.default_rng(5).integers(
+        0, jcfg.vocab_size, (2, 12)).astype(np.int32)
+    jg = jax.jit(jax.grad(
+        lambda p: jlm_loss(p, jcfg, jnp.asarray(toks))[0]))(pv)
+    want = state_dict_from_reference(_np(jg), lm.cfg)
+    loss, _ = lm.lm_loss(torch.from_numpy(toks))
+    loss.backward()
+    for n, p in lm.named_parameters():
+        g, w = p.grad.numpy(), want[n].numpy()
+        assert np.linalg.norm(w) > 0, n
+        assert np.linalg.norm(g - w) <= 3e-5 * np.linalg.norm(w), n
 
 
 @pytest.mark.parametrize("wd,clip,state_dtype", [
