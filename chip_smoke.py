@@ -285,7 +285,10 @@ or the port is not beside the script.  Phases, each fatal on failure:
    prefill_32k, xLSTM-125M's whole and Jamba's by ``--extrapolate``
    (1- and 2-period runs scaled to its 9 periods), whose token loops
    the dry-run counts (``localcost.CountedScan``: each run must count
-   at least one) — each in a process of its own on a fake process
+   at least one), and StarCoder2-15B's prefill_32k (48 query heads over
+   model=16 in 4 KV groups: the attention runs on each rank's heads of
+   one group, ``localcost.kv_group_shards``, and no view falls back)
+   — each in a process of its own on a fake process
    group (no data, no transfers), all started together, beside
    ``localcost.local_count_check`` (the local flops of three sharded
    products must equal their counts by hand) and
@@ -312,12 +315,29 @@ or the port is not beside the script.  Phases, each fatal on failure:
    float32 run's less N D 2 bytes), one launch of that kernel a run and
    none of the float32 one; its time, ``store.query``'s and the kernel's
    alone (beside its plain version, library call and bound) printed
-   beside the float32 run's.
+   beside the float32 run's;
+15. the serving scenarios (DESIGN.md §14.1; ``serve --scenario``), after
+   phase 14.  Each of ``SCENARIO_CASES`` (the seven traces of
+   ``launch.scenarios`` at full size; drift in learned and conformal
+   mode, the rest conformal) is replayed (``launch.replay``) through a
+   fresh tiered service under the trace's logical clock: on the CPU
+   through the reference's four-op lookup, on the card through it, and
+   on the card through the cascade kernel (``fused=True``; its launches
+   must equal the plans), then once more with the kernel held to its
+   plain version at every plan.  Every card row must count the CPU
+   row's hits, false hits, stale serves, TTL counters, hit audits and
+   timed batches, with conformal floors within ``FLOOR_ATOL``, and the
+   card rows must hold the reference bench's seven properties (no stale
+   serve; every conformal row within its false-hit budget, per tenant
+   too; drift's learned row over it; adversarial within it; ttl_churn's
+   TTL counters above zero and its pre-window hit rate at least 0.9).
+   Hit rate, false-hit rate, plan p50 / p99 µs a row and cascade
+   launches are printed per row.
 
 Prints the card's name and power limit, the stage latencies, a JSON
 line of phase 12's training numbers, a JSON line of phase 14's dry-run
-numbers, a JSON line of per-kernel numbers and, last, ``{"ok": true,
-"device": ...}``.
+numbers, a JSON line of phase 15's scenario rows, a JSON line of
+per-kernel numbers and, last, ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
@@ -508,6 +528,9 @@ DRYRUN_PAIRS = (
     ("phi3-mini-3.8b", "decode_32k", ("--attn-bf16", "--tag", "bf16")),
     ("xlstm-125m", "train_4k", ()),
     ("xlstm-125m", "prefill_32k", ()),
+    # 48 query heads over model=16 in 4 KV groups: the attention runs on
+    # each rank's heads of one group (`localcost.kv_group_shards`)
+    ("starcoder2-15b", "prefill_32k", ()),
     # Jamba's whole prefill_32k runs 8064 counted chunk loops, ~250 s on
     # one host core: 1- and 2-period runs scaled to its 9 periods instead
     (JAMBA, "train_4k", ("--extrapolate",)),
@@ -521,6 +544,22 @@ DRYRUN_LOOP_ARCHS = ("xlstm-125m", JAMBA)
 LOOP_CHECK_TOKENS = 64
 DRYRUN_TIMEOUT_S = 300
 CACHE_RUN_REPS = 5
+# phase 15: the serving scenarios (DESIGN.md §14.1) at full size, each
+# (trace, mode) the reference's bench replays: drift in both modes, the
+# rest conformal
+SCENARIO_CASES = (("diurnal", True), ("zipf_tenants", True),
+                  ("drift", False), ("drift", True), ("bursty", True),
+                  ("adversarial", True), ("ttl_churn", True),
+                  ("cold_tenants", True))
+# what a card replay must count as the CPU replay does
+SCENARIO_INTS = ("n_steps", "n_queries", "timed_batches", "hits",
+                 "false_hits", "stale_serves", "ttl_stamped",
+                 "expired_masked", "expired_reaped", "hit_audits",
+                 "audited_false_hits")
+FLOOR_ATOL = 1e-5
+# the reference's per-tenant budget applies to tenants with at least this
+# many queries in a full-size trace
+SCENARIO_MIN_TENANT_Q = 100
 
 
 def fail(msg: str) -> None:
@@ -4687,6 +4726,169 @@ def cache_program_phase(dev, one: dict, card: str) -> dict:
     return out
 
 
+# phase 15: the serving scenarios
+# ---------------------------------------------------------------------------
+
+def scenario_lookup_check(plain, kern, thr) -> float:
+    """The cascade kernel's result against its plain version's on one
+    plan's inputs (`compare`), a flipped hit flag reported with its
+    row's scores and threshold first."""
+    flips = (plain[5] != kern[5]).nonzero().flatten().tolist()
+    if flips:
+        fail("scenario replay: the cascade kernel's hit flags differ from "
+             "its plain version's at rows " + ", ".join(
+                 f"{i} (kernel {float(kern[0][i, 0]):.9f}, plain "
+                 f"{float(plain[0][i, 0]):.9f}, threshold "
+                 f"{float(thr[i]):.9f})" for i in flips))
+    return compare(plain, kern, "scenario cascade lookup")
+
+
+def scenario_properties(rows: dict) -> list:
+    """The reference bench's seven properties of its rows (its
+    ``OWED_ASSERTS``), checked on ``rows`` ({(name, conformal): row});
+    returns their names."""
+    def budget(row):
+        b = row["false_hit_budget"]
+        if row["false_hit_rate"] > b:
+            fail(f"scenario {row['scenario']} ({row['mode']}): false-hit "
+                 f"rate {row['false_hit_rate']:.4f} over budget {b}")
+        for t, r in row["per_tenant_false_hit_rate"].items():
+            if row["per_tenant_queries"][t] >= SCENARIO_MIN_TENANT_Q \
+                    and r > b:
+                fail(f"scenario {row['scenario']} tenant {t}: per-tenant "
+                     f"false-hit rate {r:.4f} over budget {b}")
+    stale = {k: r["stale_serves"] for k, r in rows.items()
+             if r["stale_serves"]}
+    if stale:
+        fail(f"scenario stale serves: {stale}")
+    for (name, conformal), row in rows.items():
+        if conformal:
+            budget(row)
+    learned = rows["drift", False]
+    if not learned["false_hit_rate"] > learned["false_hit_budget"]:
+        fail(f"drift: the learned threshold no longer leaks "
+             f"({learned['false_hit_rate']:.4f} <= "
+             f"{learned['false_hit_budget']})")
+    ttl = rows["ttl_churn", True]
+    if not (ttl["ttl_stamped"] > 0 and ttl["expired_masked"] > 0
+            and ttl["expired_reaped"] > 0):
+        fail(f"ttl_churn: TTL machinery not engaged: stamped "
+             f"{ttl['ttl_stamped']}, masked {ttl['expired_masked']}, "
+             f"reaped {ttl['expired_reaped']}")
+    if not ttl["prewindow_hit_rate"] >= 0.9:
+        fail(f"ttl_churn: inside-deadline repeats hit at "
+             f"{ttl['prewindow_hit_rate']:.3f} < 0.9")
+    return ["scenario_zero_stale_serves", "scenario_false_hit_budgets",
+            "drift_learned_threshold_leaks", "drift_conformal_holds_budget",
+            "adversarial_must_miss_budget", "ttl_expiry_enforced",
+            "ttl_prewindow_hits"]
+
+
+def scenario_phase(card: str) -> dict:
+    """15: each of ``SCENARIO_CASES`` at full size replayed
+    (`launch.replay`) through a fresh tiered service: on the CPU through
+    the reference's four-op lookup (plain versions), then on the card
+    through it (``serve --scenario``'s path), then on the card through
+    the cascade kernel (``fused=True``; its counter set to 0 before the
+    replay and read after: one launch a plan), and that replay again with
+    the kernel held to its plain version at every plan (`compare`).  Each
+    card row must count the CPU row's integers (``SCENARIO_INTS``) with
+    the same conformal floors (within ``FLOOR_ATOL``), and the card rows
+    must hold the reference bench's seven properties
+    (`scenario_properties`)."""
+    import torch
+
+    from repro_torch.kernels.cascade_lookup import kernel as ck
+    from repro_torch.kernels.cascade_lookup import ops as cops
+    from repro_torch.kernels.cascade_lookup import ref as cref
+    from repro_torch.launch import replay, scenarios
+
+    def same(cpu, row, what):
+        diff = {k: (row.get(k), cpu.get(k)) for k in SCENARIO_INTS
+                if row.get(k) != cpu.get(k)}
+        fc, fr = cpu.get("conformal_floors"), row.get("conformal_floors")
+        if (fc is None) != (fr is None) or (fc is not None and (
+                fc.keys() != fr.keys() or any(
+                    abs(fc[t] - fr[t]) > FLOOR_ATOL for t in fc))):
+            diff["conformal_floors"] = (fr, fc)
+        if diff:
+            fail(f"scenario {what}: the card counts differently from the "
+                 f"CPU (card, cpu): {diff}")
+
+    held = {"err": 0.0, "plans": 0}
+    kernel_lookup = cops.cascade_lookup
+
+    def held_to_plain(*a, **kw):
+        out = kernel_lookup(*a, **kw)
+        plain = cref.cascade_lookup(*a, **kw)
+        held["err"] = max(held["err"], scenario_lookup_check(plain, out,
+                                                             a[2]))
+        held["plans"] += 1
+        return out
+
+    rows = {}
+    print(f"  {'case':<26} {'path':<8} {'hit rate':>8} {'false-hit':>9} "
+          f"{'budget':>6} {'plan p50':>9} {'p99':>9} {'launches':>8} "
+          f"{'plans':>5}  (µs/row; {card})")
+    for name, conformal in SCENARIO_CASES:
+        trace = scenarios.build(name, smoke=False)
+        what = f"{name} ({'conformal' if conformal else 'learned'})"
+        cpu = replay.replay(trace, conformal=conformal, device="cpu")
+        for path, fused in (("four-op", False), ("kernel", True)):
+            ck.COUNTS["cascade_lookup"] = 0
+            row = replay.replay(trace, conformal=conformal, device="cuda",
+                                fused=fused)
+            row["cascade_launches"] = ck.COUNTS["cascade_lookup"]
+            if row["cascade_launches"] != (row["n_steps"] if fused else 0):
+                fail(f"scenario {what} {path}: {row['cascade_launches']} "
+                     f"cascade launches for {row['n_steps']} plans")
+            same(cpu, row, f"{what} {path}")
+            rows[name, conformal, path] = row
+            print(f"  {what:<26} {path:<8} {row['hit_rate']:8.4f} "
+                  f"{row['false_hit_rate']:9.4f} "
+                  f"{row['false_hit_budget']:6.2f} "
+                  f"{row['p50_us_per_row']:9.2f} "
+                  f"{row['p99_us_per_row']:9.2f} "
+                  f"{row['cascade_launches']:8d} {row['n_steps']:5d}")
+        before = held["plans"]
+        cops.cascade_lookup = held_to_plain
+        try:
+            replay.replay(trace, conformal=conformal, device="cuda",
+                          fused=True)
+        finally:
+            cops.cascade_lookup = kernel_lookup
+        torch.cuda.synchronize()
+        if held["plans"] - before != rows[name, conformal, "kernel"][
+                "n_steps"]:
+            fail(f"scenario {what}: the kernel was held to its plain "
+                 f"version at {held['plans'] - before} plans of "
+                 f"{rows[name, conformal, 'kernel']['n_steps']}")
+    plans = sum(r["n_steps"] for (_, _, p), r in rows.items()
+                if p == "kernel")
+    if held["plans"] != plans:
+        fail(f"scenario replays: the kernel was held to its plain version "
+             f"at {held['plans']} plans of {plans}")
+    names = []
+    for path in ("four-op", "kernel"):
+        names = scenario_properties({k[:2]: r for k, r in rows.items()
+                                     if k[2] == path})
+    ttl = rows["ttl_churn", True, "four-op"]
+    print(f"  every card row counts as the CPU replay "
+          f"({', '.join(SCENARIO_INTS)}; floors within {FLOOR_ATOL}); both "
+          f"paths hold {', '.join(names)}"
+          f"; ttl_churn {ttl['ttl_stamped']} stamped, "
+          f"{ttl['expired_masked']} masked, {ttl['expired_reaped']} reaped, "
+          f"pre-window hit rate {ttl['prewindow_hit_rate']:.3f}")
+    print(f"  cascade kernel held to its plain version at {held['plans']} "
+          f"plans: max |score diff| {held['err']:.3g}, ids and flags equal")
+    return {"rows": {f"{n} {'conformal' if c else 'learned'} {p}": r
+                     for (n, c, p), r in rows.items()},
+            "properties": names, "held_plans": held["plans"],
+            "max_abs_err": held["err"],
+            "launches": sum(r["cascade_launches"] for r in rows.values()),
+            "plans": plans}
+
+
 def sass_counts(lib: str) -> dict:
     """{kernel function (mangled): {"HMMA": n, "FFMA": n, "HMMA_TF32": n,
     "HMMA_BF16": n}} in a built library, from ``cuobjdump --dump-sass``
@@ -5044,6 +5246,14 @@ def main() -> int:
     cpr = cache_program_phase(dev, dr["pairs"]["langcache cache_lookup 1x1"],
                               card)
     print(f"  phase 14 in {time.perf_counter() - t14:.1f} s")
+    free_cuda()
+
+    print(f"phase 15: the serving scenarios ({len(SCENARIO_CASES)} traces "
+          "at full size through the tiered service, the four-op lookup and "
+          "the cascade kernel)")
+    t15 = time.perf_counter()
+    scn = scenario_phase(card)
+    print(f"  phase 15 in {time.perf_counter() - t15:.1f} s")
     print(f"  all phases in {time.perf_counter() - t_start:.1f} s")
 
     n_flat = FLAT_CAPACITY
@@ -5081,6 +5291,9 @@ def main() -> int:
                            for r in sm["ranks"]],
             "mesh_service_launches": [r["launches"] for r in sm["ranks"]],
             "unsharded_service": sm["unsharded"]},
+        "scenario_check_launches": scn["launches"],
+        "scenario_check_plans": scn["plans"],
+        "scenario_check_max_abs_err": scn["max_abs_err"],
         "sass": sass["cascade_lookup"], "card": card,
     }, {
         "name": "cosine_topk", "route": "cuda",
@@ -5265,6 +5478,11 @@ def main() -> int:
                                  "local_counts": dr["local_counts"],
                                  "wall_s": dr["wall_s"],
                                  "cache_program": cpr, "card": card}}))
+    print(json.dumps({"scenarios": {
+        "rows": {k: {f: v for f, v in r.items()
+                     if not f.startswith("per_tenant")}
+                 for k, r in scn["rows"].items()},
+        "properties": scn["properties"], "card": card}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -45,7 +45,7 @@ from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES
 from repro_torch.launch import mesh as _mesh
 from repro_torch.launch.localcost import (
     TOKEN_LOOP_LIMIT, EinsumRule, LocalCost, contiguous_stride, fake_mesh,
-    local_mixers, nbytes_of, tensors_in,
+    kv_group_shards, local_mixers, nbytes_of, tensors_in,
 )
 from repro_torch.launch.programs import get_program
 from repro_torch.launch.roofline import model_flops, roofline_terms
@@ -70,14 +70,6 @@ KNOWN_FALLBACKS = {
     "aten.index_put.default (replicated)":
         "2.11: the embedding's backward, an accumulating index_put into "
         "the table's gradient",
-    "aten.view.default (replicated, a sharded dim split)":
-        "2.11 and 2.13: a view splitting a sharded dim into an outer "
-        "factor its mesh dim does not divide (`localcost._splits_shards`; "
-        "any other view that falls back fails): the attention's q.reshape "
-        "of the query heads, sharded over model=16, into fewer KV groups "
-        "(StarCoder2-15B's 48 into 4, Jamba's 64 into 8 on 2.11).  The "
-        "attention then runs on q replicated over model, which the "
-        "reference's GSPMD does not: the pair's counts are this plan's",
 }
 
 
@@ -131,7 +123,9 @@ def measure(prog, mesh, rules: str = "train", constrain_acts: bool = False,
     count it: argument, output and temp bytes per device, local flops
     and bytes, collective records and fallbacks (raises on a fallback
     outside ``KNOWN_FALLBACKS``).  A recurrent token loop longer than
-    ``loop_limit`` tokens is counted, not run (`localcost.CountedScan`)."""
+    ``loop_limit`` tokens is counted, not run (`localcost.CountedScan`);
+    query heads split into fewer KV groups than the ranks sharding them
+    run on their group's shards (`localcost.kv_group_shards`)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.models.actsharding import activation_ctx
@@ -154,7 +148,7 @@ def measure(prog, mesh, rules: str = "train", constrain_acts: bool = False,
             else contextlib.nullcontext()
         with implicit_replication(), acts, \
                 local_mixers(prog.model, mesh, cost, loop_limit), \
-                EinsumRule(), cost:
+                kv_group_shards(), EinsumRule(), cost:
             out = prog.fn(*placed, place=place)
         t_run = time.perf_counter() - t0 - t_place
         output_bytes = cost.held_bytes(out)

@@ -34,13 +34,16 @@ masked partial sum loses its mask through a later view).  An in-place
 local shard; any other op whose sharding ``DTensor`` cannot propagate
 runs on its inputs replicated first (and on their local copies when it
 has no strategy at all).  Each such op is counted under ``fallbacks`` in
-the result.  The MoE FFN and the recurrent mixers run batch-local on
-gathered weights (`local_mixers`).  Their token loops (`models.scan`)
-run token by token up to ``TOKEN_LOOP_LIMIT`` tokens; a longer loop is
-counted (`CountedScan`): a few of its steps run for real and the rest
-are the steady step's counts scaled, forward and backward, with the
-live bytes every step leaves behind held as fake storage, so flops,
-bytes and temp are those of the whole loop.
+the result.  The attention, where a mesh dim shards the query heads and
+they split into fewer KV groups than it has ranks, runs on each rank's
+heads of one group, as GSPMD lays them out (`kv_group_shards`): its q
+view has no ``DTensor`` strategy.  The MoE FFN and the recurrent mixers
+run batch-local on gathered weights (`local_mixers`).  Their token loops
+(`models.scan`) run token by token up to ``TOKEN_LOOP_LIMIT`` tokens; a
+longer loop is counted (`CountedScan`): a few of its steps run for real
+and the rest are the steady step's counts scaled, forward and backward,
+with the live bytes every step leaves behind held as fake storage, so
+flops, bytes and temp are those of the whole loop.
 """
 from __future__ import annotations
 
@@ -124,7 +127,8 @@ def _splits_shards(x, size) -> bool:
     """Whether a view of the ``DTensor`` ``x`` to ``size`` splits a dim
     that a mesh dim shards, with an outer factor that mesh dim does not
     divide: ``DTensor`` can keep the shards only on the outer factor
-    (the attention's q.reshape of query heads into fewer KV groups)."""
+    (the attention's q.reshape of query heads into fewer KV groups,
+    which `kv_group_shards` runs on the shards instead)."""
     from torch.distributed.tensor import Shard
     size = list(size)
     if -1 in size:
@@ -249,7 +253,6 @@ class LocalCost(TorchDispatchMode):
                                         if isinstance(v, DTensor) else v)
             return args[0]
         mutated = func._schema.is_mutable
-        split = func is aten.view.default and _splits_shards(*args[:2])
 
         def rep(i, x):
             if isinstance(x, (list, tuple)):
@@ -263,8 +266,7 @@ class LocalCost(TorchDispatchMode):
             out = func(*args, **kwargs)
         except Exception:                # no strategy for any placement
             return self._run_local(func, args, kwargs, first)
-        self.fallbacks[f"{func} (replicated"
-                       f"{', a sharded dim split' if split else ''})"] += 1
+        self.fallbacks[f"{func} (replicated)"] += 1
         return out
 
     def _run_local(self, func, args, kwargs, first):
@@ -779,6 +781,101 @@ def local_mixers(model: nn.Module, mesh, cost: "LocalCost",
     finally:
         for mod, meth in patched:
             delattr(mod, meth)
+
+
+def _on_group_shards(fn):
+    """``fn`` (an attention taking q (B, S, H, hd) and k, v (B, L, KV,
+    hd) first, returning q's shape) run as GSPMD runs it when a mesh dim
+    m of n ranks shards q's H heads and n is a multiple of KV: the view
+    of the heads as (KV groups, heads a group) then puts the groups over
+    KV of m's ranks and a group's heads over the other n / KV, so each
+    rank holds H / n heads of one group and needs only that group's k
+    and v.  ``DTensor`` has no strategy for such a view (its outer
+    factor KV is not a multiple of n).  So q's local heads are taken as
+    a ``DTensor`` of H / n heads, k and v as their one group (both
+    replicated over m: a ``Partial`` k is reduced first; its gradient
+    comes back ``Partial`` over m), ``fn`` runs on them under ``DTensor``
+    on every other mesh dim, and its result is put back sharded over m.
+    Anything else (no such split, or another argument sharded over m)
+    runs as it is."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    def run(q, k, v, *rest, **kw):
+        if not (isinstance(q, DTensor) and q.dim() == 4 and k.dim() == 4):
+            return fn(q, k, v, *rest, **kw)
+        B, S, H, hd = q.shape
+        KV = k.shape[2]
+        mesh = q.device_mesh
+        ms = [i for i, p in enumerate(q.placements)
+              if type(p) is Shard and p.dim == 2]
+        if H % KV or len(ms) != 1 \
+                or not _splits_shards(q, (B, S, KV, H // KV, hd)):
+            return fn(q, k, v, *rest, **kw)
+        m = ms[0]
+        n = mesh.size(m)
+        if H % n or n % KV or any(
+                isinstance(t, DTensor) and type(t.placements[m]) is Shard
+                for t in (k, v, *rest, *kw.values())):
+            return fn(q, k, v, *rest, **kw)
+        per = H // n
+        g0 = mesh.get_coordinate()[m] * per // (H // KV)
+
+        def on_m(pl, p):
+            return [p if i == m else x for i, x in enumerate(pl)]
+
+        def dt(local, pl, shape):
+            return DTensor.from_local(local, mesh, pl, run_check=False,
+                                      shape=shape,
+                                      stride=_stride_like(local, shape))
+
+        def whole_on_m(t):
+            if not isinstance(t, DTensor) or t.placements[m].is_replicate():
+                return t
+            return t.redistribute(mesh, on_m(t.placements, Replicate()))
+
+        def group(t):
+            t = whole_on_m(t)
+            pl = list(t.placements)
+            loc = t.to_local(grad_placements=on_m(pl, Partial()))
+            return dt(loc.narrow(2, g0, 1), pl,
+                      (*t.shape[:2], 1, *t.shape[3:]))
+
+        q_heads = dt(q.to_local(), on_m(q.placements, Replicate()),
+                     (B, S, per, hd))
+        out = fn(q_heads, group(k), group(v),
+                 *[whole_on_m(t) for t in rest],
+                 **{key: whole_on_m(t) for key, t in kw.items()})
+        if not out.placements[m].is_replicate():
+            raise AssertionError(f"{fn.__name__} on one KV group came out "
+                                 f"{out.placements[m]} over the heads' "
+                                 f"mesh dim")
+        return dt(out.to_local(), on_m(out.placements, Shard(2)),
+                  tuple(q.shape))
+    return run
+
+
+@contextlib.contextmanager
+def kv_group_shards():
+    """Run the attention of a dry-run on q's shards where the query heads
+    split into fewer KV groups than the mesh dim sharding them has ranks
+    (`_on_group_shards`): the masked attention of training
+    (`models.attention.gqa_attention`), the prefill's and the decode
+    step's (the plain versions behind `kernels.flash_attention.ops` and
+    `kernels.decode_attention.ops`)."""
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import attention
+
+    sites = [(attention, "gqa_attention"), (flash_ops, "flash_attention"),
+             (decode_ops, "decode_attention")]
+    saved = [getattr(mod, name) for mod, name in sites]
+    for (mod, name), fn in zip(sites, saved):
+        setattr(mod, name, _on_group_shards(fn))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(sites, saved):
+            setattr(mod, name, fn)
 
 
 def _stride_like(local: torch.Tensor, shape) -> tuple:

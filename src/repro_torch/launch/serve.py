@@ -35,10 +35,17 @@ mesh has one rank, so one shard serves.  ``--metrics-json PATH`` dumps
 the telemetry registry as JSON-lines after the run, and
 ``--metrics-interval N`` every N batches too.
 
+``--scenario NAME`` builds no engine or encoder: it replays one seeded
+trace of `launch.scenarios` through a fresh tiered cache on
+``--device`` under the trace's logical clock (`launch.replay`; DESIGN.md
+§14.1) and prints the scored row, as the reference does:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --scenario drift --conformal
+
 The prompts of cache misses are encoded with a tokenizer of the
 *decoder's* vocab, not the encoder's: the encoder's ids would fall
-outside the decoder's embedding table.  ``--scenario``, which the port
-lacks, is refused with the slice that brings it.
+outside the decoder's embedding table.
 """
 from __future__ import annotations
 
@@ -56,12 +63,6 @@ from repro_torch.launch.mesh import make_cache_mesh
 from repro_torch.models import LM
 from repro_torch.obs import Telemetry, write_jsonl
 from repro_torch.serving import CachedLLMService, ServeEngine
-
-# reference options the port does not run yet, with the slice that brings
-# each (ROADMAP.md queue A)
-_NOT_PORTED = {
-    "scenario": ("--scenario", "the benchmarks slice"),
-}
 
 
 def parse_args(argv=None):
@@ -118,12 +119,12 @@ def parse_args(argv=None):
                          "serve only above a recency-window quantile of "
                          "observed negative scores (DESIGN.md §14.3; "
                          "implies --tiered)")
-    ap.add_argument("--scenario", default=None)
+    ap.add_argument("--scenario", default=None, metavar="NAME",
+                    help="replay one launch/scenarios.py trace against a "
+                         "fresh tiered cache under its logical clock and "
+                         "print the scored row (no LLM engine; DESIGN.md "
+                         "§14.1) — e.g. drift, ttl_churn")
     args = ap.parse_args(argv)
-    for dest, (flag, slice_name) in _NOT_PORTED.items():
-        if getattr(args, dest):
-            ap.error(f"{flag} is not supported by the PyTorch port yet; it "
-                     f"arrives with {slice_name} (ROADMAP.md queue A)")
     if args.metrics_json and not args.cache:
         ap.error("--metrics-json instruments the cached serving path; "
                  "add --cache")
@@ -208,8 +209,42 @@ def make_cache(args, dim: int, telemetry: Telemetry, trainer=None,
     return cache
 
 
+def run_scenario(args) -> dict:
+    """--scenario NAME: replay one trace of `launch.scenarios` against a
+    fresh tiered cache on ``args.device`` under the trace's logical clock
+    and print the scored row (the reference's lines); returns the row."""
+    from repro_torch.launch import replay, scenarios
+    if args.scenario not in scenarios.SCENARIOS:
+        raise SystemExit(f"unknown scenario {args.scenario!r}; have "
+                         f"{sorted(scenarios.SCENARIOS)}")
+    trace = scenarios.build(args.scenario, smoke=args.smoke)
+    row = replay.replay(trace, conformal=args.conformal, device=args.device)
+    print(f"scenario {row['scenario']} ({row['mode']} mode): "
+          f"{row['n_queries']} queries over {row['n_steps']} steps")
+    print(f"  hit rate {row['hit_rate']:.3f}, false-hit rate "
+          f"{row['false_hit_rate']:.4f} (budget "
+          f"{row['false_hit_budget']}), stale serves "
+          f"{row['stale_serves']}")
+    print(f"  plan p50 {row['p50_us_per_row']:.0f} us/row, "
+          f"p99 {row['p99_us_per_row']:.0f} us/row "
+          f"({row['timed_batches']} timed batches)")
+    if row.get("ttl_stamped"):
+        print(f"  ttl: {row['ttl_stamped']} stamped, "
+              f"{row['expired_masked']} masked, "
+              f"{row['expired_reaped']} reaped")
+    if row.get("conformal_floors"):
+        floors = ", ".join(f"t{t}={v:.3f}"
+                           for t, v in sorted(row["conformal_floors"]
+                                              .items()))
+        print(f"  conformal: {row['hit_audits']} hits audited, "
+              f"{row['audited_false_hits']} false; floors {floors}")
+    return row
+
+
 def main(argv=None):
     args = parse_args(argv)
+    if args.scenario:
+        return run_scenario(args)
     # the mesh first: under torchrun it starts the group and takes this
     # rank's card, where the models below are built
     mesh = make_cache_mesh(args.cache_shards, device=args.device) \

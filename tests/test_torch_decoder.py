@@ -223,8 +223,8 @@ def test_launcher_serves_on_the_cpu():
     assert st["requests"] == 16
     assert st["generations"] >= 1
     assert st["generations"] + st["coalesced_misses"] == st["misses"]
-    with pytest.raises(SystemExit):
-        serve.parse_args(["--device", "cpu", "--scenario", "drift"])
+    with pytest.raises(SystemExit, match="unknown scenario 'no-such'"):
+        serve.main(["--device", "cpu", "--scenario", "no-such"])
     args = serve.parse_args(["--device", "cpu", "--cold-capacity", "64",
                              "--conformal"])
     assert args.tiered and args.cold_capacity == 64 and args.conformal

@@ -201,20 +201,181 @@ def _view_fallbacks(sizes):
     return out
 
 
-def test_a_view_is_a_known_fallback_only_where_it_splits_shards():
+def test_a_view_falls_back_where_it_splits_shards():
     """A view that splits the sharded dim (8 over 4 shards) into an outer
     factor the mesh dim does not divide (2 x 4: the attention's q.reshape
-    into fewer KV groups than shards) falls back under its own key, which
-    ``KNOWN_FALLBACKS`` names; the plain replicated-view key is no known
-    gap, so any other view that fell back would fail its pair.  A split
-    into 4 x 2 and views that merge dims keep their shards."""
-    split = "aten.view.default (replicated, a sharded dim split)"
-    assert split in KNOWN_FALLBACKS
-    assert "aten.view.default (replicated)" not in KNOWN_FALLBACKS
+    into fewer KV groups than shards) has no ``DTensor`` strategy: it
+    falls back, which no known gap covers, so a pair where it happened
+    would fail (the attention runs on the KV groups' shards instead,
+    below).  A split into 4 x 2 and views that merge dims keep their
+    shards."""
+    rep = "aten.view.default (replicated)"
+    assert not any(k.startswith("aten.view") for k in KNOWN_FALLBACKS)
     got = in_child(_view_fallbacks, ([(2, 3, 2, 4, 5), (2, 3, -1, 4, 5),
                                       (2, 3, 4, 2, 5), (6, 8, 5),
                                       (2, 3, 40)],), timeout=120)
-    assert got == [{split: 1}, {split: 1}, {}, {}, {}]
+    assert got == [{rep: 1}, {rep: 1}, {}, {}, {}]
+    with pytest.raises(RuntimeError, match="aten.view.default"):
+        check_fallbacks("p", got[0])
+
+
+ATTENTION_SITES = ("gqa_attention", "flash_attention", "decode_attention")
+
+
+def _attention_counts(site, model):
+    """Local flops (forward, and backward for the training attention),
+    fallbacks and the output's placements of one reduced attention on a
+    fake 1 x ``model`` mesh: q of 12 heads sharded over model, k and v of
+    2 KV groups replicated, through ``site`` as the dry-run calls it."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.localcost import (
+        EinsumRule, LocalCost, contiguous_stride, fake_mesh, kv_group_shards,
+    )
+    from repro_torch.models import attention
+
+    B, S, H, KV, hd = 2, 8, 12, 2, 16
+    Sq = 1 if site == "decode_attention" else S
+    grad = site == "gqa_attention"
+    with fake_mesh({"data": 1, "model": model}) as mesh, FakeTensorMode():
+        def dt(shape, pl, local):
+            return DTensor.from_local(
+                torch.empty(local), mesh, pl, run_check=False, shape=shape,
+                stride=contiguous_stride(shape)).requires_grad_(grad)
+        rep = [Replicate(), Replicate()]
+        q = dt((B, Sq, H, hd), [Replicate(), Shard(2)],
+               (B, Sq, H // model, hd))
+        k, v = (dt((B, S, KV, hd), rep, (B, S, KV, hd)) for _ in "kv")
+        with implicit_replication(), kv_group_shards(), EinsumRule(), \
+                LocalCost(model) as cost:
+            if site == "gqa_attention":
+                pos = torch.arange(S)
+                o = attention.gqa_attention(q, k, v, q_pos=pos, kv_pos=pos,
+                                            causal=True, window=0)
+            elif site == "flash_attention":
+                o = flash_ops.flash_attention(q, k, v, causal=True)
+            else:
+                valid = DTensor.from_local(torch.ones(B, S, dtype=torch.bool),
+                                           mesh, rep, run_check=False)
+                o = decode_ops.decode_attention(q, k, v, valid)
+            fwd = cost.flops
+            if grad:
+                o.sum().backward()
+        def names(pl):
+            return [f"S{p.dim}" if p.is_shard() else
+                    "P" if p.is_partial() else "R" for p in pl]
+        return {"fwd": fwd, "flops": cost.flops,
+                "fallbacks": dict(cost.fallbacks), "shape": tuple(o.shape),
+                "placements": names(o.placements),
+                "local": tuple(o.to_local().shape),
+                "grads": [None if t.grad is None else names(t.grad.placements)
+                          for t in (q, k, v)]}
+
+
+@pytest.mark.parametrize("site", ATTENTION_SITES)
+def test_attention_runs_on_the_kv_group_shards(site):
+    """12 query heads sharded over model=4 viewed as 2 KV groups: each
+    rank holds 3 heads of one group, as GSPMD lays them out.  The
+    attention runs with no fallback on those heads and their group's k
+    and v, so its einsums' flops per device (forward and, in training,
+    backward) are a quarter of the same program's on a 1x1 mesh, and its
+    output stays sharded over model; in training the gradients reach q
+    sharded as q and k, v as partial sums over model."""
+    one, four = in_child(_attention_counts_both, (site,), timeout=180)
+    assert four["fallbacks"] == {} and one["fallbacks"] == {}
+    assert one["fwd"] > 0
+    assert four["fwd"] * 4 == one["fwd"]
+    assert four["flops"] * 4 == one["flops"]
+    Sq = 1 if site == "decode_attention" else 8
+    assert four["shape"] == one["shape"] == (2, Sq, 12, 16)
+    assert four["placements"] == ["R", "S2"]
+    assert four["local"] == (2, Sq, 3, 16)
+    if site == "gqa_attention":
+        assert four["flops"] > four["fwd"]
+        assert four["grads"][0] == ["R", "S2"]
+        assert four["grads"][1] == four["grads"][2] == ["R", "P"]
+
+
+def _attention_counts_both(site):
+    return _attention_counts(site, 1), _attention_counts(site, 4)
+
+
+def _group_shard_errors(rank, seed):
+    """On a real 1x4 gloo mesh: the three attention sites through
+    `kv_group_shards` on q sharded over model against the plain function
+    on whole tensors (max |diff| of the outputs, and for the training
+    attention of the q, k and v gradients)."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.localcost import EinsumRule, kv_group_shards
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention
+
+    mesh = make_mesh({"data": 1, "model": 4}, device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    B, S, H, KV, hd = 2, 8, 12, 2, 16
+    pos = torch.arange(S)
+    valid = torch.rand(B, S, generator=g) > 0.3
+    valid[:, 0] = True
+    sites = {
+        "gqa": (lambda q, k, v, *_: attention.gqa_attention(
+            q, k, v, q_pos=pos, kv_pos=pos, causal=True, window=0), S),
+        "flash": (lambda q, k, v, *_: flash_ops.flash_attention(
+            q, k, v, causal=True), S),
+        "decode": (lambda q, k, v, m: decode_ops.decode_attention(
+            q, k, v, m), 1),
+    }
+    errs = {}
+    for name, (fn, Sq) in sites.items():
+        q = torch.randn(B, Sq, H, hd, generator=g, requires_grad=True)
+        k = torch.randn(B, S, KV, hd, generator=g, requires_grad=True)
+        v = torch.randn(B, S, KV, hd, generator=g, requires_grad=True)
+        w = torch.randn(B, Sq, H, hd, generator=g)
+        grad = name == "gqa"
+        with torch.set_grad_enabled(grad):
+            want = fn(q, k, v, valid)
+            if grad:
+                (want * w).sum().backward()
+            rep = [Replicate(), Replicate()]
+            qd = distribute_tensor(q.detach(), mesh, [Replicate(), Shard(2)]
+                                   ).requires_grad_(grad)
+            kd, vd = (distribute_tensor(t.detach(), mesh, rep
+                                        ).requires_grad_(grad)
+                      for t in (k, v))
+            md = distribute_tensor(valid, mesh, rep)
+            with implicit_replication(), kv_group_shards(), EinsumRule():
+                got = fn(qd, kd, vd, md)
+                if grad:
+                    (got * distribute_tensor(w, mesh, got.placements)
+                     ).sum().backward()
+        errs[name] = [float((got.full_tensor() - want).abs().max())]
+        if grad:
+            errs[name] += [float((d.grad.full_tensor() - t.grad).abs().max())
+                           for d, t in ((qd, q), (kd, k), (vd, v))]
+    return errs
+
+
+def test_kv_group_shards_compute_the_attention(tmp_path):
+    """The plan `kv_group_shards` counts computes the attention itself:
+    on four gloo ranks with real tensors, the training attention's
+    output and its q, k, v gradients, the prefill's and the decode
+    step's outputs equal the plain functions' on whole tensors."""
+    from test_torch_ranks import spawn
+    res = spawn(4, _group_shard_errors, (7,), tmp_path, timeout=180)
+    for errs in res:
+        assert set(errs) == {"gqa", "flash", "decode"}
+        assert len(errs["gqa"]) == 4
+        for name, e in errs.items():
+            assert max(e) <= 1e-5, (name, e)
 
 
 OTHER_RULES = ("serve_nofsdp", "cache_dp")

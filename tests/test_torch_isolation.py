@@ -1,6 +1,8 @@
 """The port stands alone: nothing under ``src/repro_torch/``, nor
-``chip_smoke.py`` or the port's example, imports JAX or the reference
-package; the entry points (the decoder and its launcher included) refuse
+``chip_smoke.py`` or the port's example, imports JAX, the reference
+package or the reference's benchmarks (nor loads a module from a file
+path, as the reference's ``serve --scenario`` loads its benchmark's);
+the entry points (the decoder and its launcher included) refuse
 to run on a card that is absent rather than continue on the CPU; no
 kernel wrapper has a fallback path."""
 import ast
@@ -43,7 +45,17 @@ def _imported_roots(path: Path):
 def test_no_jax_or_reference_imports(path):
     roots = set(_imported_roots(path))
     assert not roots & {"jax", "jaxlib", "repro", "flax", "optax",
-                        "msgpack", "ml_dtypes"}, roots
+                        "msgpack", "ml_dtypes", "benchmarks", "scenarios",
+                        "bench_scenarios"}, roots
+
+
+@pytest.mark.parametrize("path", [p for p in STANDALONE
+                                  if PORT in p.parents],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_loaded_from_a_file_path(path):
+    """The port keeps its own copy of what it needs (the scenario traces
+    and their replay among them): no module of it loads another by path."""
+    assert "spec_from_file_location" not in path.read_text()
 
 
 def test_the_slice_modules_are_covered():
@@ -57,6 +69,7 @@ def test_the_slice_modules_are_covered():
                 "models/mamba.py", "models/xlstm.py", "models/scan.py",
                 "serving/engine.py", "serving/frontend.py",
                 "launch/serve.py", "launch/train.py",
+                "launch/scenarios.py", "launch/replay.py",
                 "launch/mesh.py", "core/distrib.py",
                 "launch/sharding.py", "launch/programs.py",
                 "launch/roofline.py", "launch/dryrun.py",
@@ -151,6 +164,7 @@ def test_entry_points_raise_without_a_card(no_card):
                  lambda: stub_frontend_embeds(
                      get_config("pixtral-12b").reduced(), 1),
                  lambda: serve.main(["--requests", "1"]),
+                 lambda: serve.main(["--scenario", "drift"]),
                  lambda: train.main(["--smoke", "--steps", "1"]),
                  lambda: make_cache_mesh(2),
                  lambda: CacheService(CacheConfig(dim=16), device="cuda:0")):
